@@ -33,11 +33,14 @@ Randomness.  The sampler takes its draws as an argument
     patchmatch_tile.py;
   - `tile_sweep_plain`: the plain PyTorch version (a loop over the 36
     slots with batched window gathers);
-  - `tile_sweep`: the dispatch by device.
+  - `tile_sweep`: the dispatch by device;
+  - `unexplained_offsets`: where two sweeps' offsets differ other than
+    at ties, for holding the kernel against a reference.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Sequence, Tuple
 
@@ -429,6 +432,58 @@ def tile_sweep_plain(a_planes, b_planes, cand_y, cand_x, cand_valid,
     )
 
 
+def pixel_dist(a_planes, b_planes, qy, qx, off_y, off_x, *, specs,
+               geom: TileGeometry, ha: int, wa: int) -> torch.Tensor:
+    """The sweep's windowed distance of B' pixels (qy, qx) matched to A
+    pixels (qy + off_y, qx + off_x), all 1-D int64, summed tap by tap:
+    the metric the sweep minimizes, one pixel at a time.  A match
+    outside A gets +inf."""
+    p = geom.halo
+    ay, ax = qy + off_y, qx + off_x
+    inside = (ay >= 0) & (ay < ha) & (ax >= 0) & (ax < wa)
+    ay, ax = ay.clamp(0, ha - 1), ax.clamp(0, wa - 1)
+    d = torch.zeros(qy.shape, dtype=torch.float32, device=qy.device)
+    for c, sp in enumerate(specs):
+        r = len(sp.wy) // 2
+        for ty, wt_y in enumerate(sp.wy):
+            dy = p + (ty - r) * sp.dilation
+            for tx, wt_x in enumerate(sp.wx):
+                dx = p + (tx - r) * sp.dilation
+                diff = (b_planes[c, qy + dy, qx + dx]
+                        - a_planes[c, ay + dy, ax + dx])
+                d = d + (wt_y * wt_x) * diff * diff
+    return torch.where(inside, d, torch.full_like(d, float("inf")))
+
+
+def unexplained_offsets(got, want, state_in, a_planes, b_planes, *, specs,
+                        geom: TileGeometry, ha: int, wa: int, h: int,
+                        w: int) -> torch.Tensor:
+    """The pixels of [0, h) x [0, w) where sweep result `got` = (off_y,
+    off_x, dist) records another offset than `want` does, and that is
+    not a tie: the distance `got`'s offset reaches is not within rtol
+    1e-4 / atol 1e-5 of `want`'s distance, neither its window distance
+    (`pixel_dist`) nor, where it is the incoming offset of `state_in`,
+    the incoming distance.  Each triple holds compact or (h, w) planes;
+    returns a bool (h, w) mask."""
+    gy, gx, wy, wx, iy, ix, wd, di = (
+        t[:h, :w] for t in (*got[:2], *want[:2], *state_in[:2], want[2],
+                            state_in[2])
+    )
+    bad = torch.zeros((h, w), dtype=torch.bool, device=gy.device)
+    qy, qx = torch.nonzero((gy != wy) | (gx != wx), as_tuple=True)
+    if qy.numel() == 0:
+        return bad
+    oy, ox = gy[qy, qx].long(), gx[qy, qx].long()
+    ref = wd[qy, qx].float()
+    tol = 1e-5 + 1e-4 * ref.abs()
+    ok = (pixel_dist(a_planes, b_planes, qy, qx, oy, ox, specs=specs,
+                     geom=geom, ha=ha, wa=wa) - ref).abs() <= tol
+    kept = (oy == iy[qy, qx]) & (ox == ix[qy, qx])
+    ok |= kept & ((di[qy, qx].float() - ref).abs() <= tol)
+    bad[qy, qx] = ~ok
+    return bad
+
+
 def window_weights(specs) -> Tuple[np.ndarray, list]:
     """(2, 2, MAX_TAPS) float32 window weights ([group][y, x][tap]) and
     the kernel's group description [(n_channels, taps, dilation)] for
@@ -449,6 +504,13 @@ def window_weights(specs) -> Tuple[np.ndarray, list]:
         desc.append((len(chans), len(sp.wy), sp.dilation))
         first += len(chans)
     return w, desc
+
+
+@functools.lru_cache(maxsize=None)
+def _device_weights(specs, device: torch.device) -> torch.Tensor:
+    """`window_weights(specs)` on `device`, copied there once per specs
+    rather than once per launch."""
+    return torch.as_tensor(window_weights(specs)[0]).to(device)
 
 
 def kernel_smem_bytes(n_chan: int, halo: int) -> int:
@@ -497,8 +559,8 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
     for t in (b_planes, cand_y, cand_x, cand_valid, off_y, off_x, dist):
         if t.device != dev:
             raise ValueError("tile_sweep: tensors on different devices")
-    w_np, desc = window_weights(specs)
-    weights = torch.as_tensor(w_np).to(dev)
+    _, desc = window_weights(specs)
+    weights = _device_weights(tuple(specs), dev)
     n0, taps0, dil0 = desc[0]
     _, taps1, dil1 = desc[1] if len(desc) > 1 else (0, 1, 1)
     oy_o = torch.empty(state_shape, dtype=torch.int32, device=dev)

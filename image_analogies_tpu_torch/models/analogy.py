@@ -99,7 +99,7 @@ def make_em_step(cfg: SynthConfig, level: int, has_coarse: bool,
     matcher = get_matcher(cfg.matcher)
 
     def em_step(src_b, flt_b, src_b_c, flt_b_c, f_a, copy_a, nnf,
-                draws: SweepDraws, proj=None, a_planes=None):
+                draws: SweepDraws, proj=None, a_planes=None, plan=None):
         f_b = assemble_features(
             src_b, flt_b, cfg,
             src_b_c if has_coarse else None,
@@ -108,12 +108,12 @@ def make_em_step(cfg: SynthConfig, level: int, has_coarse: bool,
         if cfg.pca_dims:
             f_b = project(f_b, proj)
         raw = None
-        if a_planes is not None:
+        if plan is not None:
             raw = RawPlanes(
                 src_b, flt_b,
                 src_b_c if has_coarse else None,
                 flt_b_c if has_coarse else None,
-                a_planes,
+                a_planes, plan,
             )
         nnf, dist = matcher.match(
             f_b, f_a, nnf, level=level, cfg=cfg, draws=draws, raw=raw,
@@ -230,7 +230,7 @@ def run_level(cfg: SynthConfig, level: int, levels: int, pyr, prev_nnf,
             src_b_c if has_coarse else src_b_l,
             flt_bp_coarse if has_coarse else flt_bp,
             f_a, pyr_copy_a[level], nnf,
-            SweepDraws(cfg.seed, level, em), proj, a_planes,
+            SweepDraws(cfg.seed, level, em), proj, a_planes, plan,
         )
         flt_bp = bp
     return nnf, dist, bp

@@ -39,13 +39,15 @@ from .matcher import (
 
 class RawPlanes(NamedTuple):
     """Raw channel images backing the tile path's metric; `a_planes` is
-    the level's `prepare_a_planes` tensor."""
+    the level's `prepare_a_planes` tensor, built from `plan`, the level's
+    tile plan (specs, use_coarse) from `plan_level`."""
 
     src_b: torch.Tensor
     flt_b: torch.Tensor
     src_b_coarse: Optional[torch.Tensor]
     flt_b_coarse: Optional[torch.Tensor]
     a_planes: torch.Tensor
+    plan: tuple
 
 
 # Propagation neighbourhood: left, right, up, down.
@@ -209,7 +211,6 @@ def tile_patchmatch(
     raw: RawPlanes,
     cfg: SynthConfig,
     level: int,
-    plan,
     plain: bool,
     polish_iters: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -232,7 +233,7 @@ def tile_patchmatch(
     ha, wa = f_a.shape[:2]
     dev = f_b.device
     f_a_flat = f_a.reshape(-1, f_a.shape[-1])
-    specs, use_coarse = plan
+    specs, use_coarse = raw.plan
     geom = tile_geometry(h, w, specs)
     coh = kappa_factor(cfg.kappa, level)
     pm_iters = _pm_iters_for(cfg, ha, wa)
@@ -300,33 +301,22 @@ def tile_patchmatch(
 
 class PatchMatchMatcher(Matcher):
     """PatchMatch seeded from the incoming NNF.  The tile path when raw
-    planes are given, the level is tile-eligible and pallas_mode is not
-    "off"; the per-pixel sweeps otherwise."""
+    planes are given (the level's plan chose it); the per-pixel sweeps
+    otherwise."""
 
     name = "patchmatch"
 
     def match(self, f_b, f_a, nnf, *, level, cfg: SynthConfig,
               draws: SweepDraws = None, raw: Optional[RawPlanes] = None,
               polish_iters=None):
-        from ..kernels import tile_path
-
         h, w = f_b.shape[:2]
         ha, wa = f_a.shape[:2]
-        if raw is not None and tile_path(cfg):
-            from ..kernels.patchmatch_tile import plan_channels
-
-            n_src = 1 if raw.src_b.ndim == 2 else raw.src_b.shape[-1]
-            n_flt = 1 if raw.flt_b.ndim == 2 else raw.flt_b.shape[-1]
-            plan = plan_channels(
-                n_src, n_flt, cfg, raw.src_b_coarse is not None,
-                h, w, ha, wa,
+        if raw is not None:
+            return tile_patchmatch(
+                f_b, f_a, nnf, draws, raw=raw, cfg=cfg, level=level,
+                plain=cfg.pallas_mode == "interpret",
+                polish_iters=polish_iters,
             )
-            if plan is not None:
-                return tile_patchmatch(
-                    f_b, f_a, nnf, draws, raw=raw, cfg=cfg, level=level,
-                    plan=plan, plain=cfg.pallas_mode == "interpret",
-                    polish_iters=polish_iters,
-                )
         coh = kappa_factor(cfg.kappa, level)
         nnf, dist = patchmatch_sweeps(
             f_b, f_a, nnf,

@@ -79,16 +79,21 @@ def test_tile_sweep_kernel_matches_plain(dev, h, w, ha, wa, n_src, n_flt,
     args = (a_planes, b_planes, cy, cx, cv, oy, ox, d_in)
     kw2 = dict(specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=coh)
     before = pt.launches.count
-    ky, kx, kd = pt.tile_sweep(*args, **kw2)
+    got = pt.tile_sweep(*args, **kw2)
     assert pt.launches.count == before + 1
-    py, px, pd = pt.tile_sweep_plain(*args, **kw2)
+    want = pt.tile_sweep_plain(*args, **kw2)
     torch.cuda.synchronize()
-    kd, pd = kd[:h, :w], pd[:h, :w]
+    kd, pd = got[2][:h, :w], want[2][:h, :w]
     tol = 1e-5 + 1e-4 * pd.abs()
     same_inf = torch.isinf(kd) & torch.isinf(pd)
     assert bool(((kd - pd).abs() <= tol).logical_or(same_inf).all())
-    differ = (ky[:h, :w] != py[:h, :w]) | (kx[:h, :w] != px[:h, :w])
+    differ = (got[0][:h, :w] != want[0][:h, :w]) | (
+        got[1][:h, :w] != want[1][:h, :w])
     assert float(differ.float().mean()) < 0.01
+    bad = pt.unexplained_offsets(got, want, (oy, ox, d_in), a_planes,
+                                 b_planes, specs=specs, geom=geom, ha=ha,
+                                 wa=wa, h=h, w=w)
+    assert not bool(bad.any())
 
 
 @pytest.mark.parametrize("n_b,n_a,d", [(1000, 3000, 68), (777, 65, 204),

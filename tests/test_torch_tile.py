@@ -141,6 +141,56 @@ def test_plain_sweep_against_numpy_oracle(rng, offset, coarse):
     assert (oy_o.numpy() == oy).all() and (ox_o.numpy() == ox).all()
 
 
+@pytest.mark.parametrize("coarse", [False, True])
+def test_pixel_dist_and_unexplained_offsets(rng, coarse):
+    h, w, ha, wa = 128, 128, 224, 256
+    bj, aj = _planes(rng, h, w, ha, wa, coarse)
+    specs = tpt.channel_specs(1, 1, TCfg(device="cpu"), coarse)
+    geom = tpt.tile_geometry(h, w, specs)
+    geo = dict(specs=specs, geom=geom, ha=ha, wa=wa)
+    planes = (tpt.prepare_a_planes(*_as(T, aj), specs),
+              tpt.prepare_b_planes(*_as(T, bj), geom))
+
+    # The per-pixel metric is the numpy oracle's; a match outside A is inf.
+    qy, qx = (t.reshape(-1) for t in torch.meshgrid(
+        torch.arange(h), torch.arange(w), indexing="ij"))
+    chans_b = [c.numpy() for c in tpt.channel_images(*_as(T, bj))]
+    chans_a = [c.numpy() for c in tpt.channel_images(*_as(T, aj))]
+    d = tpt.pixel_dist(*planes, qy, qx, torch.full_like(qy, 5),
+                       torch.full_like(qx, 9), **geo)
+    np.testing.assert_allclose(d.reshape(h, w).numpy(),
+                               _oracle(chans_b, chans_a, specs, 5, 9),
+                               rtol=1e-4, atol=1e-5)
+    edge = tpt.pixel_dist(*planes, qy[:2], qx[:2], torch.tensor([-1, 0]),
+                          torch.tensor([0, wa]), **geo)
+    assert torch.isinf(edge).all()
+
+    # A sweep explains itself; one moved offset is caught, unless every
+    # offset ties (constant planes).
+    off_y = (rng.integers(0, ha, (h, w)) - np.arange(h)[:, None]).astype(
+        np.int32)
+    off_x = (rng.integers(0, wa, (h, w)) - np.arange(w)[None, :]).astype(
+        np.int32)
+    state = (tpt.to_compact(T(off_y), geom), tpt.to_compact(T(off_x), geom),
+             torch.full((geom.n_ty * 64, geom.n_tx * geom.tile_w),
+                        float("inf")))
+    gen = torch.Generator().manual_seed(2)
+    tables = tpt.sample_candidates_blocked(
+        state[0], state[1], tpt.draw_candidates(gen, geom, ha, wa), geom,
+        ha, wa)
+    for flat in (False, True):
+        pl = tuple(torch.full_like(x, 0.5) for x in planes) if flat else planes
+        out = tpt.tile_sweep(*pl, *tables, *state, coh_factor=1.3, **geo)
+        assert not tpt.unexplained_offsets(out, out, state, *pl, h=h, w=w,
+                                           **geo).any()
+        moved = out[0].clone()
+        moved[3, 5] += 1
+        bad = tpt.unexplained_offsets((moved, out[1], out[2]), out, state,
+                                      *pl, h=h, w=w, **geo)
+        assert int(bad.sum()) == (0 if flat else 1)
+        assert flat or bool(bad[3, 5])
+
+
 def test_plan_channels_geometry_rule():
     cfg_t, cfg_j = TCfg(device="cpu"), JCfg()
     for h, w, ha, wa in [(128, 128, 128, 128), (127, 300, 256, 256),

@@ -20,14 +20,20 @@ from image_analogies_tpu_torch.kernels import patchmatch_tile as tpt
 from test_torch_tile import T, _as, _planes, jax_draws
 
 
-def _assert_sweep_close(got, want, h, w):
+def _assert_sweep_close(got, want, state_in, planes, h, w, **geo):
+    """Distances within tolerance; offsets equal except at ties, where
+    each side's offset reaches, under the port's per-pixel metric, a
+    distance within tolerance of the other side's winner."""
     gy, gx, gd = (x.numpy()[:h, :w] for x in got)
-    wy, wx, wd = (np.asarray(x) for x in want)
+    want = [T(np.array(x)) for x in want]
+    wy, wx, wd = (x.numpy() for x in want)
     np.testing.assert_allclose(gd, wd, rtol=1e-4, atol=1e-5)
-    tie = np.abs(gd - wd) <= 1e-5 + 1e-4 * np.abs(wd)
     differ = (gy != wy) | (gx != wx)
-    assert not (differ & ~tie).any()
     assert differ.mean() < 0.01
+    for a, b in ((got, want), (want, got)):
+        bad = tpt.unexplained_offsets(a, b, state_in, *planes, h=h, w=w,
+                                      **geo)
+        assert not bool(bad.any())
 
 
 @pytest.mark.parametrize("coarse", [False, True])
@@ -77,6 +83,8 @@ def test_plain_sweep_against_jax_interpret(rng, coarse):
         tpt.to_compact(T(dist), geom_t),
         specs=specs, geom=geom_t, ha=ha, wa=wa, coh_factor=coh,
     )
-    _assert_sweep_close(got, want, h, w)
+    _assert_sweep_close(got, want, (T(off_y), T(off_x), T(dist)),
+                        (a_planes_t, b_planes_t), h, w, specs=specs,
+                        geom=geom_t, ha=ha, wa=wa)
     # Both minima and the kappa merge took part.
     assert (got[2].numpy()[:h, :w] != dist).mean() > 0.5
