@@ -2,24 +2,31 @@
 
     python3 chip_smoke.py            # every phase, one card
 
+    python3 chip_smoke.py --phases k3,k1i8,compressed   # this slice's
+
 Builds the port's CUDA kernels from `image_analogies_tpu_torch/kernels/
 csrc/`, holds each kernel against its plain PyTorch version at the main
-path's shapes, drives the main path through `create_image_analogy`
-(the 1024^2 super-resolution headline with PatchMatch, and
-texture-by-numbers at 256^2 with the brute oracle), checks the output
-and its PSNR against the brute oracle, and prints one JSON line per
-phase.  The line before the last is the `kernels` summary; the last is
-`{"ok": true, "device": {...}}`.  Any failed phase raises, so the script
-exits non-zero and prints no result line; so does a machine without a
-CUDA device.
+path's shapes (K1 in float32 and int8 mode, K2 on float32 and bfloat16
+rows, K3 on bf16 and int8 tables), drives the main paths through
+`create_image_analogy` (the 1024^2 super-resolution headline with
+PatchMatch; the same headline with compressed candidates, int8 + PCA
+prune 16:8, and the streamed, sequential and jump polish engines; and
+texture-by-numbers at 256^2 with the brute oracle, in float32 and
+bfloat16), checks the outputs and their PSNR against the brute oracle,
+and prints one JSON line per phase.  The line before the last is the
+`kernels` summary; the last is `{"ok": true, "device": {...}}`.  Any
+failed phase raises, so the script exits non-zero and prints no result
+line; so does a machine without a CUDA device.
 
 Bounds (`bound_ms`) use the H100 SXM's published peaks: 67 TFLOP/s of
-FP32 on the CUDA cores and 3.35 TB/s of HBM.
+FP32 on the CUDA cores, 989 TFLOP/s of bf16 on the tensor cores and
+3.35 TB/s of HBM.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -30,8 +37,12 @@ import numpy as np
 import torch
 
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-PHASES = ("k1", "k2", "headline", "config1", "quality", "profile")
+PHASES = ("k1", "k2", "k3", "k1i8", "headline", "compressed", "config1",
+          "quality", "profile")
+HEADLINE = dict(levels=5, matcher="patchmatch", em_iters=2, pm_iters=6,
+                pm_polish_iters=1, device="cuda")
 
 
 def emit(obj) -> None:
@@ -55,14 +66,32 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(flops: float, nbytes: float) -> float:
-    return 1e3 * max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES)
+def bound_ms(flops: float, nbytes: float,
+             peak_flops: float = PEAK_FP32_FLOPS) -> float:
+    return 1e3 * max(flops / peak_flops, nbytes / PEAK_BYTES)
 
 
-def phase_k1(dev, rng):
-    """K1 against its plain version at the headline's level-0 shapes:
-    1024^2 B and A, 4 channels with the coarse pair, seeded candidate
-    tables with invalid slots, an incoming state, and kappa > 1."""
+@contextlib.contextmanager
+def Modes(cand_dtype, prune, polish):
+    """Sets the port's compressed-candidate and polish modes inside a
+    `with`, and restores the ones it found in a `finally` (a failure
+    inside still propagates)."""
+    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+    from image_analogies_tpu_torch.models import patchmatch as pm
+
+    saved = (pt._CAND_DTYPE, pt._CAND_PRUNE, pm._POLISH_MODE)
+    try:
+        pt.set_cand_compression(cand_dtype, prune)
+        pm.set_polish_mode(polish)
+        yield
+    finally:
+        pt._CAND_DTYPE, pt._CAND_PRUNE, pm._POLISH_MODE = saved
+
+
+def k1_case(dev, rng):
+    """K1's inputs at the headline's level-0 shapes: 1024^2 B and A, 4
+    channels with the coarse pair, seeded candidate tables with invalid
+    slots, an incoming state; returns (A images, args, kw)."""
     from image_analogies_tpu_torch.config import SynthConfig
     from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
 
@@ -103,6 +132,39 @@ def phase_k1(dev, rng):
     valid = torch.where(drop, torch.zeros_like(valid), valid).contiguous()
     args = (a_planes, b_planes, cand_y, cand_x, valid, oy, ox, d_in)
     kw = dict(specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=1.5)
+    return (src_a, flt_a, src_ac, flt_ac), args, kw
+
+
+def k1_flops_bytes(args, kw, a_itemsize):
+    """K1's compulsory work for one launch on these inputs: FLOP of the
+    valid slots (3 per channel difference, 4 per tap, the group adds, and
+    2 per loaded value to dequantize int8) and the bytes of the planes
+    once, the tables, and the state in and out."""
+    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+
+    a_planes, b_planes, valid = args[0], args[1], args[4]
+    specs, geom = kw["specs"], kw["geom"]
+    n_valid = int(valid.sum())
+    groups = pt.spec_groups(specs)
+    flop_per_px = 3 * len(specs) + sum(
+        4 * len(sp.wy) for sp, _ in groups
+    ) + len(groups) + (2 * len(specs) if a_itemsize == 1 else 0)
+    flops = n_valid * geom.tile_h * geom.tile_w * flop_per_px
+    state = geom.n_ty * geom.tile_h * geom.n_tx * geom.tile_w * 4
+    nbytes = a_planes.numel() * a_itemsize + b_planes.numel() * 4 \
+        + 3 * valid.numel() * 4 + 6 * state
+    return n_valid, flops, nbytes
+
+
+def phase_k1(dev, case):
+    """K1 against its plain version at the headline's level-0 shapes
+    (`k1_case`), kappa > 1."""
+    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+
+    _, args, kw = case
+    a_planes, b_planes, _, _, valid, oy, ox, d_in = args
+    h, w, ha, wa = 1024, 1024, kw["ha"], kw["wa"]
+    specs, geom = kw["specs"], kw["geom"]
 
     got = pt.tile_sweep_kernel(*args, **kw)
     want = pt.tile_sweep_plain(*args, **kw)
@@ -132,15 +194,7 @@ def phase_k1(dev, rng):
     ms = cuda_ms(lambda: pt.tile_sweep_kernel(*args, **kw))
     plain_ms = cuda_ms(lambda: pt.tile_sweep_plain(*args, **kw), reps=10,
                        warm=1)
-    n_valid = int(valid.sum())
-    groups = pt.spec_groups(specs)
-    flop_per_px = 3 * len(specs) + sum(
-        4 * len(sp.wy) for sp, _ in groups
-    ) + len(groups)
-    flops = n_valid * geom.tile_h * geom.tile_w * flop_per_px
-    state = geom.n_ty * geom.tile_h * geom.n_tx * geom.tile_w * 4
-    nbytes = (a_planes.numel() + b_planes.numel()) * 4 + 3 * valid.numel() * 4 \
-        + 6 * state
+    n_valid, flops, nbytes = k1_flops_bytes(args, kw, 4)
     rec = {
         "phase": "k1", "shape": [h, w, ha, wa], "channels": len(specs),
         "valid_slots": n_valid, "slots": int(valid.numel()),
@@ -153,6 +207,103 @@ def phase_k1(dev, rng):
         >= nbytes / PEAK_BYTES else "bytes",
         "flops": flops, "bytes": nbytes,
     }
+    emit(rec)
+    return rec
+
+
+def phase_k1i8(dev, case):
+    """K1 in int8 mode at the same shapes: against its plain version
+    (distances within rtol 1e-4 / atol 1e-5, offsets equal off ties),
+    and against the float32 kernel on host-dequantized planes (offsets
+    equal on every pixel, distances within rtol 1e-5)."""
+    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+
+    imgs, args, kw = case
+    a8 = pt.prepare_a_planes(*imgs, kw["specs"], cand_dtype="int8")
+    args8 = (a8,) + tuple(args[1:])
+    h = w = 1024
+    got = pt.tile_sweep_kernel(*args8, **kw)
+    want = pt.tile_sweep_plain(*args8, **kw)
+    deq = pt.tile_sweep_kernel(pt.dequantize_planes(a8), *args[1:], **kw)
+    torch.cuda.synchronize()
+    kd, pd = got[2][:h, :w], want[2][:h, :w]
+    close = (kd - pd).abs() <= 1e-5 + 1e-4 * pd.abs()
+    if not bool(close.all()):
+        raise AssertionError(
+            f"K1 int8 distances disagree at {int((~close).sum())} pixels"
+        )
+    geo = {k: v for k, v in kw.items() if k != "coh_factor"}
+    bad = pt.unexplained_offsets(got, want, args[5:8], a8, args[1], h=h,
+                                 w=w, **geo)
+    if bool(bad.any()):
+        raise AssertionError(
+            f"K1 int8 offsets differ off ties at {int(bad.sum())} pixels"
+        )
+    if not (torch.equal(got[0], deq[0]) and torch.equal(got[1], deq[1])):
+        raise AssertionError("K1 int8 offsets differ from the f32 kernel on "
+                             "dequantized planes")
+    dd = deq[2][:h, :w]
+    if not bool(((kd - dd).abs() <= 1e-5 * dd.abs()).all()):
+        raise AssertionError("K1 int8 distances differ from the f32 kernel "
+                             "on dequantized planes beyond rtol 1e-5")
+    ms = cuda_ms(lambda: pt.tile_sweep_kernel(*args8, **kw))
+    plain_ms = cuda_ms(lambda: pt.tile_sweep_plain(*args8, **kw), reps=10,
+                       warm=1)
+    n_valid, flops, nbytes = k1_flops_bytes(args8, kw, 1)
+    rec = {
+        "phase": "k1i8", "valid_slots": n_valid,
+        "max_abs_err": float((kd - pd).abs().max()),
+        "max_abs_err_vs_f32_dequant": float((kd - dd).abs().max()),
+        "unexplained_offsets": int(bad.sum()),
+        "tol": "rtol 1e-4 / atol 1e-5 vs plain, offsets equal off ties; "
+               "offsets equal and rtol 1e-5 vs f32 on dequantized planes",
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms(flops, nbytes),
+        "bound_by": "operations" if flops / PEAK_FP32_FLOPS
+        >= nbytes / PEAK_BYTES else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+    emit(rec)
+    return rec
+
+
+def phase_k3(dev, rng):
+    """K3 against its plain version at the 1024^2 level 0: a (1024^2, 68)
+    bf16 feature table LANE-padded (`prepare_polish_table`), the same
+    table quantized (`quantize_rows`), and 1,048,576 indices of a seeded
+    field with out-of-range entries for the clamp; bit-equal in both
+    dtypes.  The library yardstick is `index_select` on the clamped
+    indices."""
+    from image_analogies_tpu_torch.kernels import polish_stream as ps
+
+    n, d = 1024 * 1024, 68
+    f16 = torch.as_tensor(rng.random((n, d), dtype=np.float32),
+                          device=dev).to(torch.bfloat16)
+    q, _ = ps.quantize_rows(f16)
+    idx = torch.as_tensor(rng.integers(-1000, n + 1000, n), device=dev)
+    clamped = idx.clamp(0, n - 1)
+    rec = {"phase": "k3", "rows": n, "out_of_range":
+           int(((idx < 0) | (idx >= n)).sum())}
+    for name, table in (("bf16", ps.prepare_polish_table(f16)),
+                        ("int8", ps.prepare_polish_table(q))):
+        got = ps.gather_rows_kernel(table, idx)
+        want = ps.gather_rows_plain(table, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K3 rows differ from index_select ({name})")
+        # Each LANE-wide row read once and written once, and the indices.
+        row_bytes, _ = ps.polish_dma_bytes_per_fetch(
+            ps.LANE, table.element_size())
+        nbytes = n * (2 * row_bytes + idx.element_size())
+        rec[name] = {
+            "row_bytes": row_bytes,
+            "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: ps.gather_rows_kernel(table, idx)),
+            "plain_ms": cuda_ms(lambda: ps.gather_rows_plain(table, idx)),
+            "library_ms": cuda_ms(lambda: table.index_select(0, clamped)),
+            "bound_ms": bound_ms(0.0, nbytes), "bound_by": "bytes",
+            "bytes": nbytes,
+        }
     emit(rec)
     return rec
 
@@ -195,6 +346,20 @@ def phase_k2(dev, rng):
     library_ms = cuda_ms(library)
     flops = 2.0 * n * n * d
     nbytes = (2 * n * d + n) * 4 + n * 4
+
+    # bfloat16 rows (match_dtype="bfloat16"): the same argmin on rounded
+    # rows with float32 products; ties judged in that metric.
+    bf = torch.bfloat16
+    fb16, fa16 = f_b.to(bf), f_a.to(bf)
+    i16_k = nb.nn_argmin_kernel(fb16, fa16, a_sq)
+    i16_p = nb.nn_argmin_plain(f_b, f_a, a_sq, match_dtype=bf)
+    torch.cuda.synchronize()
+    m_k = nb.argmin_metric(f_b, f_a, a_sq, i16_k, bf)
+    m_p = nb.argmin_metric(f_b, f_a, a_sq, i16_p, bf)
+    differ16 = i16_k != i16_p
+    if bool((differ16 & ((m_k - m_p).abs() > 1e-5 * m_p.abs())).any()):
+        raise AssertionError("K2 bf16 argmin differs off ties")
+    bytes16 = (2 * n * d) * 2 + n * 4 + n * 4
     rec = {
         "phase": "k2", "shape": [n, n, d], "rows_differ": int(differ.sum()),
         "max_abs_err": max_err,
@@ -202,6 +367,16 @@ def phase_k2(dev, rng):
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms(flops, nbytes), "bound_by": "operations",
         "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+        "bf16": {
+            "rows_differ": int(differ16.sum()),
+            "max_abs_err": float((m_k - m_p).abs().max()),
+            "tie": "the kernel's own metric (f64) within 1e-5 rel",
+            "ms": cuda_ms(lambda: nb.nn_argmin_kernel(fb16, fa16, a_sq)),
+            "plain_ms": cuda_ms(lambda: nb.nn_argmin_plain(
+                f_b, f_a, a_sq, match_dtype=bf)),
+            "bound_ms": bound_ms(flops, bytes16, PEAK_BF16_FLOPS),
+            "bound_by": "operations",
+        },
     }
     emit(rec)
     return rec
@@ -235,8 +410,7 @@ def phase_headline(dev):
     from image_analogies_tpu_torch.utils.examples import super_resolution
 
     ex = super_resolution(1024)
-    cfg = SynthConfig(levels=5, matcher="patchmatch", em_iters=2,
-                      pm_iters=6, pm_polish_iters=1, device="cuda")
+    cfg = SynthConfig(**HEADLINE)
     run_synth(ex, cfg)  # warm
     walls, counts = [], []
     out = None
@@ -258,17 +432,113 @@ def phase_headline(dev):
     return rec, counts[-1]
 
 
-def phase_profile(dev):
-    """One headline run under torch.profiler: device time by kernel, and
-    the device's idle share of the run's wall."""
-    from torch.profiler import ProfilerActivity, profile
+def phase_compressed(dev, size=1024, quality_size=512):
+    """The headline with compressed candidates (int8 A planes and polish
+    rows, PCA prune 16:8): the streamed polish (K3) and the sequential
+    one, in turns with the default path, median of 3 warm walls each;
+    launch counts per run; stream B' bit-equal to sequential B'; then at
+    512^2 the compressed + stream and the jump polish against the brute
+    oracle."""
+    from image_analogies_tpu_torch import psnr
+    from image_analogies_tpu_torch.config import SynthConfig
+    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+    from image_analogies_tpu_torch.kernels import polish_stream as ps
+    from image_analogies_tpu_torch.utils.examples import super_resolution
 
+    ex = super_resolution(size)
+    cfg = SynthConfig(**HEADLINE)
+    # Launches per run.  Tile levels: the sides 1024, 512, 256 and 128
+    # (64^2 is below the tile rule and runs the per-pixel path).  K1:
+    # pm_iters sweeps per EM step, em_iters steps per tile level,
+    # 4 x 2 x 6 = 48.  K3: the polish gathers once per candidate
+    # evaluation, 1 + iters * (8 + n_random) times per polished call
+    # (`polish_eval_rows` per query row: the entry evaluation, then per
+    # sweep 4 shifted + 4 unshifted propagation candidates and 4 random
+    # probes), one polished EM step per tile level (pm_polish_final_only:
+    # the last of em_iters = 2), 4 x 1 x (1 + 1 x (8 + 4)) = 52.
+    tile_levels = sum(1 for lv in range(cfg.levels) if (size >> lv) >= 128)
+    k1_per_run = tile_levels * cfg.em_iters * cfg.pm_iters
+    k3_per_run = tile_levels * ps.polish_eval_rows(
+        1, cfg.pm_polish_iters, cfg.pm_polish_random)
+    arms = {
+        "default": ("bf16", "off", "sequential"),
+        "compressed_stream": ("int8", "16:8", "stream"),
+        "compressed_sequential": ("int8", "16:8", "sequential"),
+    }
+    walls = {name: [] for name in arms}
+    outs, launches = {}, {}
+    counters = (pt.launches, pt.launches_int8, ps.launches)
+    for rep in range(4):  # the first round warms each arm
+        for name, modes in arms.items():
+            with Modes(*modes):
+                for c in counters:
+                    c.reset()
+                out, wall = run_synth(ex, cfg)
+            counts = tuple(c.count for c in counters)
+            compressed = modes[0] == "int8"
+            want = (0, k1_per_run, k3_per_run if modes[2] == "stream"
+                    else 0) if compressed else (k1_per_run, 0, 0)
+            launches[name] = counts
+            if counts != want:
+                raise AssertionError(
+                    f"{name}: launches (K1 f32, K1 int8, K3) {counts}, "
+                    f"not {want}")
+            if rep:
+                walls[name].append(wall)
+            outs[name] = out
+    std = check_output(outs["compressed_stream"], ex[2].shape, "compressed")
+    if not torch.equal(outs["compressed_stream"],
+                       outs["compressed_sequential"]):
+        raise AssertionError("stream B' differs from sequential B'")
+    rec = {
+        "phase": "compressed", "size": size, "levels": cfg.levels,
+        "k1_int8_launches_per_run": launches["compressed_stream"][1],
+        "k3_launches_per_run": launches["compressed_stream"][2],
+        "k3_launches_derived": k3_per_run,
+        "stream_equals_sequential": True, "bp_std": std,
+        "psnr_compressed_vs_default": psnr(outs["compressed_stream"],
+                                                outs["default"]),
+    }
+    for name in arms:
+        rec[f"wall_s_median_{name}"] = statistics.median(walls[name])
+        rec[f"walls_s_{name}"] = walls[name]
+
+    ex5 = super_resolution(quality_size)
+    kw = dict(levels=5, em_iters=2, device="cuda")
+    oracle, _ = run_synth(ex5, SynthConfig(matcher="brute", **kw))
+    for name, modes in (("compressed_stream", arms["compressed_stream"]),
+                        ("jump", ("bf16", "off", "jump"))):
+        with Modes(*modes):
+            bp, wall = run_synth(ex5, SynthConfig(matcher="patchmatch", **kw))
+        value = psnr(bp, oracle)
+        rec[f"psnr_{quality_size}_{name}"] = value
+        rec[f"wall_{quality_size}_{name}_s"] = wall
+        if not value >= 33.0:
+            raise AssertionError(f"{name} PSNR vs oracle at "
+                                 f"{quality_size}^2 {value} < 33 dB")
+    rec["psnr_compressed_stream_meets_35"] = bool(
+        rec[f"psnr_{quality_size}_compressed_stream"] >= 35.0)
+    emit(rec)
+    return rec
+
+
+def phase_profile(dev):
+    """One headline run under torch.profiler, default and compressed:
+    device time by kernel, and the device's idle share of the wall."""
     from image_analogies_tpu_torch.config import SynthConfig
     from image_analogies_tpu_torch.utils.examples import super_resolution
 
     ex = super_resolution(1024)
-    cfg = SynthConfig(levels=5, matcher="patchmatch", em_iters=2,
-                      pm_iters=6, pm_polish_iters=1, device="cuda")
+    cfg = SynthConfig(**HEADLINE)
+    recs = [profile_run(ex, cfg, "default")]
+    with Modes("int8", "16:8", "stream"):
+        recs.append(profile_run(ex, cfg, "compressed_stream"))
+    return recs
+
+
+def profile_run(ex, cfg, arm):
+    from torch.profiler import ProfilerActivity, profile
+
     run_synth(ex, cfg)  # warm
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -286,7 +556,8 @@ def phase_profile(dev):
     rows.sort(reverse=True)
     busy_ms = sum(t for t, _, _ in rows) / 1e3
     rec = {
-        "phase": "profile", "wall_s": wall, "device_busy_ms": busy_ms,
+        "phase": "profile", "arm": arm, "wall_s": wall,
+        "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / (wall * 1e3)),
         "device_events": sum(n for _, _, n in rows),
         "top": [{"name": k[:90], "ms": t / 1e3, "calls": n}
@@ -311,8 +582,21 @@ def phase_config1(dev):
     if count != 6:
         raise AssertionError(f"K2 launched {count} times, not 6")
     std = check_output(out, ex[2].shape, "config1")
+    from image_analogies_tpu_torch import psnr
+
+    cfg16 = SynthConfig(levels=3, matcher="brute", em_iters=2,
+                        match_dtype="bfloat16", device="cuda")
+    run_synth(ex, cfg16)  # warm
+    nn_brute.launches.reset()
+    out16, wall16 = run_synth(ex, cfg16)
+    if nn_brute.launches.count != 6:
+        raise AssertionError(
+            f"K2 (bf16) launched {nn_brute.launches.count} times, not 6")
+    check_output(out16, ex[2].shape, "config1 bf16")
     rec = {"phase": "config1", "size": 256, "wall_s": wall,
-           "k2_launches": count, "bp_std": std}
+           "k2_launches": count, "bp_std": std, "wall_bf16_s": wall16,
+           "k2_launches_bf16": nn_brute.launches.count,
+           "psnr_bf16_vs_f32": psnr(out16, out)}
     emit(rec)
     return rec, count
 
@@ -380,12 +664,19 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": build_s, "ptxas": logs})
 
     rng = np.random.default_rng(0)
-    k1 = phase_k1(dev, rng) if "k1" in phases else {}
+    case = k1_case(dev, rng) if phases & {"k1", "k1i8"} else None
+    k1 = phase_k1(dev, case) if "k1" in phases else {}
     k2 = phase_k2(dev, rng) if "k2" in phases else {}
+    k3 = phase_k3(dev, rng) if "k3" in phases else {}
+    k1i8 = phase_k1i8(dev, case) if "k1i8" in phases else {}
     # Launch counts come from the main-path phases; null when not run.
-    k1_launches = k2_launches = None
+    k1_launches = k2_launches = k1i8_launches = k3_launches = None
     if "headline" in phases:
         _, k1_launches = phase_headline(dev)
+    if "compressed" in phases:
+        comp = phase_compressed(dev)
+        k1i8_launches = comp["k1_int8_launches_per_run"]
+        k3_launches = comp["k3_launches_per_run"]
     if "config1" in phases:
         _, k2_launches = phase_config1(dev)
     if "quality" in phases:
@@ -404,6 +695,16 @@ def main(argv=None) -> int:
             "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
             "library_ms": None,
         })
+    if k1i8:
+        kernels_line.append({
+            "name": "tile_sweep_int8", "route": "cuda",
+            "source": "image_analogies_tpu_torch/kernels/csrc/tile_sweep.cu",
+            "replaces": "image_analogies_tpu/kernels/patchmatch_tile.py:1034",
+            "launches": k1i8_launches, "max_abs_err": k1i8["max_abs_err"],
+            "ms": k1i8["ms"], "plain_ms": k1i8["plain_ms"],
+            "bound_ms": k1i8["bound_ms"], "bound_by": k1i8["bound_by"],
+            "library_ms": None,
+        })
     if k2:
         kernels_line.append({
             "name": "nn_argmin", "route": "cuda",
@@ -413,6 +714,18 @@ def main(argv=None) -> int:
             "ms": k2["ms"], "plain_ms": k2["plain_ms"],
             "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
             "library_ms": k2["library_ms"],
+        })
+    if k3:
+        # The compressed path's K3 launches gather the int8 table.
+        t = k3["int8"]
+        kernels_line.append({
+            "name": "gather_rows", "route": "cuda",
+            "source": "image_analogies_tpu_torch/kernels/csrc/row_gather.cu",
+            "replaces": "image_analogies_tpu/kernels/polish_stream.py:172",
+            "launches": k3_launches, "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
         })
     print(smi, flush=True)
     emit({"kernels": kernels_line})

@@ -9,7 +9,8 @@ same semantics.  Which one runs is decided by the tensor's device alone:
 
 `SynthConfig.pallas_mode` keeps its three values but chooses the
 ALGORITHM, not the device (see `tile_path` below and config.py); only the
-explicit "interpret" asks for K1's plain version on a CUDA tensor.
+explicit "interpret" asks for K1's and K3's plain versions on a CUDA
+tensor.
 
 The CUDA sources (`csrc/*.cu`, plain C entry points) are compiled with
 `nvcc -gencode arch=compute_90a,code=sm_90a` at first use, one `nvcc`
@@ -40,12 +41,17 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ia_torch_kernels"
 # C entry point -> argtypes, per source.  Pointers and the stream are
 # c_void_p (ctypes would otherwise pass a 32-bit int and cut them).
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 SOURCES: Dict[str, Dict[str, list]] = {
     "tile_sweep": {
-        "ia_tile_sweep": [_P] * 12 + [_I] * 16 + [_F] + [_P],
+        "ia_tile_sweep": [_P] * 12 + [_I] * 17 + [_F] + [_P],
     },
     "nn_brute": {
         "ia_nn_argmin": [_P] * 5 + [_I] * 3 + [_P],
+        "ia_nn_argmin_bf16": [_P] * 5 + [_I] * 3 + [_P],
+    },
+    "row_gather": {
+        "ia_gather_rows": [_P] * 3 + [_L] + [_I] * 2 + [_P],
     },
 }
 

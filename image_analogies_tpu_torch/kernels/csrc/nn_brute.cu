@@ -20,22 +20,38 @@
 // in TF32 would change the argmin against the float32 reference and are
 // left for later.
 //
+// Input types: float32 rows, or bfloat16 rows for `match_dtype=
+// "bfloat16"` (the reference's kernel takes both).  The loads are
+// templated on the element type and a bf16 value is widened to float32
+// in registers as it is staged, so products and sums stay float32;
+// `a_sq` is always the float32 norms of the UNROUNDED A rows, as the
+// reference computes them.  bf16 halves the table bytes, which are not
+// what bounds this kernel; its bound is then the bf16 tensor-core rate,
+// which this CUDA-core kernel does not use.
+//
 // Ties: each thread visits its A rows in increasing index order with a
 // strict `<`, so it holds the lexicographic (distance, index) minimum of
 // its rows; the 16 threads of a query row then merge lexicographically,
 // which gives the global first-index minimum, as jnp.argmin does.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
 constexpr int TQ = 64;   // queries per block
 constexpr int TA = 64;   // A rows per tile
 constexpr int KC = 16;   // feature columns per shared-memory stage
 
+template <typename T>
 __global__ void __launch_bounds__(256)
-nn_argmin_kernel(const float* __restrict__ fb, const float* __restrict__ fa,
+nn_argmin_kernel(const T* __restrict__ fb, const T* __restrict__ fa,
                  const float* __restrict__ a_sq, int* __restrict__ idx_out,
                  float* __restrict__ d_out, int n_b, int n_a, int d) {
   __shared__ float bs[KC][TQ];
@@ -69,8 +85,10 @@ nn_argmin_kernel(const float* __restrict__ fb, const float* __restrict__ fa,
         const int k = k0 + kk;
         const int q = q0 + row;
         const int j = j0 + row;
-        bs[kk][row] = (q < n_b && k < d) ? fb[(size_t)q * d + k] : 0.f;
-        as[kk][row] = (j < n_a && k < d) ? fa[(size_t)j * d + k] : 0.f;
+        bs[kk][row] =
+            (q < n_b && k < d) ? widen(fb[(size_t)q * d + k]) : 0.f;
+        as[kk][row] =
+            (j < n_a && k < d) ? widen(fa[(size_t)j * d + k]) : 0.f;
       }
       __syncthreads();
 #pragma unroll
@@ -128,15 +146,28 @@ nn_argmin_kernel(const float* __restrict__ fb, const float* __restrict__ fa,
   }
 }
 
+template <typename T>
+int launch(const T* fb, const T* fa, const float* a_sq, int* idx_out,
+           float* d_out, int n_b, int n_a, int d, cudaStream_t stream) {
+  const int blocks = (n_b + TQ - 1) / TQ;
+  if (blocks > 0) {
+    nn_argmin_kernel<T><<<blocks, 256, 0, stream>>>(fb, fa, a_sq, idx_out,
+                                                    d_out, n_b, n_a, d);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int ia_nn_argmin(const float* fb, const float* fa,
                             const float* a_sq, int* idx_out, float* d_out,
                             int n_b, int n_a, int d, cudaStream_t stream) {
-  const int blocks = (n_b + TQ - 1) / TQ;
-  if (blocks > 0) {
-    nn_argmin_kernel<<<blocks, 256, 0, stream>>>(fb, fa, a_sq, idx_out,
-                                                 d_out, n_b, n_a, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch(fb, fa, a_sq, idx_out, d_out, n_b, n_a, d, stream);
+}
+
+extern "C" int ia_nn_argmin_bf16(const __nv_bfloat16* fb,
+                                 const __nv_bfloat16* fa, const float* a_sq,
+                                 int* idx_out, float* d_out, int n_b,
+                                 int n_a, int d, cudaStream_t stream) {
+  return launch(fb, fa, a_sq, idx_out, d_out, n_b, n_a, d, stream);
 }

@@ -2,8 +2,12 @@
 // candidate offsets (kernel K1 of the port).
 //
 // Replaces: image_analogies_tpu/kernels/patchmatch_tile.py `_make_kernel`
-// (launched by `_tile_sweep_jit` through `tile_sweep`), for its default
-// mode: float32 planes and one A band.  What it computes, for interior
+// (launched by `_tile_sweep_jit` through `tile_sweep`), for one A band,
+// with float32 A planes or, in the compressed-candidate mode, int8 A
+// planes on the static affine grid q = round(254 x - 127): the A load is
+// templated on the element type and an int8 value is dequantized to
+// (q + 127) * (1 / 254) in registers, the reference's formula, before
+// the channel difference.  What it computes, for interior
 // pixel q = (ty0 + u, tx0 + v) of tile (i, j), ty0 = 64 i, tx0 = tw j, and
 // candidate slot k with offset (oy, ox):
 //
@@ -42,7 +46,10 @@
 // planes in and out, about 60 MB) take about 18 us at 3.35 TB/s.  This
 // first kernel recomputes the 2P halo rows of every strip (12 rows for 8
 // outputs at P = 2) and streams the window from L2 for every slot, so it
-// sits well above that bound; making it fast is later work.
+// sits well above that bound; making it fast is later work.  The int8
+// mode reads a quarter of the A bytes per window (the planes, 4 MB at the
+// headline, sit in L2 either way) and does the same float32 arithmetic
+// plus one add and one multiply per loaded value.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -55,9 +62,16 @@ constexpr int R = 8;          // output rows per block (strip)
 constexpr int K_TOTAL = 36;
 constexpr int K_COHERENT = 20;
 constexpr int MAXT = 16;      // taps per window axis, at most
+constexpr float DEQ = (float)(1.0 / 254.0);  // int8 grid step
 
+__device__ __forceinline__ float load_a(const float* p) { return *p; }
+__device__ __forceinline__ float load_a(const signed char* p) {
+  return ((float)*p + 127.f) * DEQ;
+}
+
+template <typename TA>
 struct Params {
-  const float* a;        // (C, a_h, a_w) A planes, edge-padded by halo
+  const TA* a;           // (C, a_h, a_w) A planes, edge-padded by halo
   const float* b;        // (C, b_h, b_w) B planes, edge-padded by halo
   const int* cand_y;     // (n_tiles, 36)
   const int* cand_x;
@@ -74,8 +88,8 @@ struct Params {
   float coh_factor;
 };
 
-template <int P>
-__global__ void __launch_bounds__(LANE) tile_sweep_kernel(Params prm) {
+template <int P, typename TA>
+__global__ void __launch_bounds__(LANE) tile_sweep_kernel(Params<TA> prm) {
   constexpr int ROWS = R + 2 * P;
   extern __shared__ float smem[];
   float* bs = smem;                                  // [C][ROWS][LANE]
@@ -143,13 +157,15 @@ __global__ void __launch_bounds__(LANE) tile_sweep_kernel(Params prm) {
       s0[r] = 0.f;
       s1[r] = 0.f;
     }
-    const float* a_col = prm.a + (size_t)(sy + u0) * prm.a_w + sx + l;
+    const TA* a_col = prm.a + (size_t)(sy + u0) * prm.a_w + sx + l;
     for (int c = 0; c < prm.n_chan; ++c) {
-      const float* ac = a_col + (size_t)c * prm.a_h * prm.a_w;
+      const TA* ac = a_col + (size_t)c * prm.a_h * prm.a_w;
       const float* bc = bs + c * ROWS * LANE + l;
       float v[ROWS];
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) v[r] = ac[(size_t)r * prm.a_w];
+      for (int r = 0; r < ROWS; ++r) {
+        v[r] = load_a(ac + (size_t)r * prm.a_w);
+      }
       if (c < prm.n_group0) {
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
@@ -228,35 +244,22 @@ __global__ void __launch_bounds__(LANE) tile_sweep_kernel(Params prm) {
   }
 }
 
-template <int P>
-int launch(const Params& prm, cudaStream_t stream) {
+template <int P, typename TA>
+int launch(const Params<TA>& prm, cudaStream_t stream) {
   constexpr int ROWS = R + 2 * P;
   const size_t smem =
       ((size_t)(prm.n_chan + 4) * ROWS * LANE + 2 * 2 * MAXT) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      tile_sweep_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tile_sweep_kernel<P, TA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(prm.n_ty * prm.n_tx, TILE_H / R);
-  tile_sweep_kernel<P><<<grid, LANE, smem, stream>>>(prm);
+  tile_sweep_kernel<P, TA><<<grid, LANE, smem, stream>>>(prm);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int ia_tile_sweep(
-    const float* a, const float* b, const int* cand_y, const int* cand_x,
-    const int* cand_valid, const int* oy_in, const int* ox_in,
-    const float* d_in, int* oy_out, int* ox_out, float* d_out,
-    const float* weights, int n_chan, int n_group0, int ha, int wa, int a_h,
-    int a_w, int b_h, int b_w, int n_ty, int n_tx, int tile_w, int halo,
-    int taps0, int dil0, int taps1, int dil1, float coh_factor,
-    cudaStream_t stream) {
-  Params prm{a,     b,        cand_y, cand_x, cand_valid, oy_in, ox_in,
-             d_in,  oy_out,   ox_out, d_out,  weights,    n_chan, n_group0,
-             ha,    wa,       a_h,    a_w,    b_h,        b_w,   n_ty,
-             n_tx,  tile_w,   taps0,  dil0,   taps1,      dil1,  coh_factor};
-  if (tile_w + 2 * halo != LANE) return (int)cudaErrorInvalidValue;
+template <typename TA>
+int launch_halo(const Params<TA>& prm, int halo, cudaStream_t stream) {
   switch (halo) {
     case 1: return launch<1>(prm, stream);
     case 2: return launch<2>(prm, stream);
@@ -266,4 +269,40 @@ extern "C" int ia_tile_sweep(
     case 6: return launch<6>(prm, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename TA>
+Params<TA> make_params(
+    const void* a, const float* b, const int* cand_y, const int* cand_x,
+    const int* cand_valid, const int* oy_in, const int* ox_in,
+    const float* d_in, int* oy_out, int* ox_out, float* d_out,
+    const float* weights, int n_chan, int n_group0, int ha, int wa, int a_h,
+    int a_w, int b_h, int b_w, int n_ty, int n_tx, int tile_w, int taps0,
+    int dil0, int taps1, int dil1, float coh_factor) {
+  return Params<TA>{static_cast<const TA*>(a), b, cand_y, cand_x, cand_valid,
+                    oy_in, ox_in, d_in, oy_out, ox_out, d_out, weights,
+                    n_chan, n_group0, ha, wa, a_h, a_w, b_h, b_w, n_ty, n_tx,
+                    tile_w, taps0, dil0, taps1, dil1, coh_factor};
+}
+
+}  // namespace
+
+// `a` points at float32 planes, or at int8 planes when `a_int8` is 1.
+extern "C" int ia_tile_sweep(
+    const void* a, const float* b, const int* cand_y, const int* cand_x,
+    const int* cand_valid, const int* oy_in, const int* ox_in,
+    const float* d_in, int* oy_out, int* ox_out, float* d_out,
+    const float* weights, int n_chan, int n_group0, int ha, int wa, int a_h,
+    int a_w, int b_h, int b_w, int n_ty, int n_tx, int tile_w, int halo,
+    int taps0, int dil0, int taps1, int dil1, int a_int8, float coh_factor,
+    cudaStream_t stream) {
+  if (tile_w + 2 * halo != LANE) return (int)cudaErrorInvalidValue;
+#define IA_PARAMS(TA)                                                        \
+  make_params<TA>(a, b, cand_y, cand_x, cand_valid, oy_in, ox_in, d_in,      \
+                  oy_out, ox_out, d_out, weights, n_chan, n_group0, ha, wa,  \
+                  a_h, a_w, b_h, b_w, n_ty, n_tx, tile_w, taps0, dil0, taps1, \
+                  dil1, coh_factor)
+  if (a_int8) return launch_halo(IA_PARAMS(signed char), halo, stream);
+  return launch_halo(IA_PARAMS(float), halo, stream);
+#undef IA_PARAMS
 }

@@ -6,8 +6,8 @@ in float32, the lowest index winning ties as `jnp.argmin` does.  The
 N_B x N_A matrix is never materialized.
 
   - `nn_argmin_kernel`: the hand-written CUDA kernel (`csrc/nn_brute.cu`),
-    for CUDA tensors.  Replaces the Pallas kernel `_make_nn_kernel` of
-    image_analogies_tpu/kernels/nn_brute.py.
+    for float32 or bfloat16 CUDA tensors.  Replaces the Pallas kernel
+    `_make_nn_kernel` of image_analogies_tpu/kernels/nn_brute.py.
   - `nn_argmin_plain`: the plain PyTorch version, a chunked float32
     `torch.matmul` plus `argmin`, for CPU tensors and as the kernel's
     yardstick on the card.
@@ -57,24 +57,40 @@ def nn_argmin_plain(
 def nn_argmin_kernel(
     f_b: torch.Tensor, f_a: torch.Tensor, a_sq: torch.Tensor
 ) -> torch.Tensor:
-    """The CUDA kernel on (N_B, D) / (N_A, D) float32 CUDA tensors;
-    (N_B,) int64."""
+    """The CUDA kernel on (N_B, D) / (N_A, D) CUDA tensors, both float32
+    or both bfloat16 (widened to float32 in the kernel), with float32
+    `a_sq`; (N_B,) int64."""
     n_b, d = f_b.shape
     n_a = f_a.shape[0]
-    require(f_b, torch.float32, (n_b, d), "nn_argmin f_b")
-    require(f_a, torch.float32, (n_a, d), "nn_argmin f_a")
+    dt = f_b.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"nn_argmin: expected float32 or bfloat16, got {dt}")
+    require(f_b, dt, (n_b, d), "nn_argmin f_b")
+    require(f_a, dt, (n_a, d), "nn_argmin f_a")
     require(a_sq, torch.float32, (n_a,), "nn_argmin a_sq")
     if f_a.device != f_b.device or a_sq.device != f_b.device:
         raise ValueError("nn_argmin: tensors on different devices")
     idx = torch.empty(n_b, dtype=torch.int32, device=f_b.device)
     dist = torch.empty(n_b, dtype=torch.float32, device=f_b.device)
-    err = library("nn_brute").ia_nn_argmin(
+    entry = "ia_nn_argmin_bf16" if dt == torch.bfloat16 else "ia_nn_argmin"
+    err = getattr(library("nn_brute"), entry)(
         f_b.data_ptr(), f_a.data_ptr(), a_sq.data_ptr(), idx.data_ptr(),
         dist.data_ptr(), n_b, n_a, d, stream_ptr(f_b),
     )
-    check(err, "ia_nn_argmin")
+    check(err, entry)
     launches.add()
     return idx.long()
+
+
+def argmin_metric(f_b, f_a, a_sq, idx, match_dtype=torch.float32):
+    """The quantity the argmin minimizes, ||b~||^2 + ||a||^2 - 2 b~.a~
+    (rows rounded to `match_dtype`, `a_sq` of the unrounded rows), for
+    rows `idx`, in float64: for holding two argmins' picks against each
+    other up to ties."""
+    fb = f_b.to(match_dtype).double()
+    fa = f_a.to(match_dtype).double().index_select(0, idx)
+    return (fb * fb).sum(-1) + a_sq.double().index_select(0, idx) \
+        - 2.0 * (fb * fa).sum(-1)
 
 
 def nn_argmin(
@@ -84,14 +100,12 @@ def nn_argmin(
     match_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Exact-NN argmin: the kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    CPU tensors.  Both cast the rows to `match_dtype` (float32 or
+    bfloat16); `a_sq` is the float32 norms of the unrounded A rows."""
     a_sq = squared_norms(f_a)
     if on_cuda(f_b):
-        if match_dtype != torch.float32:
-            raise NotImplementedError(
-                "match_dtype='bfloat16' has no CUDA kernel yet"
-            )
         return nn_argmin_kernel(
-            f_b.float().contiguous(), f_a.float().contiguous(), a_sq
+            f_b.to(match_dtype).contiguous(),
+            f_a.to(match_dtype).contiguous(), a_sq,
         )
     return nn_argmin_plain(f_b, f_a, a_sq, chunk, match_dtype)

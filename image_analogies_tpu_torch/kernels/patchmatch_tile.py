@@ -28,9 +28,20 @@ padding.
 Randomness.  The sampler takes its draws as an argument
 (`CandidateDraws`); `draw_candidates` makes them from a torch.Generator.
 
+Compressed candidates (module globals with the reference's env
+overrides and setters, resolved once per matcher call):
+  - `_CAND_DTYPE` "int8" stores the A planes on the static [0, 1]
+    affine grid q = round(x * 254 - 127) and the sweep dequantizes
+    (q + 127) / 254 next to its distance math;
+  - `_CAND_PRUNE` "K:M" ranks each tile's 36 shared candidates by a
+    K-dim PCA distance at 4 sample pixels and keeps the top M valid
+    (`prune_candidates`); the mask rides `cand_valid`;
+  - `_RESTART_MODE` "coarse" draws the restart slots from the evolving
+    field at random other positions (`_field_restarts`).
+
   - `tile_sweep_kernel`: the CUDA kernel (`csrc/tile_sweep.cu`), replacing
     the Pallas `_make_kernel` of image_analogies_tpu/kernels/
-    patchmatch_tile.py;
+    patchmatch_tile.py, for float32 and int8 A planes;
   - `tile_sweep_plain`: the plain PyTorch version (a loop over the 36
     slots with batched window gathers);
   - `tile_sweep`: the dispatch by device;
@@ -42,7 +53,8 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Sequence, Tuple
+import os
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +82,78 @@ MAX_TAPS = 16
 SMEM_LIMIT = 232_448
 
 launches = LaunchCounter("tile_sweep")
+launches_int8 = LaunchCounter("tile_sweep_int8")
+
+# ---------------------------------------------------------------------------
+# Mode selection.  The reference's setters also drop its compiled level
+# graphs, which resolved the modes at trace time; the port compiles no
+# graphs, so its setters only validate and assign
+# (`clear_compiled_level_caches` has no counterpart here).
+
+# "bf16" is the uncompressed representation (float32 sweep planes, bf16
+# polish rows); "int8" quantizes both candidate tables.
+_CAND_DTYPES = ("bf16", "int8")
+_CAND_DTYPE = os.environ.get("IA_CAND_DTYPE", "bf16")
+
+# int8 A-plane affine grid: the planes are images in [0, 1].
+_Q_SCALE = 254.0
+_Q_ZERO = 127.0
+
+
+def resolve_cand_dtype(cand_dtype: Optional[str] = None) -> str:
+    """The candidate-table mode: an explicit value wins, else the module
+    default; raises on a name outside `_CAND_DTYPES`."""
+    dt = _CAND_DTYPE if cand_dtype is None else cand_dtype
+    if dt not in _CAND_DTYPES:
+        raise ValueError(f"cand_dtype {dt!r} names none of {_CAND_DTYPES}")
+    return dt
+
+
+def parse_prune(spec) -> Optional[Tuple[int, int]]:
+    """A "K:M" PCA-prune spec (K coarse PCA dims, M candidates kept per
+    tile per sweep) as (k, m), or None for "off" / "" / None."""
+    if spec in (None, "", "off"):
+        return None
+    if isinstance(spec, (tuple, list)):
+        k, m = spec
+    else:
+        try:
+            k_s, m_s = str(spec).split(":")
+            k, m = int(k_s), int(m_s)
+        except ValueError:
+            raise ValueError(
+                f"pca-prune spec {spec!r} is not 'K:M' (e.g. '16:8') or 'off'"
+            ) from None
+    if not 1 <= k <= LANE:
+        raise ValueError(f"pca-prune K={k} outside [1, {LANE}]")
+    if not 1 <= m <= K_TOTAL:
+        raise ValueError(f"pca-prune M={m} outside [1, {K_TOTAL}]")
+    return int(k), int(m)
+
+
+_CAND_PRUNE = os.environ.get("IA_CAND_PRUNE", "off")
+
+
+def resolve_prune(prune=None) -> Optional[Tuple[int, int]]:
+    """The PCA prune: an explicit spec wins, else the module default."""
+    return parse_prune(_CAND_PRUNE if prune is None else prune)
+
+
+def set_cand_compression(cand_dtype: Optional[str] = None,
+                         prune=None) -> None:
+    """Install a compressed-candidate mode process-wide; validates before
+    assigning.  None leaves a knob untouched."""
+    global _CAND_DTYPE, _CAND_PRUNE
+    if cand_dtype is not None:
+        _CAND_DTYPE = resolve_cand_dtype(cand_dtype)
+    if prune is not None:
+        parse_prune(prune)
+        _CAND_PRUNE = prune
+
+
+# Restart slots: "uniform" over A (the default), or "coarse", read from
+# the evolving field (`_field_restarts`).
+_RESTART_MODE = os.environ.get("IA_RESTART_MODE", "uniform")
 
 
 class ChannelSpec(NamedTuple):
@@ -175,15 +259,32 @@ def _edge_pad(planes: torch.Tensor, top, bottom, left, right) -> torch.Tensor:
     return F.pad(planes[None], (left, right, top, bottom), mode="replicate")[0]
 
 
-def prepare_a_planes(src, flt, src_coarse, flt_coarse, specs) -> torch.Tensor:
-    """A-side planes (C, ha + 2P, wa + 2P) float32, edge-padded."""
+def prepare_a_planes(src, flt, src_coarse, flt_coarse, specs,
+                     cand_dtype: Optional[str] = None) -> torch.Tensor:
+    """A-side planes (C, ha + 2P, wa + 2P), edge-padded: float32, or
+    under the resolved `cand_dtype` "int8" the int8 grid
+    clip(round(x * 254 - 127), -127, 127) (edge padding and pointwise
+    quantization commute)."""
     p = halo_for(specs)
     planes = torch.stack(
         [c.float() for c in channel_images(src, flt, src_coarse, flt_coarse)]
     )
     if len(planes) != len(specs):
         raise ValueError(f"{len(planes)} planes for {len(specs)} specs")
-    return _edge_pad(planes, p, p, p, p).contiguous()
+    planes = _edge_pad(planes, p, p, p, p)
+    if resolve_cand_dtype(cand_dtype) == "int8":
+        planes = torch.clamp(
+            torch.round(planes * _Q_SCALE - _Q_ZERO), -127.0, 127.0
+        ).to(torch.int8)
+    return planes.contiguous()
+
+
+def dequantize_planes(a_planes: torch.Tensor) -> torch.Tensor:
+    """int8 A planes -> float32 (q + 127) * (1 / 254), the formula the
+    kernel applies next to its distance math; float32 planes pass."""
+    if a_planes.dtype != torch.int8:
+        return a_planes
+    return (a_planes.float() + _Q_ZERO) * (1.0 / _Q_SCALE)
 
 
 def prepare_b_planes(src, flt, src_coarse, flt_coarse,
@@ -227,12 +328,17 @@ class CandidateDraws(NamedTuple):
     `pert` (2, n_ty, n_tx, K_LOCAL) in [-rmax, rmax], the local
     perturbations (rmax = max(ha, wa) >> 1); `glob_y` / `glob_x`
     (n_ty, n_tx, K_GLOBAL) in [0, max(ha - 64, 1)) / [0, max(wa - tile_w,
-    1)), the restart origins."""
+    1)), the restart origins; `restart`, drawn only under the "coarse"
+    restart mode, (4, n_ty, n_tx, K_GLOBAL): the tile row in [0, n_ty),
+    tile column in [0, n_tx), row in [0, 64) and column in [0, tile_w)
+    of the field positions `_field_restarts` reads (None: uniform
+    restarts from glob_y / glob_x)."""
 
     jitter: torch.Tensor
     pert: torch.Tensor
     glob_y: torch.Tensor
     glob_x: torch.Tensor
+    restart: Optional[torch.Tensor] = None
 
 
 def _radii(ha: int, wa: int) -> np.ndarray:
@@ -241,11 +347,13 @@ def _radii(ha: int, wa: int) -> np.ndarray:
 
 
 def draw_candidates(gen: torch.Generator, geom: TileGeometry, ha: int,
-                    wa: int) -> CandidateDraws:
-    """One sweep's `CandidateDraws` from `gen`, on its device."""
+                    wa: int, coarse_restarts: bool = False) -> CandidateDraws:
+    """One sweep's `CandidateDraws` from `gen`, on its device; the
+    restart positions only when `coarse_restarts`."""
     dev = gen.device
     th, tw, n_ty, n_tx = geom.tile_h, geom.tile_w, geom.n_ty, geom.n_tx
     rmax = int(_radii(ha, wa).max())
+    shape = (n_ty, n_tx, K_GLOBAL)
 
     def randint(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=gen, device=dev)
@@ -253,8 +361,12 @@ def draw_candidates(gen: torch.Generator, geom: TileGeometry, ha: int,
     return CandidateDraws(
         jitter=randint(0, min(th, tw), (2,)),
         pert=randint(-rmax, rmax + 1, (2, n_ty, n_tx, K_LOCAL)),
-        glob_y=randint(0, max(ha - th, 1), (n_ty, n_tx, K_GLOBAL)),
-        glob_x=randint(0, max(wa - tw, 1), (n_ty, n_tx, K_GLOBAL)),
+        glob_y=randint(0, max(ha - th, 1), shape),
+        glob_x=randint(0, max(wa - tw, 1), shape),
+        restart=torch.stack([
+            randint(0, n_ty, shape), randint(0, n_tx, shape),
+            randint(0, th, shape), randint(0, tw, shape),
+        ]) if coarse_restarts else None,
     )
 
 
@@ -281,10 +393,29 @@ def candidate_valid_mask(cand_y: torch.Tensor, cand_x: torch.Tensor):
     return (~(same & earlier).any(dim=-1)).to(torch.int32)
 
 
+def _field_restarts(off_y, off_x, restart: torch.Tensor, geom: TileGeometry):
+    """K_GLOBAL field-informed restart offsets per tile: read the field's
+    offset at the drawn position q' (tile si, sj; in-tile su, sv) and
+    re-express its match as an offset for this tile, q' + off(q') -
+    tile origin.  `off_y` / `off_x` are the compact state planes, whose
+    positions are the interiors the reference reads."""
+    th, tw, n_ty, n_tx = geom.tile_h, geom.tile_w, geom.n_ty, geom.n_tx
+    dev = off_y.device
+    si, sj, su, sv = restart.to(dev, torch.int64)
+    src_y = si * th + su
+    src_x = sj * tw + sv
+    oy = off_y[src_y, src_x].long()
+    ox = off_x[src_y, src_x].long()
+    ty0 = (torch.arange(n_ty, device=dev) * th)[:, None, None]
+    tx0 = (torch.arange(n_tx, device=dev) * tw)[None, :, None]
+    return src_y + oy - ty0, src_x + ox - tx0
+
+
 def _candidate_tables(own_y, own_x, draws: CandidateDraws,
-                      geom: TileGeometry, ha: int, wa: int):
+                      geom: TileGeometry, ha: int, wa: int, glob=None):
     """Propagation / random-search / restart tail; returns
-    (cand_y, cand_x, cand_valid), each (n_ty, n_tx, K_TOTAL) int32."""
+    (cand_y, cand_x, cand_valid), each (n_ty, n_tx, K_TOTAL) int32.
+    `glob` overrides the uniform restart slots (`_field_restarts`)."""
     th, tw, n_ty, n_tx = geom.tile_h, geom.tile_w, geom.n_ty, geom.n_tx
     dev = own_y.device
     per = K_PROP // 4
@@ -303,10 +434,12 @@ def _candidate_tables(own_y, own_x, draws: CandidateDraws,
     loc_y = centers_y + torch.maximum(torch.minimum(pert[0], scale), -scale)
     loc_x = centers_x + torch.maximum(torch.minimum(pert[1], scale), -scale)
 
-    ty0 = (torch.arange(n_ty, device=dev) * th)[:, None, None]
-    tx0 = (torch.arange(n_tx, device=dev) * tw)[None, :, None]
-    glob_y = draws.glob_y.to(dev, torch.int64) - ty0
-    glob_x = draws.glob_x.to(dev, torch.int64) - tx0
+    if glob is None:
+        ty0 = (torch.arange(n_ty, device=dev) * th)[:, None, None]
+        tx0 = (torch.arange(n_tx, device=dev) * tw)[None, :, None]
+        glob = (draws.glob_y.to(dev, torch.int64) - ty0,
+                draws.glob_x.to(dev, torch.int64) - tx0)
+    glob_y, glob_x = glob
 
     cand_y = torch.cat([own_y, prop_y, loc_y, glob_y], dim=-1).to(torch.int32)
     cand_x = torch.cat([own_x, prop_x, loc_x, glob_x], dim=-1).to(torch.int32)
@@ -319,7 +452,8 @@ def _candidate_tables(own_y, own_x, draws: CandidateDraws,
 def sample_candidates_blocked(off_y, off_x, draws: CandidateDraws,
                               geom: TileGeometry, ha: int, wa: int):
     """Per-tile candidate tables from the compact state planes: own-tile
-    samples at the jittered subgrid, then `_candidate_tables`."""
+    samples at the jittered subgrid, then `_candidate_tables`; the
+    restart slots come from the field when the draws carry `restart`."""
     th, tw, n_ty, n_tx = geom.tile_h, geom.tile_w, geom.n_ty, geom.n_tx
     uy, ux = _subgrid(draws.jitter.to(off_y.device), geom)
 
@@ -328,7 +462,53 @@ def sample_candidates_blocked(off_y, off_x, draws: CandidateDraws,
         t = t.index_select(1, uy).index_select(3, ux)
         return t.permute(0, 2, 1, 3).reshape(n_ty, n_tx, K_OWN)
 
-    return _candidate_tables(pick(off_y), pick(off_x), draws, geom, ha, wa)
+    glob = None
+    if draws.restart is not None:
+        glob = _field_restarts(off_y, off_x, draws.restart, geom)
+    return _candidate_tables(pick(off_y), pick(off_x), draws, geom, ha, wa,
+                             glob=glob)
+
+
+# Sample pixels per tile for the coarse pre-prune ranking: a 2 x 2
+# subgrid of quarter positions.
+_PRUNE_SAMPLES = 4
+
+
+def tile_sample_positions(geom: TileGeometry, h: int, w: int, device=None):
+    """(qy, qx), each (n_ty, n_tx, _PRUNE_SAMPLES) int64: the B pixels the
+    coarse prune ranks candidates at, clipped to the image."""
+    th, tw = geom.tile_h, geom.tile_w
+    sy = torch.tensor([th // 4, th // 4, (3 * th) // 4, (3 * th) // 4],
+                      device=device)
+    sx = torch.tensor([tw // 4, (3 * tw) // 4, tw // 4, (3 * tw) // 4],
+                      device=device)
+    qy = ((torch.arange(geom.n_ty, device=device) * th)[:, None, None]
+          + sy).clamp(0, h - 1)
+    qx = ((torch.arange(geom.n_tx, device=device) * tw)[None, :, None]
+          + sx).clamp(0, w - 1)
+    shape = (geom.n_ty, geom.n_tx, _PRUNE_SAMPLES)
+    return qy.expand(shape), qx.expand(shape)
+
+
+def prune_candidates(cand_y, cand_x, cand_valid, proj_b_tiles, qy, qx,
+                     proj_a_flat, ha: int, wa: int, m_keep: int):
+    """PCA coarse pre-prune: rank each tile's K_TOTAL candidates by their
+    summed projected-feature SSD at the tile's sample pixels and keep the
+    top `m_keep` valid ones; returns the new int32 `cand_valid`.  Invalid
+    candidates rank at +inf and are never resurrected; the stable double
+    argsort keeps earlier slots on ties, as the reference's does.
+    `proj_b_tiles` is (n_ty, n_tx, S, k), `proj_a_flat` (ha * wa, k)."""
+    k = proj_a_flat.shape[-1]
+    py = (qy[..., None, :] + cand_y[..., :, None].long()).clamp(0, ha - 1)
+    px = (qx[..., None, :] + cand_x[..., :, None].long()).clamp(0, wa - 1)
+    rows = proj_a_flat.index_select(0, (py * wa + px).reshape(-1))
+    diff = rows.reshape(*py.shape, k).float() \
+        - proj_b_tiles[..., None, :, :].float()
+    d = (diff * diff).sum(dim=(-1, -2))
+    d = torch.where(cand_valid > 0, d, torch.full_like(d, float("inf")))
+    order = torch.argsort(d, dim=-1, stable=True)
+    rank = torch.argsort(order, dim=-1, stable=True)
+    return ((rank < m_keep) & (cand_valid > 0)).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -356,8 +536,10 @@ def tile_sweep_plain(a_planes, b_planes, cand_y, cand_x, cand_valid,
                      off_y, off_x, dist, *, specs, geom: TileGeometry,
                      ha: int, wa: int, coh_factor: float):
     """The plain PyTorch version of one sweep; returns the new compact
-    (off_y int32, off_x int32, dist float32)."""
+    (off_y int32, off_x int32, dist float32).  int8 A planes are
+    dequantized first (`dequantize_planes`)."""
     _check_shapes(a_planes, b_planes, cand_y, off_y, specs, geom, ha, wa)
+    a_planes = dequantize_planes(a_planes)
     p, th, tw, n_ty, n_tx = geom
     dev = a_planes.device
     hp, wp = th + 2 * p, tw + 2 * p
@@ -439,6 +621,7 @@ def pixel_dist(a_planes, b_planes, qy, qx, off_y, off_x, *, specs,
     the metric the sweep minimizes, one pixel at a time.  A match
     outside A gets +inf."""
     p = geom.halo
+    a_planes = dequantize_planes(a_planes)
     ay, ax = qy + off_y, qx + off_x
     inside = (ay >= 0) & (ay < ha) & (ax >= 0) & (ax < wa)
     ay, ax = ay.clamp(0, ha - 1), ax.clamp(0, wa - 1)
@@ -539,7 +722,9 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
                       off_y, off_x, dist, *, specs, geom: TileGeometry,
                       ha: int, wa: int, coh_factor: float):
     """The CUDA kernel on CUDA tensors; same contract as
-    `tile_sweep_plain`.  Launches on the current stream."""
+    `tile_sweep_plain`, for float32 or int8 A planes (the int8 mode
+    dequantizes in the kernel and counts in `launches_int8`).  Launches
+    on the current stream."""
     _check_shapes(a_planes, b_planes, cand_y, off_y, specs, geom, ha, wa)
     if not kernel_fits(specs):
         raise ValueError("channel specs exceed the tile-sweep kernel")
@@ -548,7 +733,9 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
     dev = a_planes.device
     cand_shape = (n_ty, n_tx, K_TOTAL)
     state_shape = (n_ty * th, n_tx * tw)
-    require(a_planes, torch.float32, a_planes.shape, "tile_sweep a_planes")
+    int8 = a_planes.dtype == torch.int8
+    require(a_planes, torch.int8 if int8 else torch.float32, a_planes.shape,
+            "tile_sweep a_planes")
     require(b_planes, torch.float32, b_planes.shape, "tile_sweep b_planes")
     for t, name in ((cand_y, "cand_y"), (cand_x, "cand_x"),
                     (cand_valid, "cand_valid")):
@@ -573,19 +760,30 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
         d_o.data_ptr(), weights.data_ptr(),
         c, n0, ha, wa, a_planes.shape[1], a_planes.shape[2],
         b_planes.shape[1], b_planes.shape[2], n_ty, n_tx, tw, p,
-        taps0, dil0, taps1, dil1, float(coh_factor), stream_ptr(a_planes),
+        taps0, dil0, taps1, dil1, int(int8), float(coh_factor),
+        stream_ptr(a_planes),
     )
     check(err, "ia_tile_sweep")
-    launches.add()
+    (launches_int8 if int8 else launches).add()
     return oy_o, ox_o, d_o
 
 
 def tile_sweep(a_planes, b_planes, cand_y, cand_x, cand_valid, off_y,
                off_x, dist, *, specs, geom, ha, wa, coh_factor,
-               plain: bool = False):
+               plain: bool = False, cand_dtype: Optional[str] = None):
     """One sweep: the kernel for CUDA tensors, the plain version for CPU
     tensors, or the plain version on either device when `plain` (the
-    explicit `pallas_mode="interpret"`)."""
+    explicit `pallas_mode="interpret"`).  Raises when the A planes' dtype
+    does not match the resolved `cand_dtype` (int8 planes for "int8",
+    float32 for "bf16")."""
+    mode = resolve_cand_dtype(cand_dtype)
+    want = torch.int8 if mode == "int8" else torch.float32
+    if a_planes.dtype != want:
+        raise ValueError(
+            f"a_planes dtype {a_planes.dtype} does not match cand_dtype "
+            f"{mode!r} (expected {want}): prepare_a_planes and the sweep "
+            "must resolve the same compression mode"
+        )
     fn = (
         tile_sweep_kernel if on_cuda(a_planes) and not plain
         else tile_sweep_plain

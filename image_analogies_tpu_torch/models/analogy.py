@@ -205,6 +205,8 @@ def run_level(cfg: SynthConfig, level: int, levels: int, pyr, prev_nnf,
     f_a, proj = fit_and_project(f_a, cfg.pca_dims)
     a_planes = None
     if plan is not None:
+        # float32 or int8 planes, under the module's resolved cand_dtype
+        # (the matcher's sweeps check they agree).
         specs, use_coarse = plan
         a_planes = prepare_a_planes(
             src_a_l, flt_a_l,

@@ -38,20 +38,53 @@ def clamp_nnf(nnf: torch.Tensor, ha: int, wa: int) -> torch.Tensor:
     )
 
 
+def _take(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return tab.index_select(0, idx)
+
+
 def candidate_dist(
-    f_b_flat: torch.Tensor, f_a_flat: torch.Tensor, idx: torch.Tensor
+    f_b_flat: torch.Tensor, f_a_flat: torch.Tensor, idx: torch.Tensor,
+    gather_fn=None,
 ) -> torch.Tensor:
     """Distance between each query row and A-row `idx[q]`; (N,).
 
     The math runs in float32 whatever the table dtype (bf16 tables are
     gathered, then cast).  A-rows wider than the B side are sliced to the
-    B width: the extra columns are zero pad and add nothing."""
-    rows = f_a_flat.index_select(0, idx.reshape(-1))
+    B width: the extra columns are zero pad and add nothing.
+    `gather_fn(table, flat_idx) -> rows` swaps the row fetch (the
+    streamed polish's kernel K3, or the int8 polish's dequantizing
+    fetch); the arithmetic after it is the same, so equal rows give
+    bitwise-equal distances."""
+    rows = (gather_fn or _take)(f_a_flat, idx.reshape(-1))
     d = f_b_flat.shape[-1]
     if rows.shape[-1] != d:
         rows = rows[:, :d]
     diff = f_b_flat.float() - rows.float()
     return (diff * diff).sum(dim=-1)
+
+
+def candidate_dist_lean(
+    f_b_tab: torch.Tensor, f_a_tab: torch.Tensor, idx: torch.Tensor,
+    chunk: int = 1 << 20,
+) -> torch.Tensor:
+    """`candidate_dist` for indices with leading candidate axes: `idx`
+    (..., N), query row i pairing with idx[..., i]; returns (..., N).
+    Evaluated in query chunks of at most max(2^14, chunk // K) rows for
+    K leading candidates, so the gathered-rows temp stays bounded."""
+    lead = idx.shape[:-1]
+    n = idx.shape[-1]
+    idx2 = idx.reshape(-1, n)
+    k = idx2.shape[0]
+    chunk = max(1 << 14, chunk // max(k, 1))
+    d = f_b_tab.shape[1]
+    outs = []
+    for start in range(0, n, chunk):
+        end = min(start + chunk, n)
+        rows = f_a_tab.index_select(0, idx2[:, start:end].reshape(-1))
+        a = rows[:, :d].float().reshape(k, end - start, d)
+        diff = f_b_tab[start:end].float()[None] - a
+        outs.append((diff * diff).sum(dim=-1))
+    return torch.cat(outs, dim=1).reshape(*lead, n)
 
 
 def nnf_dist(

@@ -7,7 +7,10 @@ Two paths, chosen by `SynthConfig.pallas_mode` and the level's shape:
     "auto"/"interpret"): bulk global search with kernel K1 (or its plain
     version) in the raw-plane metric, then a merge with the incoming
     field and a per-pixel polish under the feature metric on bf16 tables,
-    the kappa coherence pass, and an exact float32 re-rank;
+    the kappa coherence pass, and an exact float32 re-rank.  The polish
+    engine is the module global `_POLISH_MODE` ("sequential", "stream"
+    through kernel K3, or "jump"), and the compressed-candidate modes of
+    kernels/patchmatch_tile.py apply to the sweeps and the polish rows;
   - the per-pixel path (`patchmatch_sweeps`): 4 propagation candidates,
     4 unshifted neighbour matches and `n_random` random-search candidates
     per sweep, accepted with canonical lowest-index tie-breaking.
@@ -21,6 +24,7 @@ two packages hands both the same draws.
 
 from __future__ import annotations
 
+import os
 from typing import Iterable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -30,6 +34,7 @@ from ..config import SynthConfig
 from .matcher import (
     Matcher,
     candidate_dist,
+    candidate_dist_lean,
     clamp_nnf,
     nnf_dist,
     nnf_to_flat,
@@ -131,19 +136,23 @@ def patchmatch_sweeps(
     offsets: Iterable[torch.Tensor],
     *,
     coh_factor: float,
+    gather_fn=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One propagate + random-search sweep per entry of `offsets` (each
     (n_random, H, W, 2), added to the current match); returns
     (nnf, dist).  Random candidates must satisfy d * coh_factor < d_cur;
     exact ties break toward the lower flat index, the representative
-    the brute oracle's argmin picks."""
+    the brute oracle's argmin picks.  `gather_fn` swaps the row fetch
+    inside `candidate_dist` (the stream and int8 polish engines)."""
     h, w, d = f_b.shape
     ha, wa = f_a.shape[:2]
     f_b_flat = f_b.reshape(-1, d)
     f_a_flat = f_a.reshape(-1, d)
 
     def d_fn(idx):
-        return candidate_dist(f_b_flat, f_a_flat, idx).reshape(h, w)
+        return candidate_dist(
+            f_b_flat, f_a_flat, idx, gather_fn=gather_fn
+        ).reshape(h, w)
 
     nnf = clamp_nnf(nnf.long(), ha, wa)
     dist = d_fn(nnf_to_flat(nnf, wa))
@@ -202,6 +211,201 @@ def _polish_schedule_for(cfg: SynthConfig, ha: int, wa: int,
     return iters, n_random
 
 
+# Polish engine (a module global with the reference's env override and
+# setter, not a config field): "sequential", the chained per-candidate
+# cascade (`patchmatch_sweeps`); "stream", the same cascade with its row
+# fetches through kernel K3, bit-identical to "sequential"; "jump", the
+# batched jump-flooding polish (`polish_sweeps_planes`).
+_POLISH_MODE = os.environ.get("IA_POLISH_MODE", "sequential")
+_POLISH_MODES = ("sequential", "jump", "stream")
+
+
+def set_polish_mode(mode: str) -> None:
+    """Install a polish engine process-wide; validates before assigning.
+    (The reference also drops its compiled level graphs here; the port
+    compiles none.)"""
+    global _POLISH_MODE
+    if mode not in _POLISH_MODES:
+        raise ValueError(f"polish mode {mode!r} names none of {_POLISH_MODES}")
+    _POLISH_MODE = mode
+
+
+# Pure-roll steps of the jump polish's canonical-tie flood per sweep.
+_TIE_FLOOD_STEPS = 16
+
+# Jump-flooding propagation distances, coarse to fine, per sweep.
+_JUMP_STEPS = (8, 4, 2, 1)
+
+
+def _stream_gather_fn(f_a_tab: torch.Tensor, plain: bool):
+    """`gather_fn` of the streamed polish: kernel K3 over a LANE-padded
+    copy of the table, built once per polish call.  `candidate_dist`
+    slices the rows back to the feature width, dropping only zero pad."""
+    from ..kernels.polish_stream import gather_rows, prepare_polish_table
+
+    f_a_pad = prepare_polish_table(f_a_tab)
+    return lambda _tab, ix: gather_rows(f_a_pad, ix, plain=plain)
+
+
+def _polish_gather_fn(f_a_tab: torch.Tensor, plain: bool, cand_dtype: str,
+                      polish_mode: str):
+    """The polish's row fetch under (polish_mode, cand_dtype); None is the
+    default `index_select` (bf16, sequential).  Under "int8" the rows come
+    from the per-patch-quantized table (`quantize_rows`) and are
+    dequantized q * scale next to the distance math; under "stream"
+    through kernel K3, else by `index_select`, the scales by
+    `index_select` beside them either way.  The jump engine keeps its
+    exact tables and never calls this, as in the reference."""
+    from ..kernels.polish_stream import (
+        gather_rows,
+        prepare_polish_table,
+        quantize_rows,
+    )
+
+    stream = polish_mode == "stream"
+    if cand_dtype != "int8":
+        return _stream_gather_fn(f_a_tab, plain) if stream else None
+    q_tab, scales = quantize_rows(f_a_tab)
+    if stream:
+        q_pad = prepare_polish_table(q_tab)
+
+        def gf(_tab, ix):
+            rows = gather_rows(q_pad, ix, plain=plain)
+            return rows.float() * scales.index_select(0, ix.reshape(-1))
+
+        return gf
+
+    def gf(_tab, ix):
+        flat = ix.reshape(-1)
+        return q_tab.index_select(0, flat).float() \
+            * scales.index_select(0, flat)
+
+    return gf
+
+
+def _prune_setup(prune, f_b_flat, f_a_flat, geom, h: int, w: int):
+    """Per-call state of the coarse pre-prune, or None when it is off: a
+    PCA basis fit on the A table (at the B width: wider A columns are
+    zero pad), both sides projected to its k dims, and the projected B
+    rows at each tile's sample pixels."""
+    if prune is None:
+        return None
+    from ..kernels.patchmatch_tile import tile_sample_positions
+    from ..ops.pca import pca_basis, project
+
+    k_dims, m_keep = prune
+    d = f_b_flat.shape[-1]
+    f_a_flat = f_a_flat[:, :d].float()
+    basis = pca_basis(f_a_flat, k_dims)
+    proj_a = project(f_a_flat, basis)
+    proj_b = project(f_b_flat.float(), basis)
+    qy, qx = tile_sample_positions(geom, h, w, device=f_b_flat.device)
+    proj_b_tiles = proj_b.index_select(0, (qy * w + qx).reshape(-1)).reshape(
+        *qy.shape, proj_b.shape[-1]
+    )
+    return proj_b_tiles, qy, qx, proj_a, m_keep
+
+
+def _lex_min(d: torch.Tensor, idx: torch.Tensor):
+    """Lexicographic (distance, flat index) minimum over axis 0: the
+    smallest distance, ties to the lowest index."""
+    d_min = d.min(dim=0).values
+    big = torch.full_like(idx, torch.iinfo(idx.dtype).max)
+    return d_min, torch.where(d == d_min, idx, big).min(dim=0).values
+
+
+def polish_sweeps_planes(
+    py: torch.Tensor,
+    px: torch.Tensor,
+    dist: torch.Tensor,
+    offsets: Iterable[torch.Tensor],
+    *,
+    ha: int,
+    wa: int,
+    coh_factor: float,
+    dist_fn,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The batched jump-flooding polish over a (py, px) field with its
+    distances in the accept metric; one sweep per entry of `offsets`
+    (each (n_random, H, W, 2), the random probes' offsets).  Per sweep:
+    jump-flooding propagation (4 directions x `_JUMP_STEPS` in one
+    `dist_fn` call, best by (distance, index), accepted at factor 1);
+    the random probes in one call, best-of-R, accepted under
+    `coh_factor`; then a gather-free canonical-tie flood verified by one
+    call.  `dist_fn` maps flat indices (..., N) to distances (..., N).
+    Returns (py, px, dist)."""
+    h, w = py.shape
+    for off in offsets:
+        i_cur = py * wa + px
+        cys, cxs = [], []
+        for s in _JUMP_STEPS:
+            for dy, dx in DELTAS:
+                cys.append(torch.roll(py, (s * dy, s * dx), (0, 1)) + s * dy)
+                cxs.append(torch.roll(px, (s * dy, s * dx), (0, 1)) + s * dx)
+        cy = torch.stack(cys).clamp(0, ha - 1)
+        cx = torch.stack(cxs).clamp(0, wa - 1)
+        idx = cy * wa + cx
+        d_all = dist_fn(idx.reshape(len(cys), h * w)).reshape(idx.shape)
+        d_coh, i_coh = _lex_min(d_all, idx)
+        accept = (d_coh < dist) | ((d_coh == dist) & (i_coh < i_cur))
+        d1 = torch.where(accept, d_coh, dist)
+        i1 = torch.where(accept, i_coh, i_cur)
+        py, px = i1 // wa, i1 % wa
+
+        if off.shape[0]:
+            off = off.to(py.device)
+            cy = (py[None] + off[..., 0]).clamp(0, ha - 1)
+            cx = (px[None] + off[..., 1]).clamp(0, wa - 1)
+            idx = cy * wa + cx
+            d_all = dist_fn(idx.reshape(off.shape[0], h * w)).reshape(
+                idx.shape
+            )
+            d_rnd, i_rnd = _lex_min(d_all, idx)
+            accept = (d_rnd * coh_factor < d1) | (
+                (d_rnd == d1) & (i_rnd < i1)
+            )
+            d1 = torch.where(accept, d_rnd, d1)
+            i1 = torch.where(accept, i_rnd, i1)
+
+        i_prop = i1
+        for _ in range(_TIE_FLOOD_STEPS):
+            for dy, dx in DELTAS:
+                n_i = torch.roll(i_prop, (dy, dx), (0, 1))
+                n_d = torch.roll(d1, (dy, dx), (0, 1))
+                take = (n_d == d1) & (n_i < i_prop)
+                i_prop = torch.where(take, n_i, i_prop)
+        d_prop = dist_fn(i_prop.reshape(-1)).reshape(h, w)
+        accept = (d_prop < d1) | ((d_prop == d1) & (i_prop < i1))
+        dist = torch.where(accept, d_prop, d1)
+        i1 = torch.where(accept, i_prop, i1)
+        py, px = i1 // wa, i1 % wa
+    return py, px, dist
+
+
+def polish_sweeps(
+    f_b16: torch.Tensor,
+    f_a16: torch.Tensor,
+    nnf: torch.Tensor,
+    dist: torch.Tensor,
+    offsets: Iterable[torch.Tensor],
+    *,
+    coh_factor: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`polish_sweeps_planes` on the stacked (H, W, 2) field of the
+    standard path; `dist` is the incoming field's distance in the same
+    bf16 accept metric."""
+    d = f_b16.shape[-1]
+    ha, wa = f_a16.shape[:2]
+    f_b_tab = f_b16.reshape(-1, d)
+    f_a_tab = f_a16.reshape(-1, f_a16.shape[-1])
+    py, px, dist = polish_sweeps_planes(
+        nnf[..., 0], nnf[..., 1], dist, offsets, ha=ha, wa=wa,
+        coh_factor=coh_factor,
+        dist_fn=lambda idx: candidate_dist_lean(f_b_tab, f_a_tab, idx),
+    )
+    return torch.stack([py, px], dim=-1), dist
+
+
 def tile_patchmatch(
     f_b: torch.Tensor,
     f_a: torch.Tensor,
@@ -216,13 +420,19 @@ def tile_patchmatch(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The tile path: `pm_iters` K1 sweeps in the raw-plane metric, a
     merge with the incoming field under the feature metric on bf16
-    tables, the sequential polish, the kappa pass, and the exact float32
-    distance of the result.  `plain` runs K1's plain version on either
-    device (pallas_mode="interpret")."""
+    tables, the polish under `_POLISH_MODE`, the kappa pass, and the
+    exact float32 distance of the result.  The compressed-candidate
+    modes (A-plane dtype, PCA prune, restart mode) and the polish engine
+    are resolved once per call.  `plain` runs the kernels' plain
+    versions on either device (pallas_mode="interpret")."""
+    from ..kernels import patchmatch_tile as pt
     from ..kernels.patchmatch_tile import (
         draw_candidates,
         from_compact,
         prepare_b_planes,
+        prune_candidates,
+        resolve_cand_dtype,
+        resolve_prune,
         sample_candidates_blocked,
         tile_geometry,
         tile_sweep,
@@ -239,6 +449,13 @@ def tile_patchmatch(
     pm_iters = _pm_iters_for(cfg, ha, wa)
     polish_iters, polish_random = _polish_schedule_for(
         cfg, ha, wa, polish_iters
+    )
+    cand_dtype = resolve_cand_dtype()
+    prune = resolve_prune()
+    coarse_restarts = pt._RESTART_MODE == "coarse"
+    polish_mode = _POLISH_MODE
+    prune_state = _prune_setup(
+        prune, f_b.reshape(-1, f_b.shape[-1]), f_a_flat, geom, h, w
     )
     # bf16 accept-metric tables; candidate_dist does its math in f32.
     f_b16 = f_b.to(torch.bfloat16)
@@ -263,13 +480,20 @@ def tile_patchmatch(
     d = torch.full(oy.shape, float("inf"), dtype=torch.float32, device=dev)
     for t in range(pm_iters):
         cand_y, cand_x, cand_valid = sample_candidates_blocked(
-            oy, ox, draw_candidates(draws.gen(t, dev), geom, ha, wa),
+            oy, ox,
+            draw_candidates(draws.gen(t, dev), geom, ha, wa, coarse_restarts),
             geom, ha, wa,
         )
+        if prune_state is not None:
+            proj_b_tiles, qy_s, qx_s, proj_a, m_keep = prune_state
+            cand_valid = prune_candidates(
+                cand_y, cand_x, cand_valid, proj_b_tiles, qy_s, qx_s,
+                proj_a, ha, wa, m_keep,
+            )
         oy, ox, d = tile_sweep(
             raw.a_planes, b_planes, cand_y, cand_x, cand_valid, oy, ox, d,
             specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=coh,
-            plain=plain,
+            plain=plain, cand_dtype=cand_dtype,
         )
     nnf_k = clamp_nnf(
         torch.stack([
@@ -284,12 +508,17 @@ def tile_patchmatch(
     d_m = torch.where(better, d_k, dist0)
     if polish_iters == 0:
         return nnf_m, d_m
-    nnf_p, d_p = patchmatch_sweeps(
-        f_b16, f_a16, nnf_m,
-        sweep_offsets(draws.gen(pm_iters, dev), polish_iters,
-                      sweep_radii(ha, wa, polish_random), h, w),
-        coh_factor=coh,
-    )
+    offsets = sweep_offsets(draws.gen(pm_iters, dev), polish_iters,
+                            sweep_radii(ha, wa, polish_random), h, w)
+    if polish_mode in ("sequential", "stream"):
+        nnf_p, d_p = patchmatch_sweeps(
+            f_b16, f_a16, nnf_m, offsets, coh_factor=coh,
+            gather_fn=_polish_gather_fn(f_a16_flat, plain, cand_dtype,
+                                        polish_mode),
+        )
+    else:
+        nnf_p, d_p = polish_sweeps(f_b16, f_a16, nnf_m, d_m, offsets,
+                                   coh_factor=coh)
     if cfg.kappa > 0.0:
         from .coherence import coherence_sweeps
 

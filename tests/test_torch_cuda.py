@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, over shapes and channel sets the main path's smoke check does not
 cover: ragged tiles, A and B of different sizes, rgb and steerable
-channel sets, a wider window, kappa > 1, tied and tiny tables.
+channel sets, a wider window, kappa > 1, tied and tiny tables; K1's
+int8 mode, K2's bfloat16 rows, and K3's row gather in three dtypes.
 
 Needs an NVIDIA GPU, nvcc and no JAX; skipped elsewhere.  On the card:
 
@@ -16,6 +17,7 @@ import torch
 from image_analogies_tpu_torch.config import SynthConfig
 from image_analogies_tpu_torch.kernels import nn_brute as nb
 from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+from image_analogies_tpu_torch.kernels import polish_stream as ps
 from image_analogies_tpu_torch.models.matcher import candidate_dist
 
 pytestmark = pytest.mark.cuda
@@ -131,5 +133,126 @@ def test_kernel_wrappers_reject_bad_input(dev):
         nb.nn_argmin_kernel(f.double(), f, nb.squared_norms(f))
     with pytest.raises(ValueError):
         nb.nn_argmin_kernel(f.t(), f.t(), nb.squared_norms(f.t()))
-    with pytest.raises(NotImplementedError):
-        nb.nn_argmin(f, f, match_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        nb.nn_argmin_kernel(f.bfloat16(), f, nb.squared_norms(f))
+    with pytest.raises(ValueError, match="LANE-padded"):
+        ps.gather_rows(f, torch.zeros(3, dtype=torch.long, device=dev))
+    before = nb.launches.count
+    assert nb.nn_argmin(f, f, match_dtype=torch.bfloat16).shape == (10,)
+    assert nb.launches.count == before + 1
+
+
+@pytest.mark.parametrize("n_b,n_a,d", [(1000, 3000, 68), (777, 65, 204),
+                                       (4096, 4100, 50)])
+def test_nn_argmin_kernel_bf16_matches_plain(dev, n_b, n_a, d):
+    """bfloat16 rows: the kernel and the plain version pick the same rows
+    except where the two picks tie in the metric both minimize."""
+    rng = np.random.default_rng(n_b + n_a + d + 1)
+    f_b = _rand(rng, (n_b, d), dev)
+    f_a = _rand(rng, (n_a, d), dev)
+    a_sq = nb.squared_norms(f_a)
+    bf = torch.bfloat16
+    idx_k = nb.nn_argmin_kernel(f_b.to(bf), f_a.to(bf), a_sq)
+    idx_p = nb.nn_argmin_plain(f_b, f_a, a_sq, match_dtype=bf)
+    m_k = nb.argmin_metric(f_b, f_a, a_sq, idx_k, bf)
+    m_p = nb.argmin_metric(f_b, f_a, a_sq, idx_p, bf)
+    differ = idx_k != idx_p
+    assert not bool((differ & ((m_k - m_p).abs() > 1e-5 * m_p.abs())).any())
+    assert float(differ.float().mean()) < 0.01
+
+
+def _sweep_case(dev, rng, h, w, ha, wa, coarse):
+    specs = pt.channel_specs(1, 1, SynthConfig(), coarse)
+    geom = pt.tile_geometry(h, w, specs)
+    hc, wc, hac, wac = (h + 1) // 2, (w + 1) // 2, (ha + 1) // 2, (wa + 1) // 2
+    src = [_rand(rng, s, dev) for s in ((ha, wa), (ha, wa), (hac, wac),
+                                        (hac, wac))]
+    a8 = pt.prepare_a_planes(src[0], src[1], src[2] if coarse else None,
+                             src[3] if coarse else None, specs,
+                             cand_dtype="int8")
+    b_planes = pt.prepare_b_planes(
+        _rand(rng, (h, w), dev), _rand(rng, (h, w), dev),
+        _rand(rng, (hc, wc), dev) if coarse else None,
+        _rand(rng, (hc, wc), dev) if coarse else None, geom)
+    qy = torch.arange(h, device=dev)[:, None]
+    qx = torch.arange(w, device=dev)[None, :]
+    oy = pt.to_compact(
+        (torch.randint(0, ha, (h, w), device=dev) - qy).int(), geom)
+    ox = pt.to_compact(
+        (torch.randint(0, wa, (h, w), device=dev) - qx).int(), geom)
+    d_in = torch.where(
+        torch.rand(oy.shape, device=dev) < 0.5,
+        torch.full(oy.shape, float("inf"), device=dev),
+        torch.rand(oy.shape, device=dev) * float(len(specs)) * 0.3,
+    )
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    cy, cx, cv = pt.sample_candidates_blocked(
+        oy, ox, pt.draw_candidates(gen, geom, ha, wa), geom, ha, wa)
+    cv = (cv * (torch.rand(cv.shape, device=dev) > 0.3)).int().contiguous()
+    kw = dict(specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=1.4)
+    return a8, b_planes, (cy, cx, cv, oy, ox, d_in), kw
+
+
+@pytest.mark.parametrize("h,w,ha,wa,coarse", [
+    (300, 500, 260, 380, True), (128, 128, 128, 128, False),
+])
+def test_tile_sweep_kernel_int8_matches_plain_and_f32(dev, h, w, ha, wa,
+                                                      coarse):
+    rng = np.random.default_rng(h + wa)
+    a8, b_planes, rest, kw = _sweep_case(dev, rng, h, w, ha, wa, coarse)
+    before = (pt.launches.count, pt.launches_int8.count)
+    got = pt.tile_sweep(a8, b_planes, *rest, cand_dtype="int8", **kw)
+    assert (pt.launches.count, pt.launches_int8.count) == \
+        (before[0], before[1] + 1)
+    want = pt.tile_sweep_plain(a8, b_planes, *rest, **kw)
+    deq = pt.tile_sweep_kernel(pt.dequantize_planes(a8), b_planes, *rest,
+                               **kw)
+    torch.cuda.synchronize()
+    kd, pd = got[2][:h, :w], want[2][:h, :w]
+    tol = 1e-5 + 1e-4 * pd.abs()
+    same_inf = torch.isinf(kd) & torch.isinf(pd)
+    assert bool(((kd - pd).abs() <= tol).logical_or(same_inf).all())
+    geo = {k: v for k, v in kw.items() if k != "coh_factor"}
+    bad = pt.unexplained_offsets(got, want, rest[3:], a8, b_planes, h=h,
+                                 w=w, **geo)
+    assert not bool(bad.any())
+    assert torch.equal(got[0], deq[0]) and torch.equal(got[1], deq[1])
+    fin = torch.isfinite(got[2])
+    assert torch.equal(fin, torch.isfinite(deq[2]))
+    assert bool(((got[2][fin] - deq[2][fin]).abs()
+                 <= 1e-5 * deq[2][fin].abs()).all())
+
+
+def test_tile_sweep_rejects_planes_of_the_other_mode(dev):
+    rng = np.random.default_rng(3)
+    a8, b_planes, rest, kw = _sweep_case(dev, rng, 128, 128, 128, 128, False)
+    with pytest.raises(ValueError, match="cand_dtype"):
+        pt.tile_sweep(a8, b_planes, *rest, cand_dtype="bf16", **kw)
+    with pytest.raises(ValueError, match="cand_dtype"):
+        pt.tile_sweep(pt.dequantize_planes(a8), b_planes, *rest,
+                      cand_dtype="int8", **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8,
+                                   torch.float32])
+@pytest.mark.parametrize("na,idx_shape", [(300, (1000,)), (97, (3, 41)),
+                                          (5, (1,)), (70000, (65537,))])
+def test_gather_rows_kernel_matches_plain(dev, dtype, na, idx_shape):
+    rng = np.random.default_rng(na)
+    if dtype == torch.int8:
+        tab = torch.randint(-127, 128, (na, 68), dtype=torch.int8,
+                            device=dev)
+    else:
+        tab = _rand(rng, (na, 68), dev).to(dtype)
+    table = ps.prepare_polish_table(tab)
+    idx = torch.as_tensor(rng.integers(-5, na + 5, idx_shape), device=dev)
+    before = ps.launches.count
+    got = ps.gather_rows(table, idx)
+    assert ps.launches.count == before + 1
+    want = ps.gather_rows_plain(table, idx)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and tuple(got.shape) == (idx.numel(), ps.LANE)
+    assert torch.equal(got, want)
+    assert torch.equal(ps.gather_rows(table, idx, plain=True), want)
+    assert ps.launches.count == before + 1

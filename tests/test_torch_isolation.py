@@ -15,6 +15,7 @@ import image_analogies_tpu_torch
 from image_analogies_tpu_torch import SynthConfig, create_image_analogy
 from image_analogies_tpu_torch import kernels
 from image_analogies_tpu_torch.kernels import nn_brute, patchmatch_tile as pt
+from image_analogies_tpu_torch.kernels import polish_stream
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = pathlib.Path(image_analogies_tpu_torch.__file__).resolve().parent
@@ -28,6 +29,7 @@ def test_imports_without_jax():
         "import image_analogies_tpu_torch.models, "
         "image_analogies_tpu_torch.kernels.patchmatch_tile, "
         "image_analogies_tpu_torch.kernels.nn_brute, "
+        "image_analogies_tpu_torch.kernels.polish_stream, "
         "image_analogies_tpu_torch.utils.examples; "
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules "
         "if sys.modules[m] is not None}; print('ok')"
@@ -109,7 +111,46 @@ def test_tile_wrapper_cpu_goes_plain_and_counts_nothing():
     assert pt.launches.count == 0
 
 
+def test_tile_wrapper_int8_cpu_goes_plain_and_counts_nothing():
+    pt.launches.reset()
+    pt.launches_int8.reset()
+    specs = pt.channel_specs(1, 1, SynthConfig(device="cpu"), False)
+    h = w = ha = wa = 128
+    geom = pt.tile_geometry(h, w, specs)
+    img = [torch.rand(h, w) for _ in range(4)]
+    a8 = pt.prepare_a_planes(img[0], img[1], None, None, specs,
+                             cand_dtype="int8")
+    assert a8.dtype == torch.int8
+    b_planes = pt.prepare_b_planes(img[2], img[3], None, None, geom)
+    cand = torch.zeros(geom.n_ty, geom.n_tx, pt.K_TOTAL, dtype=torch.int32)
+    z = torch.zeros(geom.n_ty * 64, geom.n_tx * geom.tile_w,
+                    dtype=torch.int32)
+    args = (a8, b_planes, cand, cand, cand + 1, z, z,
+            torch.full(z.shape, float("inf")))
+    kw = dict(specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=1.0)
+    out = pt.tile_sweep(*args, cand_dtype="int8", **kw)
+    assert torch.isfinite(out[2]).all()
+    assert pt.launches.count == pt.launches_int8.count == 0
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pt.tile_sweep_kernel(*args, **kw)
+    assert pt.launches_int8.count == 0
+
+
+def test_gather_wrapper_cpu_goes_plain_and_counts_nothing():
+    polish_stream.launches.reset()
+    table = polish_stream.prepare_polish_table(torch.rand(30, 68))
+    idx = torch.tensor([[0, 29], [31, -1]])
+    rows = polish_stream.gather_rows(table, idx)
+    assert torch.equal(rows, table[[0, 29, 29, 0]])
+    assert polish_stream.launches.count == 0
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        polish_stream.gather_rows_kernel(table, idx)
+    assert polish_stream.launches.count == 0
+
+
 def test_kernel_sources_and_build_dir():
+    assert set(kernels.SOURCES) == {"tile_sweep", "nn_brute", "row_gather"}
+    assert "ia_gather_rows" in kernels.SOURCES["row_gather"]
     for name in kernels.SOURCES:
         assert (kernels.CSRC / f"{name}.cu").exists()
         lib = kernels._lib_path(name)

@@ -78,10 +78,12 @@ def test_resume_from_jax_level_state(tmp_path):
 
 @pytest.mark.parametrize("kw", [{"levels": 2, "color_mode": "rgb"},
                                 {"levels": 2, "steerable": True},
-                                {"levels": 2, "pca_dims": 6, "kappa": 2.0}])
+                                {"levels": 2, "pca_dims": 6, "kappa": 2.0},
+                                {"levels": 2, "match_dtype": "bfloat16"}])
 def test_options_against_jax_brute(kw):
     """Brute runs of the other standard-path options against the JAX
-    package's B'."""
+    package's B' (bfloat16 matching: both argmins on bf16-rounded rows
+    with float32 products)."""
     a, ap, b = texture_by_numbers(32)
     kw = dict(matcher="brute", em_iters=1, **kw)
     got = port(a, ap, b, **kw).numpy()

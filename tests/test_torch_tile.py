@@ -19,21 +19,34 @@ from image_analogies_tpu_torch.kernels import patchmatch_tile as tpt
 T = torch.from_numpy
 
 
-def jax_draws(key, t, geom, ha, wa):
+def jax_draws(key, t, geom, ha, wa, coarse_restarts=False):
     """The draws `sample_candidates_blocked` makes for sweep t, by the
     reference's own key derivation (fold_in at models/patchmatch.py, the
-    4-way split, then the jitter, perturbation and restart draws)."""
+    4-way split, then the jitter, perturbation and restart draws); with
+    `coarse_restarts`, also the restart positions `_field_restarts`
+    draws from the same two restart keys."""
     k_jit, k_loc, k_gy, k_gx = jax.random.split(jax.random.fold_in(key, t), 4)
     th, tw = geom.tile_h, geom.tile_w
     rmax = max(1, max(ha, wa) >> 1)
     shape = (geom.n_ty, geom.n_tx, jpt.K_GLOBAL)
     arr = lambda x: T(np.array(x))  # noqa: E731
+    restart = None
+    if coarse_restarts:
+        kt, ku = jax.random.split(k_gy)
+        kj, kv = jax.random.split(k_gx)
+        restart = torch.stack([
+            arr(jax.random.randint(kt, shape, 0, geom.n_ty)),
+            arr(jax.random.randint(kj, shape, 0, geom.n_tx)),
+            arr(jax.random.randint(ku, shape, 0, th)),
+            arr(jax.random.randint(kv, shape, 0, tw)),
+        ])
     return tpt.CandidateDraws(
         jitter=arr(jax.random.randint(k_jit, (2,), 0, min(th, tw))),
         pert=arr(jax.random.randint(
             k_loc, (2, geom.n_ty, geom.n_tx, jpt.K_LOCAL), -rmax, rmax + 1)),
         glob_y=arr(jax.random.randint(k_gy, shape, 0, max(ha - th, 1))),
         glob_x=arr(jax.random.randint(k_gx, shape, 0, max(wa - tw, 1))),
+        restart=restart,
     )
 
 
