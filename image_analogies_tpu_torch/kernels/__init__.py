@@ -44,14 +44,19 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 SOURCES: Dict[str, Dict[str, list]] = {
     "tile_sweep": {
-        "ia_tile_sweep": [_P] * 12 + [_I] * 17 + [_F] + [_P],
+        "ia_tile_sweep": [_P] * 12 + [_I] * 19 + [_F] + [_P],
     },
     "nn_brute": {
-        "ia_nn_argmin": [_P] * 5 + [_I] * 3 + [_P],
-        "ia_nn_argmin_bf16": [_P] * 5 + [_I] * 3 + [_P],
+        "ia_nn_split_tf32": [_P] + [_I] * 4 + [_F] + [_P] * 3,
+        "ia_nn_pad_bf16": [_P] + [_I] * 4 + [_F] + [_P] * 2,
+        "ia_nn_argmin": [_P] * 7 + [_I] * 4 + [_P],
+        "ia_nn_argmin_bf16": [_P] * 5 + [_I] * 4 + [_P],
     },
     "row_gather": {
         "ia_gather_rows": [_P] * 3 + [_L] + [_I] * 2 + [_P],
+    },
+    "l2_probe": {
+        "ia_l2_read": [_P, _L, _I, _I, _P, _P],
     },
 }
 
@@ -154,6 +159,33 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         build_all()
     return _LIBS[name]
+
+
+def l2_read_rate(device, n_bytes: int = 32 << 20, passes: int = 20) -> float:
+    """Bytes per second the card's L2 serves to 16-byte loads (the probe
+    kernel of `csrc/l2_probe.cu`): a buffer of `n_bytes`, inside the
+    50 MB L2, read `passes` times after a warming pass, timed by CUDA
+    events; the best of 2, 4 and 8 blocks per SM, three readings each."""
+    buf = torch.zeros(n_bytes // 4, dtype=torch.int32, device=device)
+    sink = torch.zeros(1, dtype=torch.int32, device=device)
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    fn = library("l2_probe").ia_l2_read
+    stream = stream_ptr(buf)
+    best = 0.0
+    for blocks in (2 * n_sm, 4 * n_sm, 8 * n_sm):
+        check(fn(buf.data_ptr(), n_bytes, 1, blocks, sink.data_ptr(), stream),
+              "ia_l2_read")
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            check(fn(buf.data_ptr(), n_bytes, passes, blocks,
+                     sink.data_ptr(), stream), "ia_l2_read")
+            end.record()
+            end.synchronize()
+            best = max(best,
+                       n_bytes * passes / (start.elapsed_time(end) * 1e-3))
+    return best
 
 
 def check(err: int, what: str) -> None:

@@ -26,30 +26,48 @@
 //
 // The TPU kernel's packed sublane layout, lane rotates, SMEM blocking,
 // DMA semaphore ring and banded-matrix window sums are TPU mechanics and
-// are not carried over.  Design here: one block of 128 threads per
-// (tile, 8-row strip): 144 tiles x 8 strips = 1152 blocks at the 1024^2
-// level 0, so the 132 SMs see many waves instead of one and a ragged
-// second.  Thread l owns padded column l.  The B strip (8 + 2P rows x 128
-// columns x C channels) is staged in shared memory once.  For each valid
-// slot (validity is uniform over the tile, so an invalid slot is a
-// whole-block skip) every thread reads its column of the A window
-// straight from global memory (coalesced rows; the A planes, 17 MB at
-// the headline, sit in the 50 MB L2), forms the per-group sum of squared
-// channel differences, and the separable window runs as a horizontal
-// pass through shared memory and a vertical pass down the thread's own
-// column.  The running minima live in registers.  No atomics: the result
-// is deterministic.
+// are not carried over.
 //
-// Bound: operations.  Per launch at the 1024^2 level 0: about 1.2 M pixel
-// positions x 36 slots x ~40 FLOP = 1.7 GFLOP against 67 TFLOP/s of FP32,
-// about 25 us; the compulsory bytes (A and B planes once, three state
-// planes in and out, about 60 MB) take about 18 us at 3.35 TB/s.  This
-// first kernel recomputes the 2P halo rows of every strip (12 rows for 8
-// outputs at P = 2) and streams the window from L2 for every slot, so it
-// sits well above that bound; making it fast is later work.  The int8
-// mode reads a quarter of the A bytes per window (the planes, 4 MB at the
-// headline, sit in L2 either way) and does the same float32 arithmetic
-// plus one add and one multiply per loaded value.
+// Bound.  By the card's published peaks the work is tiny: at the 1024^2
+// level 0 about 1.7 GFLOP a launch (25 us of FP32) and 60 MB of compulsory
+// bytes (18 us of HBM).  What bounds the algorithm on this card is the
+// window traffic from L2: every (tile, strip, valid slot) pulls a
+// C x rows x 128 window of the A planes (which sit in the 50 MB L2), some
+// hundreds of MB a launch, and the latency of those loads when nothing
+// else is in flight.
+//
+// Design for this card.
+//   - One block of 256 threads per (tile, strip of R output rows); thread
+//     (l, h) owns padded column l and half the strip's rows.  A strip of
+//     16 rows recomputes 1.25x its rows for the halo at halo 2, one of 8
+//     rows 1.5x.  The wrapper chooses R from the channel count and halo
+//     (`sweep_plan` in patchmatch_tile.py): two resident blocks an SM
+//     come first (16 warps hide the latency that one block's barriers
+//     expose), then the taller strip.  At the main path's 4 channels that
+//     is 16 rows in both modes (83 KB a block).
+//   - The block compacts its tile's valid slots once (ballot over
+//     `cand_valid`, slot order kept since the strict `<` depends on it)
+//     with the clamped (sy, sx), so the pipeline never meets a skipped
+//     slot.
+//   - The A window of a slot is read straight from L2 through L1 into
+//     registers.  A shared-memory ring that prefetched the next slot's
+//     window with `cp.async` was built and measured 7-43 % slower in both
+//     modes (the other resident block's warps already hide that latency,
+//     and the ring costs its copies' scheduler slots and shared-memory
+//     writes), so it was taken out; PERF.md keeps its times.
+//   - One `__syncthreads()` per slot: the per-group sums of squared
+//     differences go to a double-buffered plane, so slot k + 1's
+//     differences are formed between the same two barriers as slot k's
+//     window pass.  The horizontal pass reads the neighbours' columns of
+//     that plane and keeps its sums in registers; the vertical pass runs
+//     down the thread's own registers.
+//   - The windows of the main path (5 taps at dilation 1 and 3 taps at
+//     dilation 2, halo 2) are a compile-time instantiation with unrolled
+//     tap loops (`FIXED`); every other spec runs the general instantiation
+//     with run-time tap loops.  Sum order in both: horizontal then
+//     vertical per group, group 0 then group 1.
+//   - Running minima in registers, no atomics: the result is
+//     deterministic.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -58,15 +76,26 @@ namespace {
 
 constexpr int LANE = 128;     // padded tile width: tile_w + 2 * halo
 constexpr int TILE_H = 64;
-constexpr int R = 8;          // output rows per block (strip)
+constexpr int NT = 256;       // threads per block
 constexpr int K_TOTAL = 36;
 constexpr int K_COHERENT = 20;
 constexpr int MAXT = 16;      // taps per window axis, at most
+constexpr int LIST = 40;      // ints per slot list (36 used)
 constexpr float DEQ = (float)(1.0 / 254.0);  // int8 grid step
 
 __device__ __forceinline__ float load_a(const float* p) { return *p; }
+// (q + 127) * (1 / 254).  The integer-to-float conversion runs at a
+// quarter of the arithmetic rate, so q + 128 (the byte with its sign bit
+// flipped) is placed in the mantissa of 2^23 and the bias subtracted:
+// exact, like the conversion.  `__fmul_rn` keeps the product a rounded
+// float32 of its own: fused into the channel difference it would round
+// once, and the int8 mode would no longer pick what the float32 mode
+// picks on dequantized planes.
 __device__ __forceinline__ float load_a(const signed char* p) {
-  return ((float)*p + 127.f) * DEQ;
+  const unsigned u = (unsigned)*reinterpret_cast<const unsigned char*>(p) ^
+                     0x80u;
+  const float q128 = __uint_as_float(0x4B000000u | u) - 8388608.f;
+  return __fmul_rn(q128 - 1.f, DEQ);
 }
 
 template <typename TA>
@@ -88,31 +117,77 @@ struct Params {
   float coh_factor;
 };
 
-template <int P, typename TA>
-__global__ void __launch_bounds__(LANE) tile_sweep_kernel(Params<TA> prm) {
-  constexpr int ROWS = R + 2 * P;
-  extern __shared__ float smem[];
-  float* bs = smem;                                  // [C][ROWS][LANE]
-  float* acc = bs + prm.n_chan * ROWS * LANE;        // [2][ROWS][LANE]
-  float* xs = acc + 2 * ROWS * LANE;                 // [2][ROWS][LANE]
-  float* wts = xs + 2 * ROWS * LANE;                 // [2][2][MAXT]
+template <int P, int R>
+__host__ __device__ constexpr size_t smem_bytes(int n_chan) {
+  // B strip, the double-buffered group sums, weights, slot lists.
+  return ((size_t)(n_chan + 4) * (R + 2 * P) * LANE + 2 * 2 * MAXT +
+          4 * LIST) * sizeof(float);
+}
 
-  const int l = threadIdx.x;
+// FIXED: the main path's windows, 5 taps at dilation 1 (group 0) and 3
+// taps at dilation 2 (group 1), at halo 2.
+template <int P, typename TA, int R, bool FIXED>
+__global__ void __launch_bounds__(NT, 2) tile_sweep_kernel(Params<TA> prm) {
+  constexpr int ROWS = R + 2 * P;
+  constexpr int HR = ROWS / 2;   // rows of differences per thread
+  constexpr int H = R / 2;       // output rows per thread
+  constexpr int XR = H + 2 * P;  // horizontal sums a thread needs
+  static_assert(!FIXED || P == 2, "the fixed windows have halo 2");
+  extern __shared__ __align__(16) float smem[];
+  const int C = prm.n_chan;
+  float* bs = smem;                                  // [C][ROWS][LANE]
+  float* acc = bs + C * ROWS * LANE;                 // [2][2][ROWS][LANE]
+  float* wts = acc + 2 * 2 * ROWS * LANE;            // [2][2][MAXT]
+  int* slot_k = reinterpret_cast<int*>(wts + 2 * 2 * MAXT);
+  int* slot_sy = slot_k + LIST;
+  int* slot_sx = slot_sy + LIST;
+  int* n_slots = slot_sx + LIST;
+
+  const int tid = threadIdx.x;
+  const int l = tid & (LANE - 1);
+  const int h = tid >> 7;
   const int tile = blockIdx.x;
   const int ti = tile / prm.n_tx;
   const int tj = tile % prm.n_tx;
   const int ty0 = ti * TILE_H;
   const int tx0 = tj * prm.tile_w;
   const int u0 = blockIdx.y * R;
-  const int n_groups = prm.n_group0 < prm.n_chan ? 2 : 1;
-  const int taps[2] = {prm.taps0, prm.taps1};
-  const int dil[2] = {prm.dil0, prm.dil1};
+  const bool two_groups = prm.n_group0 < C;
+  const size_t plane = (size_t)prm.a_h * prm.a_w;
 
-  if (l < 2 * 2 * MAXT) wts[l] = prm.weights[l];
-  for (int c = 0; c < prm.n_chan; ++c) {
+  // The valid slots of this tile, compacted in slot order.
+  if (tid < 32) {
+    const int* cv = prm.cand_valid + tile * K_TOTAL;
+    const int* cy = prm.cand_y + tile * K_TOTAL;
+    const int* cx = prm.cand_x + tile * K_TOTAL;
+    const bool v0 = cv[tid] > 0;
+    const bool v1 = tid < K_TOTAL - 32 && cv[32 + tid] > 0;
+    const unsigned m0 = __ballot_sync(0xffffffffu, v0);
+    const unsigned m1 = __ballot_sync(0xffffffffu, v1);
+    const unsigned below = (1u << tid) - 1u;
+    if (v0) {
+      const int pos = __popc(m0 & below);
+      slot_k[pos] = tid;
+      slot_sy[pos] = min(max(ty0 + cy[tid], 0), prm.ha - TILE_H);
+      slot_sx[pos] = min(max(tx0 + cx[tid], 0), prm.wa - prm.tile_w);
+    }
+    if (v1) {
+      const int pos = __popc(m0) + __popc(m1 & below);
+      slot_k[pos] = 32 + tid;
+      slot_sy[pos] = min(max(ty0 + cy[32 + tid], 0), prm.ha - TILE_H);
+      slot_sx[pos] = min(max(tx0 + cx[32 + tid], 0), prm.wa - prm.tile_w);
+    }
+    if (tid == 0) n_slots[0] = __popc(m0) + __popc(m1);
+  }
+  if (tid < 2 * 2 * MAXT) wts[tid] = prm.weights[tid];
+  __syncthreads();
+  const int n = n_slots[0];
+
+  for (int c = 0; c < C; ++c) {
     const float* bp = prm.b + (size_t)c * prm.b_h * prm.b_w;
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
+    for (int i = 0; i < HR; ++i) {
+      const int r = h * HR + i;
       bs[(c * ROWS + r) * LANE + l] =
           bp[(size_t)(ty0 + u0 + r) * prm.b_w + tx0 + l];
     }
@@ -120,15 +195,16 @@ __global__ void __launch_bounds__(LANE) tile_sweep_kernel(Params<TA> prm) {
 
   const bool owner = l < prm.tile_w;
   const int state_w = prm.n_tx * prm.tile_w;
-  float d_coh[R], d_app[R];
-  int y_coh[R], x_coh[R], y_app[R], x_app[R];
+  const int row0 = ty0 + u0 + h * H;  // the thread's first output row
+  float d_coh[H], d_app[H];
+  int y_coh[H], x_coh[H], y_app[H], x_app[H];
 #pragma unroll
-  for (int u = 0; u < R; ++u) {
+  for (int u = 0; u < H; ++u) {
     d_app[u] = CUDART_INF_F;
     y_app[u] = 0;
     x_app[u] = 0;
     if (owner) {
-      const size_t s = (size_t)(ty0 + u0 + u) * state_w + tx0 + l;
+      const size_t s = (size_t)(row0 + u) * state_w + tx0 + l;
       d_coh[u] = prm.d_in[s];
       y_coh[u] = prm.oy_in[s];
       x_coh[u] = prm.ox_in[s];
@@ -138,104 +214,150 @@ __global__ void __launch_bounds__(LANE) tile_sweep_kernel(Params<TA> prm) {
       x_coh[u] = 0;
     }
   }
-  __syncthreads();
 
-  const int* cy = prm.cand_y + tile * K_TOTAL;
-  const int* cx = prm.cand_x + tile * K_TOTAL;
-  const int* cv = prm.cand_valid + tile * K_TOTAL;
-  for (int k = 0; k < K_TOTAL; ++k) {
-    if (cv[k] <= 0) continue;  // uniform over the block
-    const int sy = min(max(ty0 + cy[k], 0), prm.ha - TILE_H);
-    const int sx = min(max(tx0 + cx[k], 0), prm.wa - prm.tile_w);
-
-    // Per-group sums of squared channel differences at column l.  The
-    // channel loop is outside the unrolled row loop so each thread has a
-    // whole column of independent L2 loads in flight per channel.
-    float s0[ROWS], s1[ROWS];
+  // Per-group sums of squared channel differences of slot j at the
+  // thread's column and HR rows, into plane `buf`.
+  auto differences = [&](int j, int buf) {
+    const int sy = slot_sy[j];
+    const int sx = slot_sx[j];
+    float s0[HR], s1[HR];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      s0[r] = 0.f;
-      s1[r] = 0.f;
+    for (int i = 0; i < HR; ++i) {
+      s0[i] = 0.f;
+      s1[i] = 0.f;
     }
-    const TA* a_col = prm.a + (size_t)(sy + u0) * prm.a_w + sx + l;
-    for (int c = 0; c < prm.n_chan; ++c) {
-      const TA* ac = a_col + (size_t)c * prm.a_h * prm.a_w;
-      const float* bc = bs + c * ROWS * LANE + l;
-      float v[ROWS];
+    const int r0 = h * HR;
+    for (int c = 0; c < C; ++c) {
+      const long long e0 =
+          (long long)c * plane + (long long)(sy + u0 + r0) * prm.a_w + sx;
+      const float* bc = bs + (c * ROWS + r0) * LANE + l;
+      float v[HR];
+      const TA* w = prm.a + e0 + l;
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        v[r] = load_a(ac + (size_t)r * prm.a_w);
-      }
+      for (int i = 0; i < HR; ++i) v[i] = load_a(w + (size_t)i * prm.a_w);
       if (c < prm.n_group0) {
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const float diff = bc[r * LANE] - v[r];
-          s0[r] += diff * diff;
+        for (int i = 0; i < HR; ++i) {
+          const float diff = bc[i * LANE] - v[i];
+          s0[i] += diff * diff;
         }
       } else {
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const float diff = bc[r * LANE] - v[r];
-          s1[r] += diff * diff;
+        for (int i = 0; i < HR; ++i) {
+          const float diff = bc[i * LANE] - v[i];
+          s1[i] += diff * diff;
         }
       }
     }
+    float* out = acc + (buf * 2 * ROWS + r0) * LANE + l;
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      acc[r * LANE + l] = s0[r];
-      acc[(ROWS + r) * LANE + l] = s1[r];
+    for (int i = 0; i < HR; ++i) {
+      out[i * LANE] = s0[i];
+      out[(ROWS + i) * LANE] = s1[i];
     }
-    __syncthreads();
+  };
 
-    if (owner) {
-      // Horizontal window pass (reads neighbouring columns), into the
-      // thread's own column of xs.
-      for (int g = 0; g < n_groups; ++g) {
-        const int rg = taps[g] / 2;
-        const float* wx = wts + (g * 2 + 1) * MAXT;
+  // The separable window over plane `buf` and the two running minima.
+  auto window_pass = [&](int j, int buf) {
+    const int k = slot_k[j];
+    const int oy_o = slot_sy[j] - ty0;
+    const int ox_o = slot_sx[j] - tx0;
+    // Row h * H + i of the plane is output row u = i - P of the thread.
+    const float* p0 = acc + (buf * 2 * ROWS + h * H) * LANE + l + P;
+    const float* p1 = p0 + ROWS * LANE;
+    float d[H];
+    if (FIXED) {
+      const float* w0y = wts;
+      const float* w0x = wts + MAXT;
+      const float* w1y = wts + 2 * MAXT;
+      const float* w1x = wts + 3 * MAXT;
+      float xs0[XR], xs1[XR];
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          const float* row = acc + (g * ROWS + r) * LANE + l + P;
+      for (int i = 0; i < XR; ++i) {
+        float s = 0.f;
+#pragma unroll
+        for (int t = 0; t < 5; ++t) s += w0x[t] * p0[i * LANE + (t - 2)];
+        xs0[i] = s;
+      }
+      if (two_groups) {
+#pragma unroll
+        for (int i = 0; i < XR; ++i) {
           float s = 0.f;
-          for (int t = 0; t < taps[g]; ++t) s += wx[t] * row[(t - rg) * dil[g]];
-          xs[(g * ROWS + r) * LANE + l] = s;
+#pragma unroll
+          for (int t = 0; t < 3; ++t) s += w1x[t] * p1[i * LANE + (t - 1) * 2];
+          xs1[i] = s;
         }
       }
-      // Vertical pass down the same column, then the two running minima.
-      const int oy_o = sy - ty0;
-      const int ox_o = sx - tx0;
 #pragma unroll
-      for (int u = 0; u < R; ++u) {
-        float d = 0.f;
+      for (int u = 0; u < H; ++u) {
+        float dd = 0.f;
+        float s = 0.f;
+#pragma unroll
+        for (int t = 0; t < 5; ++t) s += w0y[t] * xs0[u + P + (t - 2)];
+        dd += s;
+        if (two_groups) {
+          s = 0.f;
+#pragma unroll
+          for (int t = 0; t < 3; ++t) s += w1y[t] * xs1[u + P + (t - 1) * 2];
+          dd += s;
+        }
+        d[u] = dd;
+      }
+    } else {
+      const int taps[2] = {prm.taps0, prm.taps1};
+      const int dil[2] = {prm.dil0, prm.dil1};
+      const int n_groups = two_groups ? 2 : 1;
+#pragma unroll
+      for (int u = 0; u < H; ++u) {
+        float dd = 0.f;
         for (int g = 0; g < n_groups; ++g) {
           const int rg = taps[g] / 2;
           const float* wy = wts + (g * 2) * MAXT;
-          const float* col = xs + (g * ROWS + u + P) * LANE + l;
+          const float* wx = wy + MAXT;
+          const float* pg = (g ? p1 : p0) + (u + P) * LANE;
           float s = 0.f;
-          for (int t = 0; t < taps[g]; ++t)
-            s += wy[t] * col[(t - rg) * dil[g] * LANE];
-          d += s;
-        }
-        if (k < K_COHERENT) {
-          if (d < d_coh[u]) {
-            d_coh[u] = d;
-            y_coh[u] = oy_o;
-            x_coh[u] = ox_o;
+          for (int ty = 0; ty < taps[g]; ++ty) {
+            const float* row = pg + (ty - rg) * dil[g] * LANE;
+            float xs = 0.f;
+            for (int tx = 0; tx < taps[g]; ++tx)
+              xs += wx[tx] * row[(tx - rg) * dil[g]];
+            s += wy[ty] * xs;
           }
-        } else if (d < d_app[u]) {
-          d_app[u] = d;
-          y_app[u] = oy_o;
-          x_app[u] = ox_o;
+          dd += s;
         }
+        d[u] = dd;
       }
     }
-    __syncthreads();  // acc is rewritten by the next slot
+#pragma unroll
+    for (int u = 0; u < H; ++u) {
+      if (k < K_COHERENT) {
+        if (d[u] < d_coh[u]) {
+          d_coh[u] = d[u];
+          y_coh[u] = oy_o;
+          x_coh[u] = ox_o;
+        }
+      } else if (d[u] < d_app[u]) {
+        d_app[u] = d[u];
+        y_app[u] = oy_o;
+        x_app[u] = ox_o;
+      }
+    }
+  };
+
+  if (n > 0) {
+    __syncthreads();  // the B strip is in place
+    differences(0, 0);
+    for (int j = 0; j < n; ++j) {
+      __syncthreads();  // plane j & 1 is whole; the other one is free
+      if (owner) window_pass(j, j & 1);
+      if (j + 1 < n) differences(j + 1, (j + 1) & 1);
+    }
   }
 
   if (owner) {
 #pragma unroll
-    for (int u = 0; u < R; ++u) {
-      const size_t s = (size_t)(ty0 + u0 + u) * state_w + tx0 + l;
+    for (int u = 0; u < H; ++u) {
+      const size_t s = (size_t)(row0 + u) * state_w + tx0 + l;
       const bool take_app = d_app[u] * prm.coh_factor < d_coh[u];
       prm.d_out[s] = take_app ? d_app[u] : d_coh[u];
       prm.oy_out[s] = take_app ? y_app[u] : y_coh[u];
@@ -244,29 +366,36 @@ __global__ void __launch_bounds__(LANE) tile_sweep_kernel(Params<TA> prm) {
   }
 }
 
-template <int P, typename TA>
+template <int P, typename TA, int R, bool FIXED>
 int launch(const Params<TA>& prm, cudaStream_t stream) {
-  constexpr int ROWS = R + 2 * P;
-  const size_t smem =
-      ((size_t)(prm.n_chan + 4) * ROWS * LANE + 2 * 2 * MAXT) * sizeof(float);
+  const size_t smem = smem_bytes<P, R>(prm.n_chan);
   cudaError_t err = cudaFuncSetAttribute(
-      tile_sweep_kernel<P, TA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      tile_sweep_kernel<P, TA, R, FIXED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(prm.n_ty * prm.n_tx, TILE_H / R);
-  tile_sweep_kernel<P, TA><<<grid, LANE, smem, stream>>>(prm);
+  tile_sweep_kernel<P, TA, R, FIXED><<<grid, NT, smem, stream>>>(prm);
   return (int)cudaGetLastError();
 }
 
+template <int P, typename TA, bool FIXED>
+int launch_rows(const Params<TA>& prm, int rows, cudaStream_t stream) {
+  if (rows == 8) return launch<P, TA, 8, FIXED>(prm, stream);
+  if (rows == 16) return launch<P, TA, 16, FIXED>(prm, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename TA>
-int launch_halo(const Params<TA>& prm, int halo, cudaStream_t stream) {
+int launch_halo(const Params<TA>& prm, int halo, int rows, bool fixed,
+                cudaStream_t stream) {
+  if (fixed) return launch_rows<2, TA, true>(prm, rows, stream);
   switch (halo) {
-    case 1: return launch<1>(prm, stream);
-    case 2: return launch<2>(prm, stream);
-    case 3: return launch<3>(prm, stream);
-    case 4: return launch<4>(prm, stream);
-    case 5: return launch<5>(prm, stream);
-    case 6: return launch<6>(prm, stream);
+    case 1: return launch_rows<1, TA, false>(prm, rows, stream);
+    case 2: return launch_rows<2, TA, false>(prm, rows, stream);
+    case 3: return launch_rows<3, TA, false>(prm, rows, stream);
+    case 4: return launch_rows<4, TA, false>(prm, rows, stream);
+    case 5: return launch_rows<5, TA, false>(prm, rows, stream);
+    case 6: return launch_rows<6, TA, false>(prm, rows, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -288,21 +417,27 @@ Params<TA> make_params(
 }  // namespace
 
 // `a` points at float32 planes, or at int8 planes when `a_int8` is 1.
+// `strip_rows` (8 or 16) is the wrapper's plan; `general` forces the
+// run-time tap loops where the fixed windows would apply.
 extern "C" int ia_tile_sweep(
     const void* a, const float* b, const int* cand_y, const int* cand_x,
     const int* cand_valid, const int* oy_in, const int* ox_in,
     const float* d_in, int* oy_out, int* ox_out, float* d_out,
     const float* weights, int n_chan, int n_group0, int ha, int wa, int a_h,
     int a_w, int b_h, int b_w, int n_ty, int n_tx, int tile_w, int halo,
-    int taps0, int dil0, int taps1, int dil1, int a_int8, float coh_factor,
-    cudaStream_t stream) {
+    int taps0, int dil0, int taps1, int dil1, int a_int8, int strip_rows,
+    int general, float coh_factor, cudaStream_t stream) {
   if (tile_w + 2 * halo != LANE) return (int)cudaErrorInvalidValue;
+  const bool fixed = !general && halo == 2 && taps0 == 5 && dil0 == 1 &&
+                     (n_group0 == n_chan || (taps1 == 3 && dil1 == 2));
 #define IA_PARAMS(TA)                                                        \
   make_params<TA>(a, b, cand_y, cand_x, cand_valid, oy_in, ox_in, d_in,      \
                   oy_out, ox_out, d_out, weights, n_chan, n_group0, ha, wa,  \
                   a_h, a_w, b_h, b_w, n_ty, n_tx, tile_w, taps0, dil0, taps1, \
                   dil1, coh_factor)
-  if (a_int8) return launch_halo(IA_PARAMS(signed char), halo, stream);
-  return launch_halo(IA_PARAMS(float), halo, stream);
+  if (a_int8)
+    return launch_halo(IA_PARAMS(signed char), halo, strip_rows, fixed,
+                       stream);
+  return launch_halo(IA_PARAMS(float), halo, strip_rows, fixed, stream);
 #undef IA_PARAMS
 }

@@ -73,13 +73,17 @@ K_GLOBAL = 4
 K_TOTAL = K_OWN + K_PROP + K_LOCAL + K_GLOBAL
 K_COHERENT = K_OWN + K_PROP
 
-# Resources of the CUDA kernel (csrc/tile_sweep.cu): rows per block, the
-# halos it is instantiated for, the taps per window axis, and the shared
-# memory a block may use on Hopper.
+# Resources of the CUDA kernel (csrc/tile_sweep.cu): the output rows per
+# block it is instantiated for, the halos, the taps per window axis, the
+# shared memory a block may use on Hopper, and what a block may use when
+# two are to share an SM (228 KB less 1 KB a block).
 STRIP_ROWS = 8
+STRIP_ROWS_TALL = 16
 MAX_HALO = 6
 MAX_TAPS = 16
 SMEM_LIMIT = 232_448
+SMEM_TWO_BLOCKS = 115_712
+_SLOT_LIST = 40
 
 launches = LaunchCounter("tile_sweep")
 launches_int8 = LaunchCounter("tile_sweep_int8")
@@ -696,35 +700,60 @@ def _device_weights(specs, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(window_weights(specs)[0]).to(device)
 
 
-def kernel_smem_bytes(n_chan: int, halo: int) -> int:
-    """Dynamic shared memory of one block of the CUDA kernel: the B strip
-    (C planes), the two window-sum buffers per group (4 planes) of
-    (8 + 2 * halo) x 128 float32, and the weights."""
-    rows = STRIP_ROWS + 2 * halo
-    return ((n_chan + 4) * rows * LANE + 2 * 2 * MAX_TAPS) * 4
+def kernel_smem_bytes(n_chan: int, halo: int, rows: int = STRIP_ROWS) -> int:
+    """Dynamic shared memory of one block of the CUDA kernel with strips
+    of `rows` output rows: the B strip (C planes) and the double-buffered
+    group sums (4 planes) of (rows + 2 * halo) x 128 float32, the weights
+    and the slot lists."""
+    r = rows + 2 * halo
+    return ((n_chan + 4) * r * LANE + 2 * 2 * MAX_TAPS + 4 * _SLOT_LIST) * 4
+
+
+def sweep_plan(n_chan: int, halo: int):
+    """The output rows per block of the CUDA kernel for a channel count
+    and halo, or None when even a strip of 8 rows does not fit a block.
+    As measured on the H100 (PERF.md), two resident blocks an SM count
+    for most, then the taller strip (less halo per output row): the
+    tallest strip of which two blocks fit, else 8 rows in one block."""
+    for rows in (STRIP_ROWS_TALL, STRIP_ROWS):
+        if kernel_smem_bytes(n_chan, halo, rows) <= SMEM_TWO_BLOCKS:
+            return rows
+    if kernel_smem_bytes(n_chan, halo, STRIP_ROWS) <= SMEM_LIMIT:
+        return STRIP_ROWS
+    return None
 
 
 def kernel_fits(specs) -> bool:
     """The CUDA kernel's resource check: its halo is instantiated, its
-    windows fit, and its shared memory fits a Hopper block."""
+    windows fit, and a strip's shared memory fits a Hopper block."""
     try:
         window_weights(specs)
     except ValueError:
         return False
     halo = halo_for(specs)
-    return (
-        1 <= halo <= MAX_HALO
-        and kernel_smem_bytes(len(specs), halo) <= SMEM_LIMIT
-    )
+    return 1 <= halo <= MAX_HALO and sweep_plan(len(specs), halo) is not None
+
+
+def window_bytes(cand_valid, specs, geom: TileGeometry,
+                 itemsize: int) -> int:
+    """The A-window bytes one launch pulls from L2: per valid slot and
+    strip, C x (rows + 2 * halo) x 128 elements."""
+    rows = sweep_plan(len(specs), geom.halo)
+    strips = geom.tile_h // rows
+    return int((cand_valid > 0).sum()) * strips * len(specs) \
+        * (rows + 2 * geom.halo) * LANE * itemsize
 
 
 def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
                       off_y, off_x, dist, *, specs, geom: TileGeometry,
-                      ha: int, wa: int, coh_factor: float):
+                      ha: int, wa: int, coh_factor: float,
+                      general: bool = False):
     """The CUDA kernel on CUDA tensors; same contract as
     `tile_sweep_plain`, for float32 or int8 A planes (the int8 mode
-    dequantizes in the kernel and counts in `launches_int8`).  Launches
-    on the current stream."""
+    dequantizes in the kernel and counts in `launches_int8`).  `general`
+    forces the run-time tap loops where the main path's windows would
+    take the compile-time instantiation.  Launches on the current
+    stream."""
     _check_shapes(a_planes, b_planes, cand_y, off_y, specs, geom, ha, wa)
     if not kernel_fits(specs):
         raise ValueError("channel specs exceed the tile-sweep kernel")
@@ -746,6 +775,7 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
     for t in (b_planes, cand_y, cand_x, cand_valid, off_y, off_x, dist):
         if t.device != dev:
             raise ValueError("tile_sweep: tensors on different devices")
+    rows = sweep_plan(c, p)
     _, desc = window_weights(specs)
     weights = _device_weights(tuple(specs), dev)
     n0, taps0, dil0 = desc[0]
@@ -760,8 +790,8 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
         d_o.data_ptr(), weights.data_ptr(),
         c, n0, ha, wa, a_planes.shape[1], a_planes.shape[2],
         b_planes.shape[1], b_planes.shape[2], n_ty, n_tx, tw, p,
-        taps0, dil0, taps1, dil1, int(int8), float(coh_factor),
-        stream_ptr(a_planes),
+        taps0, dil0, taps1, dil1, int(int8), rows, int(general),
+        float(coh_factor), stream_ptr(a_planes),
     )
     check(err, "ia_tile_sweep")
     (launches_int8 if int8 else launches).add()

@@ -2,7 +2,9 @@
 card, over shapes and channel sets the main path's smoke check does not
 cover: ragged tiles, A and B of different sizes, rgb and steerable
 channel sets, a wider window, kappa > 1, tied and tiny tables; K1's
-int8 mode, K2's bfloat16 rows, and K3's row gather in three dtypes.
+int8 mode and both its instantiations (compile-time and run-time
+windows); K2's float32 (three TF32 passes) and bfloat16 rows at widths
+8 to 256; and K3's row gather in three dtypes.
 
 Needs an NVIDIA GPU, nvcc and no JAX; skipped elsewhere.  On the card:
 
@@ -35,16 +37,18 @@ def _rand(rng, shape, dev):
     return torch.as_tensor(rng.random(shape, dtype=np.float32), device=dev)
 
 
+@pytest.mark.parametrize("general", [False, True])
 @pytest.mark.parametrize("h,w,ha,wa,n_src,n_flt,coarse,coh,kw", [
     (300, 500, 260, 380, 1, 1, True, 1.0, {}),
     (128, 128, 128, 128, 1, 1, False, 2.0, {}),
     (200, 260, 200, 260, 3, 3, True, 1.5, {"color_mode": "rgb"}),
+    (200, 260, 200, 260, 3, 3, False, 1.5, {"color_mode": "rgb"}),
     (256, 130, 192, 300, 5, 1, True, 1.0, {"steerable": True}),
     (192, 192, 256, 256, 1, 1, True, 1.2,
      {"patch_size": 7, "coarse_patch_size": 5}),
 ])
 def test_tile_sweep_kernel_matches_plain(dev, h, w, ha, wa, n_src, n_flt,
-                                         coarse, coh, kw):
+                                         coarse, coh, kw, general):
     rng = np.random.default_rng(h * 7 + w)
     specs = pt.channel_specs(n_src, n_flt, SynthConfig(**kw), coarse)
     assert pt.kernel_fits(specs)
@@ -81,7 +85,10 @@ def test_tile_sweep_kernel_matches_plain(dev, h, w, ha, wa, n_src, n_flt,
     args = (a_planes, b_planes, cy, cx, cv, oy, ox, d_in)
     kw2 = dict(specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=coh)
     before = pt.launches.count
-    got = pt.tile_sweep(*args, **kw2)
+    if general:  # the run-time tap loops, whatever the windows
+        got = pt.tile_sweep_kernel(*args, general=True, **kw2)
+    else:
+        got = pt.tile_sweep(*args, **kw2)
     assert pt.launches.count == before + 1
     want = pt.tile_sweep_plain(*args, **kw2)
     torch.cuda.synchronize()
@@ -99,17 +106,26 @@ def test_tile_sweep_kernel_matches_plain(dev, h, w, ha, wa, n_src, n_flt,
 
 
 @pytest.mark.parametrize("n_b,n_a,d", [(1000, 3000, 68), (777, 65, 204),
-                                       (5, 3, 17), (4096, 4100, 50)])
+                                       (5, 3, 17), (4096, 4100, 50),
+                                       (129, 257, 8), (1001, 2999, 150),
+                                       (300, 1025, 256)])
 def test_nn_argmin_kernel_matches_plain(dev, n_b, n_a, d):
+    """float32 rows: the kernel's three TF32 passes against the plain
+    version's emulation of them and against the float32 argmin, equal
+    except at ties in the exact distance."""
     rng = np.random.default_rng(n_b + n_a + d)
     f_b = _rand(rng, (n_b, d), dev)
     f_a = _rand(rng, (n_a, d), dev)
     a_sq = nb.squared_norms(f_a)
     idx_k = nb.nn_argmin_kernel(f_b, f_a, a_sq)
-    idx_p = nb.nn_argmin_plain(f_b, f_a, a_sq)
-    d_k, d_p = candidate_dist(f_b, f_a, idx_k), candidate_dist(f_b, f_a, idx_p)
-    differ = idx_k != idx_p
-    assert not bool((differ & ((d_k - d_p).abs() > 1e-5 * d_p.abs())).any())
+    d_k = candidate_dist(f_b, f_a, idx_k)
+    for passes in (3, 0):
+        idx_p = nb.nn_argmin_plain(f_b, f_a, a_sq, tf32_passes=passes)
+        d_p = candidate_dist(f_b, f_a, idx_p)
+        differ = idx_k != idx_p
+        assert not bool(
+            (differ & ((d_k - d_p).abs() > 1e-5 * d_p.abs())).any())
+        assert float(differ.float().mean()) < 0.01
 
 
 def test_nn_argmin_kernel_first_index_ties(dev):
@@ -121,10 +137,17 @@ def test_nn_argmin_kernel_first_index_ties(dev):
     f_b = f_a[[3, 550, 100, 130]].contiguous()
     idx = nb.nn_argmin_kernel(f_b, f_a, nb.squared_norms(f_a))
     assert idx.tolist() == [3, 3, 100, 100]
-    const = torch.ones(300, 8, device=dev)
-    idx = nb.nn_argmin_kernel(const[:70].contiguous(), const,
-                              nb.squared_norms(const))
-    assert idx.tolist() == [0] * 70
+    # Constant tables: every row ties, within and across tiles and
+    # blocks, so every query takes row 0.
+    for dtype in (torch.float32, torch.bfloat16):
+        const = torch.ones(300, 8, device=dev, dtype=dtype)
+        idx = nb.nn_argmin_kernel(const[:70].contiguous(), const,
+                                  nb.squared_norms(const))
+        assert idx.tolist() == [0] * 70
+        wide = torch.full((1500, 150), 0.5, device=dev, dtype=dtype)
+        idx = nb.nn_argmin_kernel(wide[:700].contiguous(), wide,
+                                  nb.squared_norms(wide))
+        assert idx.tolist() == [0] * 700
 
 
 def test_kernel_wrappers_reject_bad_input(dev):
@@ -135,6 +158,9 @@ def test_kernel_wrappers_reject_bad_input(dev):
         nb.nn_argmin_kernel(f.t(), f.t(), nb.squared_norms(f.t()))
     with pytest.raises(ValueError):
         nb.nn_argmin_kernel(f.bfloat16(), f, nb.squared_norms(f))
+    wide = torch.rand(10, 300, device=dev)
+    with pytest.raises(ValueError, match="past the kernel"):
+        nb.nn_argmin_kernel(wide, wide, nb.squared_norms(wide))
     with pytest.raises(ValueError, match="LANE-padded"):
         ps.gather_rows(f, torch.zeros(3, dtype=torch.long, device=dev))
     before = nb.launches.count
@@ -143,7 +169,8 @@ def test_kernel_wrappers_reject_bad_input(dev):
 
 
 @pytest.mark.parametrize("n_b,n_a,d", [(1000, 3000, 68), (777, 65, 204),
-                                       (4096, 4100, 50)])
+                                       (4096, 4100, 50), (129, 257, 8),
+                                       (1001, 2999, 150), (300, 1025, 256)])
 def test_nn_argmin_kernel_bf16_matches_plain(dev, n_b, n_a, d):
     """bfloat16 rows: the kernel and the plain version pick the same rows
     except where the two picks tie in the metric both minimize."""
@@ -161,19 +188,22 @@ def test_nn_argmin_kernel_bf16_matches_plain(dev, n_b, n_a, d):
     assert float(differ.float().mean()) < 0.01
 
 
-def _sweep_case(dev, rng, h, w, ha, wa, coarse):
-    specs = pt.channel_specs(1, 1, SynthConfig(), coarse)
+def _sweep_case(dev, rng, h, w, ha, wa, coarse, n_chan=1, **cfg):
+    """An int8 sweep case with `n_chan` source and filtered channels."""
+    specs = pt.channel_specs(n_chan, n_chan, SynthConfig(**cfg), coarse)
     geom = pt.tile_geometry(h, w, specs)
     hc, wc, hac, wac = (h + 1) // 2, (w + 1) // 2, (ha + 1) // 2, (wa + 1) // 2
-    src = [_rand(rng, s, dev) for s in ((ha, wa), (ha, wa), (hac, wac),
-                                        (hac, wac))]
+
+    def img(hh, ww):
+        return _rand(rng, (hh, ww, n_chan) if n_chan > 1 else (hh, ww), dev)
+
+    src = [img(ha, wa), img(ha, wa), img(hac, wac), img(hac, wac)]
     a8 = pt.prepare_a_planes(src[0], src[1], src[2] if coarse else None,
                              src[3] if coarse else None, specs,
                              cand_dtype="int8")
     b_planes = pt.prepare_b_planes(
-        _rand(rng, (h, w), dev), _rand(rng, (h, w), dev),
-        _rand(rng, (hc, wc), dev) if coarse else None,
-        _rand(rng, (hc, wc), dev) if coarse else None, geom)
+        img(h, w), img(h, w), img(hc, wc) if coarse else None,
+        img(hc, wc) if coarse else None, geom)
     qy = torch.arange(h, device=dev)[:, None]
     qx = torch.arange(w, device=dev)[None, :]
     oy = pt.to_compact(
@@ -194,20 +224,27 @@ def _sweep_case(dev, rng, h, w, ha, wa, coarse):
     return a8, b_planes, (cy, cx, cv, oy, ox, d_in), kw
 
 
-@pytest.mark.parametrize("h,w,ha,wa,coarse", [
-    (300, 500, 260, 380, True), (128, 128, 128, 128, False),
+@pytest.mark.parametrize("general", [False, True])
+@pytest.mark.parametrize("h,w,ha,wa,coarse,rgb", [
+    (300, 500, 260, 380, True, False), (128, 128, 128, 128, False, False),
+    (200, 260, 200, 260, True, True), (200, 260, 200, 260, False, True),
 ])
 def test_tile_sweep_kernel_int8_matches_plain_and_f32(dev, h, w, ha, wa,
-                                                      coarse):
+                                                      coarse, rgb, general):
     rng = np.random.default_rng(h + wa)
-    a8, b_planes, rest, kw = _sweep_case(dev, rng, h, w, ha, wa, coarse)
+    extra = dict(n_chan=3, color_mode="rgb") if rgb else {}
+    a8, b_planes, rest, kw = _sweep_case(dev, rng, h, w, ha, wa, coarse,
+                                         **extra)
     before = (pt.launches.count, pt.launches_int8.count)
-    got = pt.tile_sweep(a8, b_planes, *rest, cand_dtype="int8", **kw)
+    if general:
+        got = pt.tile_sweep_kernel(a8, b_planes, *rest, general=True, **kw)
+    else:
+        got = pt.tile_sweep(a8, b_planes, *rest, cand_dtype="int8", **kw)
     assert (pt.launches.count, pt.launches_int8.count) == \
         (before[0], before[1] + 1)
     want = pt.tile_sweep_plain(a8, b_planes, *rest, **kw)
     deq = pt.tile_sweep_kernel(pt.dequantize_planes(a8), b_planes, *rest,
-                               **kw)
+                               general=general, **kw)
     torch.cuda.synchronize()
     kd, pd = got[2][:h, :w], want[2][:h, :w]
     tol = 1e-5 + 1e-4 * pd.abs()
@@ -222,6 +259,43 @@ def test_tile_sweep_kernel_int8_matches_plain_and_f32(dev, h, w, ha, wa,
     assert torch.equal(fin, torch.isfinite(deq[2]))
     assert bool(((got[2][fin] - deq[2][fin]).abs()
                  <= 1e-5 * deq[2][fin].abs()).all())
+
+
+@pytest.mark.parametrize("general", [False, True])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("keep", [0.7, 0.1, 0.0])
+def test_tile_sweep_kernel_keeps_slot_order_on_ties(dev, keep, int8, general):
+    """Flat A planes: every candidate of a pixel scores the same bits, so
+    the strict `<` keeps the first valid slot of each range.  The
+    kernel's compacted slot list must leave the offsets the plain
+    version leaves, on every pixel."""
+    rng = np.random.default_rng(int(keep * 10))
+    specs = pt.channel_specs(1, 1, SynthConfig(), True)
+    h, w, ha, wa = 128, 248, 200, 300
+    geom = pt.tile_geometry(h, w, specs)
+    p = geom.halo
+    a_shape = (len(specs), ha + 2 * p, wa + 2 * p)
+    a_planes = (torch.zeros(a_shape, dtype=torch.int8, device=dev) if int8
+                else torch.full(a_shape, 0.5, device=dev))
+    b_planes = _rand(rng, (len(specs), geom.n_ty * geom.tile_h + 2 * p,
+                           geom.n_tx * geom.tile_w + 2 * p), dev)
+    shape = (geom.n_ty, geom.n_tx, pt.K_TOTAL)
+    cy = torch.as_tensor(rng.integers(-300, 300, shape), dtype=torch.int32,
+                         device=dev)
+    cx = torch.as_tensor(rng.integers(-400, 400, shape), dtype=torch.int32,
+                         device=dev)
+    cv = torch.as_tensor(rng.random(shape) < keep, device=dev).int()
+    state = (geom.n_ty * geom.tile_h, geom.n_tx * geom.tile_w)
+    oy = torch.full(state, -7, dtype=torch.int32, device=dev)
+    ox = torch.full(state, 9, dtype=torch.int32, device=dev)
+    d_in = torch.full(state, float("inf"), device=dev)
+    args = (a_planes, b_planes, cy, cx, cv, oy, ox, d_in)
+    kw = dict(specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=1.0)
+    got = pt.tile_sweep_kernel(*args, general=general, **kw)
+    want = pt.tile_sweep_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0][:h, :w], want[0][:h, :w])
+    assert torch.equal(got[1][:h, :w], want[1][:h, :w])
 
 
 def test_tile_sweep_rejects_planes_of_the_other_mode(dev):
