@@ -4,6 +4,8 @@
 
     python3 chip_smoke.py --phases k1,k1i8,k2,config1   # K1 and K2 only
 
+    python3 chip_smoke.py --phases lean   # 2048^2 and 4096^2 only
+
 Builds the port's CUDA kernels from `image_analogies_tpu_torch/kernels/
 csrc/`, holds each kernel against its plain PyTorch version at the main
 path's shapes (K1 in float32 and int8 mode, on a seeded case and on the
@@ -14,9 +16,13 @@ and bfloat16 rows, at 65,536^2 x 68 and at a ragged 10,007 x 9,001 x
 PatchMatch; the same headline with compressed candidates, int8 + PCA
 prune 16:8, and the streamed, sequential and jump polish engines; and
 texture-by-numbers at 256^2 with the brute oracle, in float32 and
-bfloat16), checks the outputs and their PSNR against the brute oracle,
-and prints one JSON line per phase.  The line before the last is the
-`kernels` summary; the last is `{"ok": true, "device": {...}}`.  Any
+bfloat16; the lean path at 2048^2 and 4096^2 with the repo's scale
+config, against the standard path, the lean-brute oracle and a resume
+from a checkpoint, with K1, K2 and K3 held against their plain versions
+at the lean shapes), checks the outputs and their PSNR against the
+brute oracle, and prints one JSON line per phase.  The line before the
+last is the `kernels` summary; the last is `{"ok": true, "device":
+{...}}`.  Any
 failed phase raises, so the script exits non-zero and prints no result
 line; so does a machine without a CUDA device.
 
@@ -46,7 +52,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 PHASES = ("k1", "k2", "k3", "k1i8", "headline", "compressed", "config1",
-          "quality", "profile")
+          "quality", "profile", "lean")
 HEADLINE = dict(levels=5, matcher="patchmatch", em_iters=2, pm_iters=6,
                 pm_polish_iters=1, device="cuda")
 
@@ -237,14 +243,15 @@ def quantize_planes(a_planes):
                        127.0).to(torch.int8)
 
 
-def k1_check(args, kw, what):
-    """One K1 launch against the plain version on the same inputs:
-    distances within rtol 1e-4 / atol 1e-5, offsets equal except at ties
-    (`unexplained_offsets`).  Returns (kernel result, stats)."""
+def k1_check(args, kw, what, hw=(1024, 1024)):
+    """One K1 launch against the plain version on the same inputs, a
+    level of `hw` = (h, w): distances within rtol 1e-4 / atol 1e-5,
+    offsets equal except at ties (`unexplained_offsets`).  Returns
+    (kernel result, stats)."""
     from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
 
     a_planes, b_planes, _, _, valid, oy, ox, d_in = args
-    h = w = 1024
+    h, w = hw
     geo = {k: v for k, v in kw.items() if k != "coh_factor"}
     got = pt.tile_sweep_kernel(*args, **kw)
     want = pt.tile_sweep_plain(*args, **kw)
@@ -830,11 +837,464 @@ def phase_quality(dev, k2_tflops):
     return rec
 
 
+# The repo's scale configuration (tools/scale_bench.py): super-resolution
+# at 2048^2 and 4096^2, 6 levels, other fields at their defaults.
+SCALE = dict(levels=6, matcher="patchmatch", em_iters=2, pm_iters=6,
+             device="cuda")
+
+
+def lean_levels(size, levels, budget):
+    """Pyramid levels of a square run whose tables pass `budget` by the
+    reference's byte rule (`_feature_table_bytes`)."""
+    from image_analogies_tpu_torch.models.analogy import _feature_table_bytes
+
+    return [lv for lv in range(levels)
+            if _feature_table_bytes(*(4 * (-(-size // 2**lv),))) > budget]
+
+
+def expected_launches(size, cfg, stream=False):
+    """K1 and K3 launches of one PatchMatch run on a square image: K1
+    em_iters x pm_iters (size-aware) per tile level (sides >= 128); K3,
+    under the stream polish, `polish_eval_rows` per polished EM step of
+    each tile level, times the query chunks of `candidate_dist_lean`
+    (2^20 rows)."""
+    from image_analogies_tpu_torch.kernels import polish_stream as ps
+    from image_analogies_tpu_torch.models import patchmatch as pm
+
+    k1 = k3 = 0
+    for lv in range(cfg.levels):
+        s = -(-size // 2**lv)
+        if s < 128:
+            continue
+        k1 += cfg.em_iters * pm._pm_iters_for(cfg, s, s)
+        iters, n_random = pm._polish_schedule_for(cfg, s, s)
+        k3 += ps.polish_eval_rows(1, iters, n_random) * -(-s * s // (1 << 20))
+    return k1, (k3 if stream else 0)
+
+
+LAUNCH_NAMES = ("k1", "k1_int8", "k3", "k2")
+
+
+def lean_counters():
+    from image_analogies_tpu_torch.kernels import nn_brute, polish_stream
+    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+
+    return (pt.launches, pt.launches_int8, polish_stream.launches,
+            nn_brute.launches)
+
+
+def timed_runs(ex, cfg, reps, warm=True):
+    """`reps` runs of `create_image_analogy` after an optional warm one:
+    (last B', walls, peak GiB allocated above what was held before the
+    runs, launches per run by kernel); the launches must agree between
+    runs."""
+    if warm:
+        run_synth(ex, cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    walls, counts, out = [], [], None
+    for _ in range(reps):
+        for c in lean_counters():
+            c.reset()
+        out, wall = run_synth(ex, cfg)
+        walls.append(wall)
+        counts.append(tuple(c.count for c in lean_counters()))
+    if len(set(counts)) != 1:
+        raise AssertionError(f"launches differ between runs: {counts}")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    return out, walls, peak, dict(zip(LAUNCH_NAMES, counts[0]))
+
+
+def want_launches(got, what, **want):
+    """Raise unless the launches `got` are `want` (unnamed ones: 0)."""
+    full = {name: want.get(name, 0) for name in LAUNCH_NAMES}
+    if got != full:
+        raise AssertionError(f"{what}: launches {got}, not {full}")
+
+
+@contextlib.contextmanager
+def capture_first(module, name, pred):
+    """Replace `module.name` inside a `with` by a spy that keeps the
+    arguments (cloned) and the result of its first call whose arguments
+    satisfy `pred`; yields the list that receives (args, kwargs,
+    result)."""
+    seen = []
+    real = getattr(module, name)
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        if not seen and pred(*args, **kw):
+            seen.append((tuple(t.clone() if isinstance(t, torch.Tensor)
+                               else t for t in args), dict(kw), out))
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def lean_k1_row(args, kw, hw, what):
+    """K1 on a launch the lean path made, captured with its inputs:
+    against its plain version (`k1_check`) and, for int8 planes, against
+    the float32 kernel on the dequantized planes (offsets equal); kernel
+    and plain times and the HBM/FLOP bound of that launch."""
+    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+
+    a = args[0]
+    got, stats = k1_check(args, kw, what, hw=hw)
+    if a.dtype == torch.int8:
+        deq = pt.tile_sweep_kernel(pt.dequantize_planes(a), *args[1:], **kw)
+        if not (torch.equal(got[0], deq[0]) and torch.equal(got[1], deq[1])):
+            raise AssertionError(f"{what}: offsets differ from the f32 "
+                                 "kernel on dequantized planes")
+    _, flops, nbytes = k1_flops_bytes(args, kw, a.element_size())
+    return {
+        **stats,
+        "tiles": kw["geom"].n_ty * kw["geom"].n_tx,
+        "a_planes": list(a.shape),
+        "ms": cuda_ms(lambda: pt.tile_sweep_kernel(*args, **kw)),
+        "plain_ms": cuda_ms(lambda: pt.tile_sweep_plain(*args, **kw),
+                            reps=2, warm=1),
+        "bound_ms": bound_ms(flops, nbytes),
+        "bound_by": "operations" if flops / PEAK_FP32_FLOPS
+        >= nbytes / PEAK_BYTES else "bytes",
+    }
+
+
+def timed_once(fn):
+    """(result, milliseconds) of one call of `fn`, by CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def k2_chunk(n_a):
+    """Query rows per chunk of K2's plain version and library call
+    against `n_a` A rows: the largest power of two whose (chunk, n_a)
+    temporaries, 16 bytes a distance (bf16 and float32 products, the
+    scaled copy, the sum), fit in 80 % of the card's free memory."""
+    rows = 0.8 * torch.cuda.mem_get_info()[0] / (16 * n_a)
+    return 1 << max(0, int(rows).bit_length() - 1)
+
+
+def k2_bf16_check(f_b, f_a, idx, what):
+    """K2's bf16 picks `idx` for the query rows `f_b` against the plain
+    version's on the same tables (ties judged in the kernel's own metric,
+    float64, 1e-5 relative); returns (plain ms, rows that differ, the
+    largest metric difference)."""
+    from image_analogies_tpu_torch.kernels import nn_brute as nb
+
+    bf = torch.bfloat16
+    a_sq = nb.squared_norms(f_a)
+    plain, plain_ms = timed_once(lambda: nb.nn_argmin_plain(
+        f_b, f_a, a_sq, k2_chunk(f_a.shape[0]), bf))
+    m_k = nb.argmin_metric(f_b, f_a, a_sq, idx, bf)
+    m_p = nb.argmin_metric(f_b, f_a, a_sq, plain, bf)
+    differ = idx != plain
+    if bool((differ & ((m_k - m_p).abs() > 1e-5 * m_p.abs())).any()):
+        raise AssertionError(f"{what}: K2 bf16 differs from its plain "
+                             "version off ties")
+    return plain_ms, int(differ.sum()), float((m_k - m_p).abs().max())
+
+
+def lean_k2_row(f_b, f_a, idx):
+    """K2 (bf16 rows) on one launch of the lean oracle as the main path
+    made it, whole: its picks against the plain version's, and kernel,
+    plain and library (bf16 `matmul` + `argmin` in `k2_chunk` query
+    chunks) times of that launch."""
+    from image_analogies_tpu_torch.kernels import nn_brute as nb
+
+    plain_ms, differ, err = k2_bf16_check(f_b, f_a, idx, "lean oracle")
+    a_sq = nb.squared_norms(f_a)
+    n_b, d = f_b.shape
+    n_a = f_a.shape[0]
+    chunk = k2_chunk(n_a)
+
+    def library():
+        out = []
+        for c in range(0, n_b, chunk):
+            dot = torch.matmul(f_b[c:c + chunk], f_a.T).float()
+            out.append(torch.argmin(a_sq[None, :] - 2.0 * dot, dim=-1))
+        return torch.cat(out)
+
+    ms = cuda_ms(lambda: nb.nn_argmin_kernel(f_b, f_a, a_sq), reps=3,
+                 warm=0)
+    flops = 2.0 * n_b * n_a * d
+    nbytes = (n_b + n_a) * d * 2 + n_a * 4 + n_b * 4
+    return {
+        "shape": [n_b, n_a, d], "rows_differ": differ, "max_abs_err": err,
+        "tie": "the kernel's own metric (f64) within 1e-5 rel",
+        "ms": ms, "plain_ms": plain_ms,
+        "library_ms": timed_once(library)[1], "chunk": chunk,
+        "bound_ms": bound_ms(flops, nbytes, PEAK_BF16_FLOPS),
+        "bound_by": "operations",
+        "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+    }
+
+
+def lean_k2_level0(f_b, f_a, idx, n_q=32768):
+    """K2 on the lean oracle's level-0 launch: its time, whole, and its
+    picks at `n_q` query rows spread over B against the plain version on
+    those rows (the whole launch's plain version takes minutes)."""
+    from image_analogies_tpu_torch.kernels import nn_brute as nb
+
+    n_q = min(n_q, f_b.shape[0])
+    rows = torch.linspace(0, f_b.shape[0] - 1, n_q,
+                          device=f_b.device).long()
+    _, differ, err = k2_bf16_check(f_b.index_select(0, rows), f_a,
+                                   idx.index_select(0, rows),
+                                   "lean oracle level 0")
+    a_sq = nb.squared_norms(f_a)
+    ms = cuda_ms(lambda: nb.nn_argmin_kernel(f_b, f_a, a_sq), reps=1,
+                 warm=0)
+    flops = 2.0 * f_b.shape[0] * f_a.shape[0] * f_b.shape[1]
+    return {"shape": [f_b.shape[0], f_a.shape[0], f_b.shape[1]],
+            "checked_rows": n_q, "rows_differ": differ, "max_abs_err": err,
+            "ms": ms, "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+
+
+def lean_k3_row(args, out):
+    """K3 on a launch the compressed lean level made, captured with its
+    inputs (the LANE-padded int8 table and one chunk of indices):
+    bit-equal to the plain version and to the launch's own rows, with
+    kernel, plain and `index_select` times and the bytes bound (each
+    index read, each row read and written)."""
+    from image_analogies_tpu_torch.kernels import polish_stream as ps
+
+    table, idx = args
+    got = ps.gather_rows_kernel(table, idx)
+    if not (torch.equal(got, ps.gather_rows_plain(table, idx))
+            and torch.equal(got, out)):
+        raise AssertionError(f"K3 rows differ from the plain version at "
+                             f"{tuple(table.shape)} x {idx.numel()}")
+    clamped = idx.clamp(0, table.shape[0] - 1)
+    row_bytes = table.shape[1] * table.element_size()
+    return {
+        "table": list(table.shape), "dtype": str(table.dtype),
+        "rows": idx.numel(), "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: ps.gather_rows_kernel(table, idx)),
+        "plain_ms": cuda_ms(lambda: ps.gather_rows_plain(table, idx)),
+        "library_ms": cuda_ms(lambda: table.index_select(0, clamped)),
+        "bound_ms": bound_ms(0.0, idx.numel() * (2 * row_bytes + 8)),
+        "bound_by": "bytes",
+    }
+
+
+def phase_lean(dev, smi, script_t0, sizes=(2048, 4096, 1024)):
+    """The lean path at the repo's scale sizes (SCALE), `sizes` = (2048,
+    4096, 1024) on the card: 2048^2 (level 0 lean) against the same
+    config forced onto the standard path and against the lean-brute
+    oracle; the compressed arm (int8, 16:8, stream) at 2048^2; 4096^2
+    (levels 0-1 lean); lean brute against standard brute at 1024^2;
+    checkpoints written and a resume from level 1 at 2048^2; and K1
+    (f32, int8), K2 (bf16) and K3 held against their plain versions at
+    the lean path's shapes."""
+    import dataclasses
+    import shutil
+
+    from image_analogies_tpu_torch import create_image_analogy, psnr
+    from image_analogies_tpu_torch.config import SynthConfig
+    from image_analogies_tpu_torch.kernels import BUILD_DIR
+    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+    from image_analogies_tpu_torch.models import analogy as an
+    from image_analogies_tpu_torch.models import brute
+    from image_analogies_tpu_torch.utils.examples import super_resolution
+
+    t_phase = time.perf_counter()
+    big, huge, small = sizes
+    rec = {"phase": "lean", "nvidia_smi": smi, "sizes": list(sizes),
+           "config": {k: v for k, v in SCALE.items() if k != "device"}}
+    cfg = SynthConfig(**{**SCALE, "device": dev.type})
+    ex2 = super_resolution(big)
+    k1_2048, _ = expected_launches(big, cfg)
+    rec["lean_levels_2048"] = lean_levels(big, 6, cfg.feature_bytes_budget)
+    if rec["lean_levels_2048"] != [0]:
+        raise AssertionError(f"2048^2 lean levels {rec['lean_levels_2048']}")
+
+    # 2048^2, lean level 0: the A table and one B table per EM step come
+    # from assemble_features_lean.
+    calls = []
+    real_lean = an.assemble_features_lean
+
+    def counting(*args, **kw):
+        calls.append(tuple(args[0].shape[:2]))
+        return real_lean(*args, **kw)
+
+    an.assemble_features_lean = counting
+    try:
+        run_synth(ex2, cfg)
+    finally:
+        an.assemble_features_lean = real_lean
+    if calls != [(big, big)] * (1 + cfg.em_iters):
+        raise AssertionError(f"2048^2 lean assemblies {calls}")
+    lean2, walls, peak, launches = timed_runs(ex2, cfg, 3, warm=False)
+    want_launches(launches, "2048^2 lean", k1=k1_2048)
+    rec["bp_std_2048"] = check_output(lean2, ex2[2].shape, "2048^2 lean")
+    rec.update(wall_s_median_2048=statistics.median(walls),
+               walls_s_2048=walls, peak_gib_2048=peak, launches_2048=launches)
+    prof = profile_run(ex2, cfg, "lean_2048")
+    rec["profile_2048"] = {k: prof[k] for k in (
+        "wall_s", "device_busy_ms", "device_idle_share", "device_events")}
+
+    # Checkpoints and a resume from level 1 (standard) into level 0 (lean).
+    ckpt = BUILD_DIR.parent / "lean_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        saved, _ = run_synth(ex2, dataclasses.replace(
+            cfg, save_level_artifacts=str(ckpt)))
+        files = sorted(p.name for p in ckpt.iterdir())
+        n_levels = cfg.clamp_levels((big, big))
+        if files != [f"level_{i}.npz" for i in range(n_levels)]:
+            raise AssertionError(f"checkpoint files {files}")
+        (ckpt / "level_0.npz").unlink()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed = create_image_analogy(*ex2, cfg, resume_from=str(ckpt),
+                                       resume_strict=True)
+        torch.cuda.synchronize()
+        rec["wall_s_resumed_from_level_1"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rec["resume_max_abs_diff"] = float((resumed - lean2).abs().max())
+    rec["checkpointing_run_max_abs_diff"] = float((saved - lean2).abs().max())
+    if not (torch.equal(resumed, lean2) and torch.equal(saved, lean2)):
+        raise AssertionError(
+            f"resumed / checkpointing B' differ from the uninterrupted B' "
+            f"by {rec['resume_max_abs_diff']} / "
+            f"{rec['checkpointing_run_max_abs_diff']}")
+
+    # The same config forced onto the standard path.
+    std_cfg = dataclasses.replace(cfg, feature_bytes_budget=1 << 40)
+    std2, walls, peak, launches = timed_runs(ex2, std_cfg, 3)
+    want_launches(launches, "2048^2 standard", k1=k1_2048)
+    rec.update(wall_s_median_2048_standard=statistics.median(walls),
+               walls_s_2048_standard=walls, peak_gib_2048_standard=peak,
+               max_abs_diff_2048_lean_vs_standard=float(
+                   (lean2 - std2).abs().max()))
+    if not torch.equal(lean2, std2):
+        raise AssertionError(
+            "2048^2 lean B' differs from the standard path's by "
+            f"{rec['max_abs_diff_2048_lean_vs_standard']}")
+
+    # The lean-brute oracle: K2 bf16 on every level (one B band each).
+    or_cfg = SynthConfig(levels=6, matcher="brute", em_iters=2,
+                         brute_lean_bytes=1, device=dev.type)
+    n0 = big * big
+    with capture_first(brute, "nn_argmin",
+                       lambda f_b, *a, **k: f_b.shape[0] == n0) as seen, \
+            capture_first(brute, "nn_argmin",
+                          lambda f_b, *a, **k: f_b.shape[0] == n0 // 4) \
+            as seen1:
+        oracle, walls, peak, launches = timed_runs(ex2, or_cfg, 1,
+                                                   warm=False)
+    want_launches(launches, "2048^2 lean-brute oracle",
+                  k2=or_cfg.clamp_levels((big, big)) * or_cfg.em_iters)
+    rec.update(wall_s_oracle_2048=walls[0], peak_gib_oracle_2048=peak,
+               k2_launches_oracle_2048=launches["k2"])
+    f_b, f_a, *_ = seen1[0][0]
+    rec["k2_2048_oracle_level1"] = lean_k2_row(f_b, f_a, seen1[0][2])
+    f_b, f_a, *_ = seen[0][0]
+    rec["k2_2048_oracle_level0"] = lean_k2_level0(f_b, f_a, seen[0][2])
+    del seen, seen1, f_b, f_a
+    p_lean, p_std = psnr(lean2, oracle), psnr(std2, oracle)
+    rec.update(psnr_2048_lean_vs_oracle=p_lean,
+               psnr_2048_standard_vs_oracle=p_std,
+               psnr_2048_lean_vs_standard=psnr(lean2, std2),
+               psnr_2048_lean_meets_35=bool(p_lean >= 35.0))
+    if not p_lean >= 33.0:
+        raise AssertionError(f"2048^2 lean PSNR vs oracle {p_lean} < 33 dB")
+    if not p_lean >= p_std - 3.0:
+        raise AssertionError(f"2048^2 lean PSNR {p_lean} more than 3 dB "
+                             f"below the standard path's {p_std}")
+
+    # The compressed arm at 2048^2, with its lean level's first K1 (int8)
+    # and K3 launches captured in the warm run.
+    from image_analogies_tpu_torch.kernels import polish_stream as ps
+
+    with Modes("int8", "16:8", "stream"):
+        with capture_first(pt, "tile_sweep",
+                           lambda *a, **k: k["ha"] == big) as k1_seen, \
+                capture_first(ps, "gather_rows",
+                              lambda t, *a, **k: t.shape[0] == n0) as k3_seen:
+            run_synth(ex2, cfg)
+        comp, walls, peak, launches = timed_runs(ex2, cfg, 1, warm=False)
+    k1c, k3c = expected_launches(big, cfg, stream=True)
+    want_launches(launches, "2048^2 compressed", k1_int8=k1c, k3=k3c)
+    p_comp = psnr(comp, oracle)
+    rec.update(wall_s_2048_compressed=walls[0], peak_gib_2048_compressed=peak,
+               launches_2048_compressed=launches,
+               psnr_2048_compressed_vs_oracle=p_comp,
+               psnr_2048_compressed_meets_35=bool(p_comp >= 35.0))
+    if not p_comp >= 33.0:
+        raise AssertionError(f"2048^2 compressed PSNR vs oracle {p_comp} "
+                             "< 33 dB")
+    args, kw, _ = k1_seen[0]
+    kw = {k: kw[k] for k in ("specs", "geom", "ha", "wa", "coh_factor")}
+    rec["k1_int8_2048_compressed_first_sweep"] = lean_k1_row(
+        args, kw, (big, big), "K1 int8 on the 2048^2 compressed lean level")
+    args, _, out = k3_seen[0]
+    rec["k3_2048_compressed_first_launch"] = lean_k3_row(args, out)
+    del k1_seen, k3_seen, args, out
+    del lean2, std2, oracle, comp, saved, resumed
+
+    # 4096^2: levels 0 and 1 lean; K1's first level-0 sweep captured.
+    ex4 = super_resolution(huge)
+    rec["lean_levels_4096"] = lean_levels(huge, 6, cfg.feature_bytes_budget)
+    if rec["lean_levels_4096"] != [0, 1]:
+        raise AssertionError(f"4096^2 lean levels {rec['lean_levels_4096']}")
+    k1_4096, _ = expected_launches(huge, cfg)
+    with capture_first(pt, "tile_sweep",
+                       lambda *a, **k: k["ha"] == huge) as seen:
+        _, warm_wall = run_synth(ex4, cfg)
+    reps = 2 if time.perf_counter() - script_t0 + 3 * warm_wall < 600 else 1
+    out4, walls, peak, launches = timed_runs(ex4, cfg, reps, warm=False)
+    want_launches(launches, "4096^2 lean", k1=k1_4096)
+    if not bool(torch.isfinite(out4).all()) or float(out4.min()) < 0.0 \
+            or float(out4.max()) > 1.0:
+        raise AssertionError("4096^2 B' not finite in [0, 1]")
+    rec.update(wall_s_4096_warm_first=warm_wall, walls_s_4096=walls,
+               wall_s_median_4096=statistics.median(walls),
+               peak_gib_4096=peak, launches_4096=launches,
+               bp_std_4096=float(out4.std()))
+    del out4
+    args, kw, _ = seen[0]
+    kw = {k: kw[k] for k in ("specs", "geom", "ha", "wa", "coh_factor")}
+    rec["k1_4096_first_sweep"] = lean_k1_row(
+        args, kw, (huge, huge), "K1 f32 on the 4096^2 lean level")
+    del seen, args
+
+    # Lean brute against standard brute at 1024^2.
+    ex1 = super_resolution(small)
+    b_cfg = SynthConfig(levels=5, matcher="brute", em_iters=2,
+                        device=dev.type)
+    bstd, wall_std = run_synth(ex1, b_cfg)
+    blean, wall_lean = run_synth(ex1, dataclasses.replace(
+        b_cfg, brute_lean_bytes=1))
+    p_b = psnr(blean, bstd)
+    rec.update(wall_s_1024_brute_standard=wall_std,
+               wall_s_1024_brute_lean=wall_lean,
+               psnr_1024_lean_brute_vs_standard=p_b)
+    if not p_b >= 33.0:
+        raise AssertionError(f"1024^2 lean brute vs standard {p_b} < 33 dB")
+    rec["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     args = ap.parse_args(argv)
+    script_t0 = time.perf_counter()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -889,6 +1349,7 @@ def main(argv=None) -> int:
         phase_quality(dev, k2.get("achieved_tflops", 1.0))
     if "profile" in phases:
         phase_profile(dev)
+    lean = phase_lean(dev, smi, script_t0) if "lean" in phases else {}
 
     kernels_line = []
     if k1:
@@ -933,6 +1394,37 @@ def main(argv=None) -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+    if lean:
+        # The lean path's rows: each kernel timed and checked on a launch
+        # the lean path made (captured with its inputs), beside the
+        # launches per run of the arm that made it (K1: the 4096^2 run's
+        # first level-0 sweep; K1 int8 and K3: the 2048^2 compressed
+        # arm's first lean-level launches; K2: the 2048^2 lean oracle's
+        # first level-1 launch, 1,048,576 x 1,048,576 rows, whose plain
+        # version takes seconds where level 0's takes minutes).
+        for name, row, launches, src, replaces in (
+            ("tile_sweep_lean", lean["k1_4096_first_sweep"],
+             lean["launches_4096"]["k1"], "tile_sweep",
+             "patchmatch_tile.py:888"),
+            ("tile_sweep_int8_lean",
+             lean["k1_int8_2048_compressed_first_sweep"],
+             lean["launches_2048_compressed"]["k1_int8"], "tile_sweep",
+             "patchmatch_tile.py:1034"),
+            ("nn_argmin_bf16_lean", lean["k2_2048_oracle_level1"],
+             lean["k2_launches_oracle_2048"], "nn_brute", "nn_brute.py:69"),
+            ("gather_rows_lean", lean["k3_2048_compressed_first_launch"],
+             lean["launches_2048_compressed"]["k3"], "row_gather",
+             "polish_stream.py:172"),
+        ):
+            kernels_line.append({
+                "name": name, "route": "cuda",
+                "source": f"image_analogies_tpu_torch/kernels/csrc/{src}.cu",
+                "replaces": f"image_analogies_tpu/kernels/{replaces}",
+                "launches": launches, "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row.get("library_ms"),
+            })
     print(smi, flush=True)
     emit({"kernels": kernels_line})
     emit({"ok": True, "device": {

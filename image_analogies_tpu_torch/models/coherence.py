@@ -13,14 +13,8 @@ import torch
 
 from ..config import SynthConfig
 from .brute import BruteForceMatcher
-from .matcher import (
-    Matcher,
-    candidate_dist,
-    clamp_nnf,
-    nnf_to_flat,
-    register_matcher,
-)
-from .patchmatch import DELTAS, kappa_factor, shifted
+from .matcher import Matcher, candidate_dist, register_matcher
+from .patchmatch import DELTAS, kappa_factor
 
 
 def coherence_sweeps(
@@ -32,26 +26,48 @@ def coherence_sweeps(
     factor: float,
     sweeps: int,
 ) -> tuple:
-    """Bias a match field toward coherent source regions; returns
-    (nnf, dist)."""
-    h, w, d = f_b.shape
+    """`coherence_sweeps_lean` on the standard path's (H, W, D) feature
+    fields and stacked (H, W, 2) field, with distances by
+    `candidate_dist`; returns (nnf, dist)."""
+    d = f_b.shape[-1]
     ha, wa = f_a.shape[:2]
     f_b_flat = f_b.reshape(-1, d)
     f_a_flat = f_a.reshape(-1, d)
+    py, px, dist = coherence_sweeps_lean(
+        nnf[..., 0], nnf[..., 1], dist, ha=ha, wa=wa, factor=factor,
+        sweeps=sweeps,
+        dist_fn=lambda idx: candidate_dist(f_b_flat, f_a_flat, idx),
+    )
+    return torch.stack([py, px], dim=-1), dist
 
+
+def coherence_sweeps_lean(
+    py: torch.Tensor,
+    px: torch.Tensor,
+    dist: torch.Tensor,
+    *,
+    ha: int,
+    wa: int,
+    factor: float,
+    sweeps: int,
+    dist_fn,
+) -> tuple:
+    """Bias a (py, px) plane-pair field toward coherent source regions,
+    with distances through `dist_fn` (flat indices -> distances);
+    returns (py, px, dist)."""
     ceiling = dist * factor
     best_coh = torch.full_like(dist, float("inf"))
     for _ in range(sweeps):
         for dy, dx in DELTAS:
-            cand = clamp_nnf(shifted(nnf, dy, dx), ha, wa)
-            d_cand = candidate_dist(
-                f_b_flat, f_a_flat, nnf_to_flat(cand, wa)
-            ).reshape(h, w)
+            cy = (torch.roll(py, (dy, dx), (0, 1)) + dy).clamp(0, ha - 1)
+            cx = (torch.roll(px, (dy, dx), (0, 1)) + dx).clamp(0, wa - 1)
+            d_cand = dist_fn((cy * wa + cx).reshape(-1)).reshape(py.shape)
             accept = (d_cand < best_coh) & (d_cand <= ceiling)
-            nnf = torch.where(accept[..., None], cand, nnf)
+            py = torch.where(accept, cy, py)
+            px = torch.where(accept, cx, px)
             dist = torch.where(accept, d_cand, dist)
             best_coh = torch.where(accept, d_cand, best_coh)
-    return nnf, dist
+    return py, px, dist
 
 
 class CoherenceWrapper(Matcher):

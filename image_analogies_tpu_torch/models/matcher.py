@@ -65,22 +65,29 @@ def candidate_dist(
 
 def candidate_dist_lean(
     f_b_tab: torch.Tensor, f_a_tab: torch.Tensor, idx: torch.Tensor,
-    chunk: int = 1 << 20,
+    chunk: int = 1 << 20, gather_fn=None,
 ) -> torch.Tensor:
     """`candidate_dist` for indices with leading candidate axes: `idx`
     (..., N), query row i pairing with idx[..., i]; returns (..., N).
     Evaluated in query chunks of at most max(2^14, chunk // K) rows for
-    K leading candidates, so the gathered-rows temp stays bounded."""
+    K leading candidates, so the gathered-rows temp stays bounded.
+    `gather_fn` swaps the row fetch as in `candidate_dist`.  The width
+    comes from the B side: A rows wider than B (zero pad columns) are
+    sliced back to B's width, which leaves every distance unchanged."""
+    take = gather_fn or _take
     lead = idx.shape[:-1]
     n = idx.shape[-1]
     idx2 = idx.reshape(-1, n)
     k = idx2.shape[0]
     chunk = max(1 << 14, chunk // max(k, 1))
     d = f_b_tab.shape[1]
+    if f_a_tab.shape[1] < d:
+        raise ValueError(f"A table {tuple(f_a_tab.shape)} narrower than "
+                         f"B table {tuple(f_b_tab.shape)}")
     outs = []
     for start in range(0, n, chunk):
         end = min(start + chunk, n)
-        rows = f_a_tab.index_select(0, idx2[:, start:end].reshape(-1))
+        rows = take(f_a_tab, idx2[:, start:end].reshape(-1))
         a = rows[:, :d].float().reshape(k, end - start, d)
         diff = f_b_tab[start:end].float()[None] - a
         outs.append((diff * diff).sum(dim=-1))

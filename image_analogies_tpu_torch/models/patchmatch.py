@@ -10,7 +10,10 @@ Two paths, chosen by `SynthConfig.pallas_mode` and the level's shape:
     the kappa coherence pass, and an exact float32 re-rank.  The polish
     engine is the module global `_POLISH_MODE` ("sequential", "stream"
     through kernel K3, or "jump"), and the compressed-candidate modes of
-    kernels/patchmatch_tile.py apply to the sweeps and the polish rows;
+    kernels/patchmatch_tile.py apply to the sweeps and the polish rows.
+    The staging itself is `tile_patchmatch_lean`, on (N, D) bf16 tables
+    and a (py, px) plane-pair field: the lean levels (models/analogy.py)
+    call it directly, `tile_patchmatch` on the standard levels' casts;
   - the per-pixel path (`patchmatch_sweeps`): 4 propagation candidates,
     4 unshifted neighbour matches and `n_random` random-search candidates
     per sweep, accepted with canonical lowest-index tie-breaking.
@@ -35,9 +38,7 @@ from .matcher import (
     Matcher,
     candidate_dist,
     candidate_dist_lean,
-    clamp_nnf,
     nnf_dist,
-    nnf_to_flat,
     register_matcher,
 )
 
@@ -94,20 +95,19 @@ def init_generator(seed: int, level: int, device) -> torch.Generator:
     return g
 
 
+def random_init_planes(gen: torch.Generator, h: int, w: int, ha: int,
+                       wa: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Uniform random (py, px) planes over A's domain, py drawn first:
+    the lean path's field, equal to `random_init` unstacked."""
+    py = torch.randint(0, ha, (h, w), generator=gen, device=gen.device)
+    px = torch.randint(0, wa, (h, w), generator=gen, device=gen.device)
+    return py, px
+
+
 def random_init(gen: torch.Generator, h: int, w: int, ha: int,
                 wa: int) -> torch.Tensor:
     """Uniform random NNF (H, W, 2) over A's domain."""
-    py = torch.randint(0, ha, (h, w), generator=gen, device=gen.device)
-    px = torch.randint(0, wa, (h, w), generator=gen, device=gen.device)
-    return torch.stack([py, px], dim=-1)
-
-
-def shifted(nnf: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """Propagation candidate field nnf(q - delta) + delta (a roll:
-    wrapped rows/cols give harmless candidates that lose after
-    clamping)."""
-    cand = torch.roll(nnf, shifts=(dy, dx), dims=(0, 1))
-    return cand + torch.tensor([dy, dx], dtype=nnf.dtype, device=nnf.device)
+    return torch.stack(random_init_planes(gen, h, w, ha, wa), dim=-1)
 
 
 def sweep_radii(ha: int, wa: int, n_random: int) -> list:
@@ -129,6 +129,68 @@ def sweep_offsets(gen: torch.Generator, iters: int, radii, h: int, w: int):
                                      device=gen.device)
 
 
+def patchmatch_sweeps_lean(
+    f_b_tab: torch.Tensor,
+    f_a_tab: torch.Tensor,
+    py: torch.Tensor,
+    px: torch.Tensor,
+    offsets: Iterable[torch.Tensor],
+    *,
+    ha: int,
+    wa: int,
+    coh_factor: float,
+    dist_fn=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One propagate + random-search sweep per entry of `offsets` (each
+    (n_random, H, W, 2), added to the current match) over (N, D) tables
+    and a (py, px) plane-pair field; returns (py, px, dist).  Random
+    candidates must satisfy d * coh_factor < d_cur; exact ties break
+    toward the lower flat index, the representative the brute oracle's
+    argmin picks.  Distances go through `dist_fn` (flat indices ->
+    distances), by default `candidate_dist_lean` on the tables."""
+    h, w = py.shape
+    if dist_fn is None:
+        def dist_fn(idx):
+            return candidate_dist_lean(f_b_tab, f_a_tab, idx)
+
+    py = py.long().clamp(0, ha - 1)
+    px = px.long().clamp(0, wa - 1)
+    dist = dist_fn((py * wa + px).reshape(-1)).reshape(h, w)
+
+    def try_candidates(py, px, dist, cy, cx, factor):
+        cy = cy.clamp(0, ha - 1)
+        cx = cx.clamp(0, wa - 1)
+        idx = cy * wa + cx
+        d_cand = dist_fn(idx.reshape(-1)).reshape(h, w)
+        accept = (d_cand * factor < dist) | (
+            (d_cand == dist) & (idx < py * wa + px)
+        )
+        return (
+            torch.where(accept, cy, py),
+            torch.where(accept, cx, px),
+            torch.where(accept, d_cand, dist),
+        )
+
+    for off in offsets:
+        for dy, dx in DELTAS:
+            py, px, dist = try_candidates(
+                py, px, dist, torch.roll(py, (dy, dx), (0, 1)) + dy,
+                torch.roll(px, (dy, dx), (0, 1)) + dx, 1.0,
+            )
+        for dy, dx in DELTAS:
+            py, px, dist = try_candidates(
+                py, px, dist, torch.roll(py, (dy, dx), (0, 1)),
+                torch.roll(px, (dy, dx), (0, 1)), 1.0,
+            )
+        off = off.to(py.device)
+        for s in range(off.shape[0]):
+            py, px, dist = try_candidates(
+                py, px, dist, py + off[s, ..., 0], px + off[s, ..., 1],
+                coh_factor,
+            )
+    return py, px, dist
+
+
 def patchmatch_sweeps(
     f_b: torch.Tensor,
     f_a: torch.Tensor,
@@ -138,49 +200,21 @@ def patchmatch_sweeps(
     coh_factor: float,
     gather_fn=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One propagate + random-search sweep per entry of `offsets` (each
-    (n_random, H, W, 2), added to the current match); returns
-    (nnf, dist).  Random candidates must satisfy d * coh_factor < d_cur;
-    exact ties break toward the lower flat index, the representative
-    the brute oracle's argmin picks.  `gather_fn` swaps the row fetch
-    inside `candidate_dist` (the stream and int8 polish engines)."""
-    h, w, d = f_b.shape
+    """`patchmatch_sweeps_lean` on the standard path's (H, W, D) feature
+    fields and stacked (H, W, 2) field, with distances by
+    `candidate_dist` (`gather_fn` swaps its row fetch: the stream and
+    int8 polish engines); returns (nnf, dist)."""
+    d = f_b.shape[-1]
     ha, wa = f_a.shape[:2]
     f_b_flat = f_b.reshape(-1, d)
     f_a_flat = f_a.reshape(-1, d)
-
-    def d_fn(idx):
-        return candidate_dist(
-            f_b_flat, f_a_flat, idx, gather_fn=gather_fn
-        ).reshape(h, w)
-
-    nnf = clamp_nnf(nnf.long(), ha, wa)
-    dist = d_fn(nnf_to_flat(nnf, wa))
-
-    def try_candidates(nnf_cur, dist_cur, cand, factor):
-        cand = clamp_nnf(cand, ha, wa)
-        idx = nnf_to_flat(cand, wa)
-        d_cand = d_fn(idx)
-        idx_cur = nnf_to_flat(nnf_cur, wa).reshape(h, w)
-        better = d_cand * factor < dist_cur
-        tie_lower = (d_cand == dist_cur) & (idx.reshape(h, w) < idx_cur)
-        accept = better | tie_lower
-        return (
-            torch.where(accept[..., None], cand, nnf_cur),
-            torch.where(accept, d_cand, dist_cur),
-        )
-
-    for off in offsets:
-        for dy, dx in DELTAS:
-            nnf, dist = try_candidates(nnf, dist, shifted(nnf, dy, dx), 1.0)
-        for dy, dx in DELTAS:
-            cand = torch.roll(nnf, shifts=(dy, dx), dims=(0, 1))
-            nnf, dist = try_candidates(nnf, dist, cand, 1.0)
-        for s in range(off.shape[0]):
-            nnf, dist = try_candidates(
-                nnf, dist, nnf + off[s].to(nnf.device), coh_factor
-            )
-    return nnf, dist
+    py, px, dist = patchmatch_sweeps_lean(
+        f_b_flat, f_a_flat, nnf[..., 0], nnf[..., 1], offsets, ha=ha,
+        wa=wa, coh_factor=coh_factor,
+        dist_fn=lambda idx: candidate_dist(f_b_flat, f_a_flat, idx,
+                                           gather_fn=gather_fn),
+    )
+    return torch.stack([py, px], dim=-1), dist
 
 
 def kappa_factor(kappa: float, level: int) -> float:
@@ -418,114 +452,149 @@ def tile_patchmatch(
     plain: bool,
     polish_iters: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The tile path: `pm_iters` K1 sweeps in the raw-plane metric, a
-    merge with the incoming field under the feature metric on bf16
-    tables, the polish under `_POLISH_MODE`, the kappa pass, and the
-    exact float32 distance of the result.  The compressed-candidate
-    modes (A-plane dtype, PCA prune, restart mode) and the polish engine
-    are resolved once per call.  `plain` runs the kernels' plain
-    versions on either device (pallas_mode="interpret")."""
-    from ..kernels import patchmatch_tile as pt
-    from ..kernels.patchmatch_tile import (
-        draw_candidates,
-        from_compact,
-        prepare_b_planes,
-        prune_candidates,
-        resolve_cand_dtype,
-        resolve_prune,
-        sample_candidates_blocked,
-        tile_geometry,
-        tile_sweep,
-        to_compact,
-    )
-
-    h, w = f_b.shape[:2]
+    """The tile path of the standard levels: `tile_patchmatch_lean` on
+    the bf16 casts of the (H, W, D) feature fields (the accept metric;
+    the PCA prune is fit on the float32 fields), then, when the polish
+    ran, the exact float32 distance of the result.  Returns (nnf, dist)
+    on the stacked (H, W, 2) field."""
+    d = f_b.shape[-1]
     ha, wa = f_a.shape[:2]
-    dev = f_b.device
+    f_b_flat = f_b.reshape(-1, d)
     f_a_flat = f_a.reshape(-1, f_a.shape[-1])
+    py, px, dist = tile_patchmatch_lean(
+        f_b_flat.to(torch.bfloat16), f_a_flat.to(torch.bfloat16),
+        nnf[..., 0], nnf[..., 1], draws, raw=raw, cfg=cfg, level=level,
+        plain=plain, ha=ha, wa=wa, polish_iters=polish_iters,
+        prune_tabs=(f_b_flat, f_a_flat),
+    )
+    nnf = torch.stack([py, px], dim=-1)
+    if _polish_schedule_for(cfg, ha, wa, polish_iters)[0] == 0:
+        return nnf, dist
+    return nnf, nnf_dist(f_b, f_a_flat, nnf, wa)
+
+
+def tile_patchmatch_lean(
+    f_b_tab: torch.Tensor,
+    f_a_tab: torch.Tensor,
+    py: torch.Tensor,
+    px: torch.Tensor,
+    draws: SweepDraws,
+    *,
+    raw: RawPlanes,
+    cfg: SynthConfig,
+    level: int,
+    plain: bool,
+    ha: int,
+    wa: int,
+    polish_iters: Optional[int] = None,
+    prune_tabs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The tile path on (N, D) bf16 tables and a (py, px) plane-pair
+    field: `pm_iters` K1 sweeps in the raw-plane metric, a merge with the
+    incoming field under the feature metric, the polish under
+    `_POLISH_MODE`, and the kappa pass, every feature-metric distance
+    through `candidate_dist_lean` (chunked, f32 math).  The lean levels
+    (models/analogy.py `plan_level`) pass `assemble_features_lean`'s
+    tables; `tile_patchmatch` passes the standard levels' fields cast to
+    bf16, and the float32 fields as `prune_tabs` (the PCA prune's fit;
+    default: the bf16 tables).  The compressed-candidate modes (A-plane
+    dtype, PCA prune, restart mode) and the polish engine are resolved
+    once per call.  `plain` runs the kernels' plain versions on either
+    device (pallas_mode="interpret").  The returned distances are in the
+    bf16-table metric.  One A band (`n_bands == 1`).  Returns
+    (py, px, dist)."""
+    from ..kernels import patchmatch_tile as pt
+
+    h, w = py.shape
+    dev = py.device
     specs, use_coarse = raw.plan
-    geom = tile_geometry(h, w, specs)
+    geom = pt.tile_geometry(h, w, specs)
     coh = kappa_factor(cfg.kappa, level)
     pm_iters = _pm_iters_for(cfg, ha, wa)
     polish_iters, polish_random = _polish_schedule_for(
         cfg, ha, wa, polish_iters
     )
-    cand_dtype = resolve_cand_dtype()
-    prune = resolve_prune()
+    cand_dtype, polish_mode = pt.resolve_cand_dtype(), _POLISH_MODE
     coarse_restarts = pt._RESTART_MODE == "coarse"
-    polish_mode = _POLISH_MODE
-    prune_state = _prune_setup(
-        prune, f_b.reshape(-1, f_b.shape[-1]), f_a_flat, geom, h, w
-    )
-    # bf16 accept-metric tables; candidate_dist does its math in f32.
-    f_b16 = f_b.to(torch.bfloat16)
-    f_a16 = f_a.to(torch.bfloat16)
-    f_a16_flat = f_a16.reshape(-1, f_a16.shape[-1])
+    prune_state = _prune_setup(pt.resolve_prune(),
+                               *(prune_tabs or (f_b_tab, f_a_tab)),
+                               geom, h, w)
 
-    b_planes = prepare_b_planes(
+    def dist_fn(idx):
+        return candidate_dist_lean(f_b_tab, f_a_tab, idx)
+
+    py = py.long().clamp(0, ha - 1)
+    px = px.long().clamp(0, wa - 1)
+    dist0 = dist_fn((py * wa + px).reshape(-1)).reshape(h, w)
+
+    # K1 sweeps (candidate slots 0 .. pm_iters-1 of `draws`) in the
+    # raw-plane metric, on compact offsets from the incoming field.
+    b_planes = pt.prepare_b_planes(
         raw.src_b, raw.flt_b,
         raw.src_b_coarse if use_coarse else None,
         raw.flt_b_coarse if use_coarse else None,
         geom,
     )
-    nnf = clamp_nnf(nnf.long(), ha, wa)
     qy = torch.arange(h, device=dev)[:, None].expand(h, w)
     qx = torch.arange(w, device=dev)[None, :].expand(h, w)
-    dist0 = nnf_dist(f_b16, f_a16_flat, nnf, wa)
-
-    oy = to_compact((nnf[..., 0] - qy).to(torch.int32), geom)
-    ox = to_compact((nnf[..., 1] - qx).to(torch.int32), geom)
+    oy = pt.to_compact((py - qy).to(torch.int32), geom)
+    ox = pt.to_compact((px - qx).to(torch.int32), geom)
     # Kernel-metric incumbents start at +inf: the raw-plane metric and
     # the feature metric must not meet in one accept test.
     d = torch.full(oy.shape, float("inf"), dtype=torch.float32, device=dev)
     for t in range(pm_iters):
-        cand_y, cand_x, cand_valid = sample_candidates_blocked(
+        cand_y, cand_x, cand_valid = pt.sample_candidates_blocked(
             oy, ox,
-            draw_candidates(draws.gen(t, dev), geom, ha, wa, coarse_restarts),
+            pt.draw_candidates(draws.gen(t, dev), geom, ha, wa,
+                               coarse_restarts),
             geom, ha, wa,
         )
         if prune_state is not None:
             proj_b_tiles, qy_s, qx_s, proj_a, m_keep = prune_state
-            cand_valid = prune_candidates(
+            cand_valid = pt.prune_candidates(
                 cand_y, cand_x, cand_valid, proj_b_tiles, qy_s, qx_s,
                 proj_a, ha, wa, m_keep,
             )
-        oy, ox, d = tile_sweep(
+        oy, ox, d = pt.tile_sweep(
             raw.a_planes, b_planes, cand_y, cand_x, cand_valid, oy, ox, d,
             specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=coh,
             plain=plain, cand_dtype=cand_dtype,
         )
-    nnf_k = clamp_nnf(
-        torch.stack([
-            qy + from_compact(oy, h, w).long(),
-            qx + from_compact(ox, h, w).long(),
-        ], dim=-1),
-        ha, wa,
-    )
-    d_k = nnf_dist(f_b16, f_a16_flat, nnf_k, wa)
+    ky = (qy + pt.from_compact(oy, h, w).long()).clamp(0, ha - 1)
+    kx = (qx + pt.from_compact(ox, h, w).long()).clamp(0, wa - 1)
+    # The sweep state is dead from here; free it before the polish.
+    del b_planes, oy, ox, d
+    # Exact-metric merge: adopt the kernel's match only where it wins.
+    d_k = dist_fn((ky * wa + kx).reshape(-1)).reshape(h, w)
     better = d_k < dist0
-    nnf_m = torch.where(better[..., None], nnf_k, nnf)
-    d_m = torch.where(better, d_k, dist0)
+    py = torch.where(better, ky, py)
+    px = torch.where(better, kx, px)
+    dist = torch.where(better, d_k, dist0)
     if polish_iters == 0:
-        return nnf_m, d_m
+        return py, px, dist
     offsets = sweep_offsets(draws.gen(pm_iters, dev), polish_iters,
                             sweep_radii(ha, wa, polish_random), h, w)
     if polish_mode in ("sequential", "stream"):
-        nnf_p, d_p = patchmatch_sweeps(
-            f_b16, f_a16, nnf_m, offsets, coh_factor=coh,
-            gather_fn=_polish_gather_fn(f_a16_flat, plain, cand_dtype,
-                                        polish_mode),
+        gf = _polish_gather_fn(f_a_tab, plain, cand_dtype, polish_mode)
+        py, px, dist = patchmatch_sweeps_lean(
+            f_b_tab, f_a_tab, py, px, offsets, ha=ha, wa=wa,
+            coh_factor=coh,
+            dist_fn=lambda idx: candidate_dist_lean(
+                f_b_tab, f_a_tab, idx, gather_fn=gf),
         )
     else:
-        nnf_p, d_p = polish_sweeps(f_b16, f_a16, nnf_m, d_m, offsets,
-                                   coh_factor=coh)
-    if cfg.kappa > 0.0:
-        from .coherence import coherence_sweeps
-
-        nnf_p, _ = coherence_sweeps(
-            f_b16, f_a16, nnf_p, d_p, factor=coh, sweeps=2
+        py, px, dist = polish_sweeps_planes(
+            py, px, dist, offsets, ha=ha, wa=wa, coh_factor=coh,
+            dist_fn=dist_fn,
         )
-    return nnf_p, nnf_dist(f_b, f_a_flat, nnf_p, wa)
+    if cfg.kappa > 0.0:
+        from .coherence import coherence_sweeps_lean
+
+        py, px, dist = coherence_sweeps_lean(
+            py, px, dist, ha=ha, wa=wa, factor=coh, sweeps=2,
+            dist_fn=dist_fn,
+        )
+    return py, px, dist
 
 
 class PatchMatchMatcher(Matcher):

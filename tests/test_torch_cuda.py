@@ -330,3 +330,84 @@ def test_gather_rows_kernel_matches_plain(dev, dtype, na, idx_shape):
     assert torch.equal(got, want)
     assert torch.equal(ps.gather_rows(table, idx, plain=True), want)
     assert ps.launches.count == before + 1
+
+
+def test_lean_patchmatch_kernels_against_interpret(dev):
+    """Lean PatchMatch at 256^2 (feature_bytes_budget=1, one level) with
+    the kernels and with their plain versions (pallas_mode="interpret")
+    on the card: the first sweep's offsets equal except at ties, the
+    kernel counted once per sweep, both B' above the oracle bar."""
+    from image_analogies_tpu_torch import create_image_analogy, psnr
+    from image_analogies_tpu_torch.utils.examples import super_resolution
+
+    a, ap, b = super_resolution(256)
+    kw = dict(levels=1, em_iters=2, pm_iters=3, feature_bytes_budget=1)
+    oracle = create_image_analogy(a, ap, b, SynthConfig(
+        levels=1, em_iters=2, matcher="brute"))
+    first = []
+    real = pt.tile_sweep
+
+    def spy(*args, **kwargs):
+        if not first:
+            first.append((tuple(t.clone() for t in args), dict(kwargs)))
+        return real(*args, **kwargs)
+
+    before = pt.launches.count
+    pt.tile_sweep = spy
+    try:
+        auto = create_image_analogy(a, ap, b, SynthConfig(**kw))
+    finally:
+        pt.tile_sweep = real
+    assert pt.launches.count == before + 2 * 3
+    before = pt.launches.count
+    plain = create_image_analogy(a, ap, b, SynthConfig(
+        pallas_mode="interpret", **kw))
+    assert pt.launches.count == before
+    args, kwargs = first[0]
+    geo = {k: kwargs[k] for k in ("specs", "geom", "ha", "wa")}
+    got = pt.tile_sweep_kernel(*args, coh_factor=kwargs["coh_factor"], **geo)
+    want = pt.tile_sweep_plain(*args, coh_factor=kwargs["coh_factor"], **geo)
+    bad = pt.unexplained_offsets(got, want, args[5:8], args[0], args[1],
+                                 h=256, w=256, **geo)
+    assert not bool(bad.any())
+    for out in (auto, plain):
+        assert psnr(out, oracle) > 25.0
+
+
+def test_lean_brute_k2_bf16_against_plain(dev):
+    """The lean-brute oracle at 64^2 (brute_lean_bytes=1, 2 levels): K2
+    launched on bf16 rows once per level and EM step, and its level-0
+    picks equal to the plain version's except at ties in the metric both
+    minimize."""
+    from image_analogies_tpu_torch import create_image_analogy
+    from image_analogies_tpu_torch.models import brute
+    from image_analogies_tpu_torch.utils.examples import super_resolution
+
+    a, ap, b = super_resolution(64)
+    calls = []
+    real = brute.nn_argmin
+
+    def spy(f_b, f_a, *args, **kwargs):
+        idx = real(f_b, f_a, *args, **kwargs)
+        calls.append((f_b, f_a, idx))
+        return idx
+
+    before = nb.launches.count
+    brute.nn_argmin = spy
+    try:
+        out = create_image_analogy(a, ap, b, SynthConfig(
+            levels=2, em_iters=2, matcher="brute", brute_lean_bytes=1))
+    finally:
+        brute.nn_argmin = real
+    assert nb.launches.count == before + 4
+    assert torch.isfinite(out).all()
+    bf = torch.bfloat16
+    for f_b, f_a, idx_k in calls:
+        assert f_b.dtype == f_a.dtype == bf
+        a_sq = nb.squared_norms(f_a)
+        idx_p = nb.nn_argmin_plain(f_b, f_a, a_sq, match_dtype=bf)
+        m_k = nb.argmin_metric(f_b, f_a, a_sq, idx_k, bf)
+        m_p = nb.argmin_metric(f_b, f_a, a_sq, idx_p, bf)
+        differ = idx_k != idx_p
+        assert not bool(
+            (differ & ((m_k - m_p).abs() > 1e-5 * m_p.abs())).any())

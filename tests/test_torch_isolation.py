@@ -30,6 +30,7 @@ def test_imports_without_jax():
         "image_analogies_tpu_torch.kernels.patchmatch_tile, "
         "image_analogies_tpu_torch.kernels.nn_brute, "
         "image_analogies_tpu_torch.kernels.polish_stream, "
+        "image_analogies_tpu_torch.parallel.spatial, "
         "image_analogies_tpu_torch.utils.examples; "
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules "
         "if sys.modules[m] is not None}; print('ok')"
@@ -40,6 +41,12 @@ def test_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_parallel_subpackage_is_checked():
+    """The slab helpers' subpackage is among the files held to no JAX
+    import below."""
+    assert (PORT / "parallel" / "spatial.py") in set(PORT.rglob("*.py"))
 
 
 def _imported_roots(path: pathlib.Path):
