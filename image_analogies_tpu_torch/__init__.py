@@ -8,6 +8,10 @@ port imports nothing of it, and nothing of JAX.
 
 from .config import SynthConfig
 from .models.analogy import create_image_analogy, load_level_state
+from .parallel.batch import synthesize_batch
 from .utils.metrics import psnr
+from .video import VideoStream, synthesize_video
 
-__all__ = ["SynthConfig", "create_image_analogy", "load_level_state", "psnr"]
+__all__ = ["SynthConfig", "VideoStream", "create_image_analogy",
+           "load_level_state", "psnr", "synthesize_batch",
+           "synthesize_video"]

@@ -29,7 +29,9 @@ class SynthConfig:
     patch_size: int = 5
     coarse_patch_size: int = 3
     kappa: float = 0.0
-    # Temporal-coherence weight (video).  Not ported yet: must stay 0.
+    # Temporal-coherence weight (video, video/sequence.py): warm frames'
+    # PatchMatch candidates pay tau for diverging from the previous
+    # frame's field (models/patchmatch.py `temporal_penalty_fn`).
     tau: float = 0.0
     matcher: str = "patchmatch"
     color_mode: str = "luminance"

@@ -44,7 +44,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 SOURCES: Dict[str, Dict[str, list]] = {
     "tile_sweep": {
-        "ia_tile_sweep": [_P] * 12 + [_I] * 19 + [_F] + [_P],
+        "ia_tile_sweep": [_P] * 12 + [_I] * 20 + [_F] + [_P],
     },
     "nn_brute": {
         "ia_nn_split_tf32": [_P] + [_I] * 4 + [_F] + [_P] * 3,

@@ -68,6 +68,13 @@
 //     vertical per group, group 0 then group 1.
 //   - Running minima in registers, no atomics: the result is
 //     deterministic.
+//   - Frames.  The batch runner's resident frames (the reference's `vmap`
+//     gives its kernel the frame axis as a leading grid dimension) are the
+//     grid's z dimension: block (x, y, f) reads frame f's B planes,
+//     candidate tables and state at 64-bit frame strides and shares the A
+//     planes.  Nothing else depends on the frame and no shared-memory or
+//     reduction state crosses blocks, so frame f of a launch over F frames
+//     is the single-frame launch on frame f's inputs, bit for bit.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -101,11 +108,11 @@ __device__ __forceinline__ float load_a(const signed char* p) {
 template <typename TA>
 struct Params {
   const TA* a;           // (C, a_h, a_w) A planes, edge-padded by halo
-  const float* b;        // (C, b_h, b_w) B planes, edge-padded by halo
-  const int* cand_y;     // (n_tiles, 36)
+  const float* b;        // (F, C, b_h, b_w) B planes, edge-padded by halo
+  const int* cand_y;     // (F, n_tiles, 36)
   const int* cand_x;
   const int* cand_valid;
-  const int* oy_in;      // (n_ty * 64, n_tx * tile_w) compact state
+  const int* oy_in;      // (F, n_ty * 64, n_tx * tile_w) compact state
   const int* ox_in;
   const float* d_in;
   int* oy_out;
@@ -114,6 +121,7 @@ struct Params {
   const float* weights;  // (2 groups, 2 axes [y, x], MAXT)
   int n_chan, n_group0, ha, wa, a_h, a_w, b_h, b_w, n_ty, n_tx, tile_w;
   int taps0, dil0, taps1, dil1;
+  int n_frames;          // the grid's z dimension
   float coh_factor;
 };
 
@@ -154,12 +162,19 @@ __global__ void __launch_bounds__(NT, 2) tile_sweep_kernel(Params<TA> prm) {
   const int u0 = blockIdx.y * R;
   const bool two_groups = prm.n_group0 < C;
   const size_t plane = (size_t)prm.a_h * prm.a_w;
+  const int state_w = prm.n_tx * prm.tile_w;
+
+  // This block's frame: its B planes, candidate tables and state.
+  const long long f = blockIdx.z;
+  const float* b_f = prm.b + f * C * (long long)prm.b_h * prm.b_w;
+  const long long cand_f = f * prm.n_ty * prm.n_tx * K_TOTAL;
+  const long long state_f = f * prm.n_ty * TILE_H * (long long)state_w;
 
   // The valid slots of this tile, compacted in slot order.
   if (tid < 32) {
-    const int* cv = prm.cand_valid + tile * K_TOTAL;
-    const int* cy = prm.cand_y + tile * K_TOTAL;
-    const int* cx = prm.cand_x + tile * K_TOTAL;
+    const int* cv = prm.cand_valid + cand_f + tile * K_TOTAL;
+    const int* cy = prm.cand_y + cand_f + tile * K_TOTAL;
+    const int* cx = prm.cand_x + cand_f + tile * K_TOTAL;
     const bool v0 = cv[tid] > 0;
     const bool v1 = tid < K_TOTAL - 32 && cv[32 + tid] > 0;
     const unsigned m0 = __ballot_sync(0xffffffffu, v0);
@@ -184,7 +199,7 @@ __global__ void __launch_bounds__(NT, 2) tile_sweep_kernel(Params<TA> prm) {
   const int n = n_slots[0];
 
   for (int c = 0; c < C; ++c) {
-    const float* bp = prm.b + (size_t)c * prm.b_h * prm.b_w;
+    const float* bp = b_f + (size_t)c * prm.b_h * prm.b_w;
 #pragma unroll
     for (int i = 0; i < HR; ++i) {
       const int r = h * HR + i;
@@ -194,7 +209,6 @@ __global__ void __launch_bounds__(NT, 2) tile_sweep_kernel(Params<TA> prm) {
   }
 
   const bool owner = l < prm.tile_w;
-  const int state_w = prm.n_tx * prm.tile_w;
   const int row0 = ty0 + u0 + h * H;  // the thread's first output row
   float d_coh[H], d_app[H];
   int y_coh[H], x_coh[H], y_app[H], x_app[H];
@@ -204,7 +218,7 @@ __global__ void __launch_bounds__(NT, 2) tile_sweep_kernel(Params<TA> prm) {
     y_app[u] = 0;
     x_app[u] = 0;
     if (owner) {
-      const size_t s = (size_t)(row0 + u) * state_w + tx0 + l;
+      const size_t s = state_f + (size_t)(row0 + u) * state_w + tx0 + l;
       d_coh[u] = prm.d_in[s];
       y_coh[u] = prm.oy_in[s];
       x_coh[u] = prm.ox_in[s];
@@ -357,7 +371,7 @@ __global__ void __launch_bounds__(NT, 2) tile_sweep_kernel(Params<TA> prm) {
   if (owner) {
 #pragma unroll
     for (int u = 0; u < H; ++u) {
-      const size_t s = (size_t)(row0 + u) * state_w + tx0 + l;
+      const size_t s = state_f + (size_t)(row0 + u) * state_w + tx0 + l;
       const bool take_app = d_app[u] * prm.coh_factor < d_coh[u];
       prm.d_out[s] = take_app ? d_app[u] : d_coh[u];
       prm.oy_out[s] = take_app ? y_app[u] : y_coh[u];
@@ -373,7 +387,7 @@ int launch(const Params<TA>& prm, cudaStream_t stream) {
       tile_sweep_kernel<P, TA, R, FIXED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(prm.n_ty * prm.n_tx, TILE_H / R);
+  const dim3 grid(prm.n_ty * prm.n_tx, TILE_H / R, prm.n_frames);
   tile_sweep_kernel<P, TA, R, FIXED><<<grid, NT, smem, stream>>>(prm);
   return (int)cudaGetLastError();
 }
@@ -407,18 +421,20 @@ Params<TA> make_params(
     const float* d_in, int* oy_out, int* ox_out, float* d_out,
     const float* weights, int n_chan, int n_group0, int ha, int wa, int a_h,
     int a_w, int b_h, int b_w, int n_ty, int n_tx, int tile_w, int taps0,
-    int dil0, int taps1, int dil1, float coh_factor) {
+    int dil0, int taps1, int dil1, int n_frames, float coh_factor) {
   return Params<TA>{static_cast<const TA*>(a), b, cand_y, cand_x, cand_valid,
                     oy_in, ox_in, d_in, oy_out, ox_out, d_out, weights,
                     n_chan, n_group0, ha, wa, a_h, a_w, b_h, b_w, n_ty, n_tx,
-                    tile_w, taps0, dil0, taps1, dil1, coh_factor};
+                    tile_w, taps0, dil0, taps1, dil1, n_frames, coh_factor};
 }
 
 }  // namespace
 
 // `a` points at float32 planes, or at int8 planes when `a_int8` is 1.
 // `strip_rows` (8 or 16) is the wrapper's plan; `general` forces the
-// run-time tap loops where the fixed windows would apply.
+// run-time tap loops where the fixed windows would apply.  `n_frames`
+// frames of B planes, candidate tables and state follow each other in
+// memory (one frame: the single-image sweep).
 extern "C" int ia_tile_sweep(
     const void* a, const float* b, const int* cand_y, const int* cand_x,
     const int* cand_valid, const int* oy_in, const int* ox_in,
@@ -426,15 +442,16 @@ extern "C" int ia_tile_sweep(
     const float* weights, int n_chan, int n_group0, int ha, int wa, int a_h,
     int a_w, int b_h, int b_w, int n_ty, int n_tx, int tile_w, int halo,
     int taps0, int dil0, int taps1, int dil1, int a_int8, int strip_rows,
-    int general, float coh_factor, cudaStream_t stream) {
+    int general, int n_frames, float coh_factor, cudaStream_t stream) {
   if (tile_w + 2 * halo != LANE) return (int)cudaErrorInvalidValue;
+  if (n_frames < 1 || n_frames > 65535) return (int)cudaErrorInvalidValue;
   const bool fixed = !general && halo == 2 && taps0 == 5 && dil0 == 1 &&
                      (n_group0 == n_chan || (taps1 == 3 && dil1 == 2));
 #define IA_PARAMS(TA)                                                        \
   make_params<TA>(a, b, cand_y, cand_x, cand_valid, oy_in, ox_in, d_in,      \
                   oy_out, ox_out, d_out, weights, n_chan, n_group0, ha, wa,  \
                   a_h, a_w, b_h, b_w, n_ty, n_tx, tile_w, taps0, dil0, taps1, \
-                  dil1, coh_factor)
+                  dil1, n_frames, coh_factor)
   if (a_int8)
     return launch_halo(IA_PARAMS(signed char), halo, strip_rows, fixed,
                        stream);

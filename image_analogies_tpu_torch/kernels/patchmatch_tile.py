@@ -41,7 +41,9 @@ overrides and setters, resolved once per matcher call):
 
   - `tile_sweep_kernel`: the CUDA kernel (`csrc/tile_sweep.cu`), replacing
     the Pallas `_make_kernel` of image_analogies_tpu/kernels/
-    patchmatch_tile.py, for float32 and int8 A planes;
+    patchmatch_tile.py, for float32 and int8 A planes, over one frame or
+    a leading frame axis (the batch runner's resident frames, which the
+    reference's `vmap` gives its kernel as a leading grid dimension);
   - `tile_sweep_plain`: the plain PyTorch version (a loop over the 36
     slots with batched window gathers);
   - `tile_sweep`: the dispatch by device;
@@ -84,6 +86,8 @@ MAX_TAPS = 16
 SMEM_LIMIT = 232_448
 SMEM_TWO_BLOCKS = 115_712
 _SLOT_LIST = 40
+# Frames one launch takes: the grid's z dimension.
+_MAX_FRAMES = 65_535
 
 launches = LaunchCounter("tile_sweep")
 launches_int8 = LaunchCounter("tile_sweep_int8")
@@ -318,10 +322,6 @@ def to_compact(plane: torch.Tensor, geom: TileGeometry) -> torch.Tensor:
     return x.to(dt).contiguous()
 
 
-def from_compact(plane: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    return plane[:h, :w]
-
-
 # ---------------------------------------------------------------------------
 # Candidate sampling
 
@@ -520,20 +520,25 @@ def prune_candidates(cand_y, cand_x, cand_valid, proj_b_tiles, qy, qx,
 
 
 def _check_shapes(a_planes, b_planes, cand_y, off_y, specs, geom, ha, wa):
+    """The sweep's shape contract; returns the frame count F, or None
+    when the B side has no frame axis."""
     p, th, tw = geom.halo, geom.tile_h, geom.tile_w
     c = len(specs)
     if tuple(a_planes.shape) != (c, ha + 2 * p, wa + 2 * p):
         raise ValueError(f"a_planes {tuple(a_planes.shape)}")
-    if tuple(b_planes.shape) != (
+    frames = b_planes.ndim == 4
+    lead = tuple(b_planes.shape[:1]) if frames else ()
+    if tuple(b_planes.shape) != lead + (
         c, geom.n_ty * th + 2 * p, geom.n_tx * tw + 2 * p
     ):
         raise ValueError(f"b_planes {tuple(b_planes.shape)}")
-    if tuple(cand_y.shape) != (geom.n_ty, geom.n_tx, K_TOTAL):
+    if tuple(cand_y.shape) != lead + (geom.n_ty, geom.n_tx, K_TOTAL):
         raise ValueError(f"cand tables {tuple(cand_y.shape)}")
-    if tuple(off_y.shape) != (geom.n_ty * th, geom.n_tx * tw):
+    if tuple(off_y.shape) != lead + (geom.n_ty * th, geom.n_tx * tw):
         raise ValueError(f"state planes {tuple(off_y.shape)}")
     if ha < th or wa < tw:
         raise ValueError(f"A ({ha}, {wa}) smaller than one tile")
+    return lead[0] if frames else None
 
 
 def tile_sweep_plain(a_planes, b_planes, cand_y, cand_x, cand_valid,
@@ -541,8 +546,21 @@ def tile_sweep_plain(a_planes, b_planes, cand_y, cand_x, cand_valid,
                      ha: int, wa: int, coh_factor: float):
     """The plain PyTorch version of one sweep; returns the new compact
     (off_y int32, off_x int32, dist float32).  int8 A planes are
-    dequantized first (`dequantize_planes`)."""
-    _check_shapes(a_planes, b_planes, cand_y, off_y, specs, geom, ha, wa)
+    dequantized first (`dequantize_planes`).  With a leading frame axis
+    on the B planes, the candidate tables and the state (A is shared),
+    each frame is swept on its own and the results are stacked."""
+    n_f = _check_shapes(a_planes, b_planes, cand_y, off_y, specs, geom,
+                        ha, wa)
+    if n_f is not None:
+        outs = [
+            tile_sweep_plain(
+                a_planes, b_planes[i], cand_y[i], cand_x[i], cand_valid[i],
+                off_y[i], off_x[i], dist[i], specs=specs, geom=geom, ha=ha,
+                wa=wa, coh_factor=coh_factor,
+            )
+            for i in range(n_f)
+        ]
+        return tuple(torch.stack(x) for x in zip(*outs))
     a_planes = dequantize_planes(a_planes)
     p, th, tw, n_ty, n_tx = geom
     dev = a_planes.device
@@ -752,20 +770,34 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
     `tile_sweep_plain`, for float32 or int8 A planes (the int8 mode
     dequantizes in the kernel and counts in `launches_int8`).  `general`
     forces the run-time tap loops where the main path's windows would
-    take the compile-time instantiation.  Launches on the current
-    stream."""
-    _check_shapes(a_planes, b_planes, cand_y, off_y, specs, geom, ha, wa)
+    take the compile-time instantiation.  A leading frame axis F on the
+    B side is the grid's z dimension: one launch sweeps every frame,
+    each block's work is the single-frame launch's, and the launch
+    counts once.  Launches on the current stream."""
+    n_f = _check_shapes(a_planes, b_planes, cand_y, off_y, specs, geom,
+                        ha, wa)
+    if n_f is None:
+        out = tile_sweep_kernel(
+            a_planes, b_planes[None], cand_y[None], cand_x[None],
+            cand_valid[None], off_y[None], off_x[None], dist[None],
+            specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=coh_factor,
+            general=general,
+        )
+        return tuple(t[0] for t in out)
     if not kernel_fits(specs):
         raise ValueError("channel specs exceed the tile-sweep kernel")
+    if not 1 <= n_f <= _MAX_FRAMES:
+        raise ValueError(f"{n_f} frames in one launch (1 to {_MAX_FRAMES})")
     p, th, tw, n_ty, n_tx = geom
     c = len(specs)
     dev = a_planes.device
-    cand_shape = (n_ty, n_tx, K_TOTAL)
-    state_shape = (n_ty * th, n_tx * tw)
+    cand_shape = (n_f, n_ty, n_tx, K_TOTAL)
+    state_shape = (n_f, n_ty * th, n_tx * tw)
     int8 = a_planes.dtype == torch.int8
     require(a_planes, torch.int8 if int8 else torch.float32, a_planes.shape,
             "tile_sweep a_planes")
-    require(b_planes, torch.float32, b_planes.shape, "tile_sweep b_planes")
+    require(b_planes, torch.float32, (n_f,) + tuple(b_planes.shape[1:]),
+            "tile_sweep b_planes")
     for t, name in ((cand_y, "cand_y"), (cand_x, "cand_x"),
                     (cand_valid, "cand_valid")):
         require(t, torch.int32, cand_shape, f"tile_sweep {name}")
@@ -789,8 +821,8 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
         off_x.data_ptr(), dist.data_ptr(), oy_o.data_ptr(), ox_o.data_ptr(),
         d_o.data_ptr(), weights.data_ptr(),
         c, n0, ha, wa, a_planes.shape[1], a_planes.shape[2],
-        b_planes.shape[1], b_planes.shape[2], n_ty, n_tx, tw, p,
-        taps0, dil0, taps1, dil1, int(int8), rows, int(general),
+        b_planes.shape[2], b_planes.shape[3], n_ty, n_tx, tw, p,
+        taps0, dil0, taps1, dil1, int(int8), rows, int(general), n_f,
         float(coh_factor), stream_ptr(a_planes),
     )
     check(err, "ia_tile_sweep")
@@ -803,9 +835,10 @@ def tile_sweep(a_planes, b_planes, cand_y, cand_x, cand_valid, off_y,
                plain: bool = False, cand_dtype: Optional[str] = None):
     """One sweep: the kernel for CUDA tensors, the plain version for CPU
     tensors, or the plain version on either device when `plain` (the
-    explicit `pallas_mode="interpret"`).  Raises when the A planes' dtype
-    does not match the resolved `cand_dtype` (int8 planes for "int8",
-    float32 for "bf16")."""
+    explicit `pallas_mode="interpret"`).  The B side may carry a leading
+    frame axis (one launch for all frames).  Raises when the A planes'
+    dtype does not match the resolved `cand_dtype` (int8 planes for
+    "int8", float32 for "bf16")."""
     mode = resolve_cand_dtype(cand_dtype)
     want = torch.int8 if mode == "int8" else torch.float32
     if a_planes.dtype != want:
@@ -822,6 +855,24 @@ def tile_sweep(a_planes, b_planes, cand_y, cand_x, cand_valid, off_y,
         a_planes, b_planes, cand_y, cand_x, cand_valid, off_y, off_x, dist,
         specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=coh_factor,
     )
+
+
+def candidate_dma_bytes_per_fetch(n_chan: int, thp: int,
+                                  cand_dtype: Optional[str] = None):
+    """(moved, useful) bytes of ONE candidate-window fetch of the
+    reference's TPU kernel: `useful` is 2 lane blocks x n_chan channels
+    x thp rows at the plane itemsize, `moved` adds the sublane padding
+    of its default packed layout (2C sublanes rounded up to 8 for f32
+    planes, 32 for int8).  A copy of the reference's byte model, kept
+    only so `models/analogy.py` `level_eta_cost_units` prices levels as
+    the reference does: it describes TPU DMA geometry, not what K1 moves
+    on the card."""
+    dt = resolve_cand_dtype(cand_dtype)
+    item = 1 if dt == "int8" else 4
+    gran = 32 if dt == "int8" else 8
+    useful = thp * 2 * n_chan * LANE * item
+    moved = thp * (-(-2 * n_chan // gran) * gran) * LANE * item
+    return moved, useful
 
 
 # ---------------------------------------------------------------------------

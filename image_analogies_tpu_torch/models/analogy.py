@@ -9,9 +9,13 @@ the A-side features and the tile path's A planes once, then alternates
 Luminance mode matches on Y (plus steerable responses when asked) and
 copies B's chroma back at the end (Hertzmann §3.4).
 
-This is the reference's single-image runner.  `plan_level` sends each
-level down one of two paths by the reference's byte rule
-(`_feature_table_bytes`):
+This is the reference's single-image runner.  Its level body
+(`prologue`, `run_level`, `make_em_step`) runs on a leading frame axis
+of the B side, which the batch and video runners
+(`parallel/batch.py`, `video/sequence.py`) fill with their resident
+frames; a single image is one frame with a single image's random
+streams.  `plan_level` sends each level down one of two paths by the
+reference's byte rule (`_feature_table_bytes`):
   - the standard path: float32 (H, W, D) feature tensors (PCA when
     asked) and a stacked (H, W, 2) field;
   - the lean path, for PatchMatch levels past `feature_bytes_budget`
@@ -47,13 +51,14 @@ from ..ops.pca import fit_and_project, project
 from ..ops.pyramid import build_pyramid, upsample
 from ..ops.remap import remap_luminance
 from ..ops.steerable import steerable_responses
-from .matcher import get_matcher
+from .matcher import clamp_nnf, get_matcher
 from .patchmatch import (
     RawPlanes,
     SweepDraws,
     init_generator,
     random_init,
     random_init_planes,
+    temporal_active,
 )
 
 # Register the built-in matchers.
@@ -129,8 +134,27 @@ def _level_state_glue(lean: bool, prev_kind: str, prev_nnf, prev_bp,
     upsampled, or a random field and B itself at the coarsest level
     (prev_kind "none").  `prev_kind` is the layout of the incoming field:
     "stacked" (H, W, 2) or "planes" (py, px); a lean level carries
-    planes, a standard one a stacked field.  Returns (nnf, flt_bp,
-    flt_bp_coarse)."""
+    planes, a standard one a stacked field.
+
+    prev_kind "direct" (video): the incoming state is the previous
+    frame's converged field at THIS level, which seeds the level as it
+    is (clamped to A) in place of the upsample or the random draw; B'
+    starts from prev_bp at this resolution.  At a level with a coarser
+    one, prev_bp is the pair (bp_fine, bp_coarse), the previous frame's
+    B' at this level and the next coarser one, since the EM features
+    read the coarse plane at its own resolution.  Only the video runner
+    asks for "direct" (`plan_level` never gives it).  Returns (nnf,
+    flt_bp, flt_bp_coarse)."""
+    if prev_kind == "direct":
+        if lean:
+            py, px = (prev_nnf if isinstance(prev_nnf, tuple)
+                      else (prev_nnf[..., 0], prev_nnf[..., 1]))
+            nnf = (py.clamp(0, ha - 1), px.clamp(0, wa - 1))
+        else:
+            nnf = clamp_nnf(prev_nnf, ha, wa)
+        flt_bp, flt_bp_coarse = (prev_bp if isinstance(prev_bp, tuple)
+                                 else (prev_bp, prev_bp))
+        return nnf, flt_bp, flt_bp_coarse
     if prev_kind == "none":
         init = random_init_planes if lean else random_init
         return init(gen_init, h, w, ha, wa), raw_b_l, raw_b_l
@@ -140,36 +164,6 @@ def _level_state_glue(lean: bool, prev_kind: str, prev_nnf, prev_bp,
     if not lean:
         nnf = torch.stack(nnf, dim=-1)
     return nnf, upsample(prev_bp, (h, w)), prev_bp
-
-
-def lean_em_step(cfg: SynthConfig, level: int, has_coarse: bool,
-                 polish_iters, src_b, flt_b, src_b_c, flt_b_c, f_a_tab,
-                 copy_a, nnf, draws: SweepDraws, a_planes, plan):
-    """One lean EM step: the bf16 B table assembled slab by slab, the
-    tile path on the plane-pair field (`tile_patchmatch_lean`), and the
-    render.  `f_a_tab` is the level's (N_A, D) bf16 A table, `nnf` a
-    (py, px) pair.  Returns ((py, px), dist, bp)."""
-    from .patchmatch import tile_patchmatch_lean
-
-    py, px = nnf
-    ha, wa = copy_a.shape[:2]
-    f_b_tab = assemble_features_lean(
-        src_b, flt_b, cfg,
-        src_b_c if has_coarse else None,
-        flt_b_c if has_coarse else None,
-    )
-    raw = RawPlanes(
-        src_b, flt_b,
-        src_b_c if has_coarse else None,
-        flt_b_c if has_coarse else None,
-        a_planes, plan,
-    )
-    py, px, dist = tile_patchmatch_lean(
-        f_b_tab, f_a_tab, py, px, draws, raw=raw, cfg=cfg, level=level,
-        plain=cfg.pallas_mode == "interpret", ha=ha, wa=wa,
-        polish_iters=polish_iters,
-    )
-    return (py, px), dist, _gather_planes(copy_a, py, px)
 
 
 # The lean-brute oracle searches B in row bands while the reference's
@@ -261,64 +255,101 @@ def lean_brute_em_step(cfg: SynthConfig, level: int, has_coarse: bool,
     return (py, px), dist, _gather_planes(copy_a, py, px)
 
 
+def _frame(x, i):
+    """Frame i of a frame-stacked tensor, or of a tuple of them (None
+    stays None)."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(p[i] for p in x)
+    return x[i]
+
+
+def _stack_frames(parts):
+    """Per-frame tensors (or per-frame tuples, element-wise) on a leading
+    frame axis; one frame gets the axis as a view, without a copy."""
+    if isinstance(parts[0], tuple):
+        return tuple(_stack_frames(list(p)) for p in zip(*parts))
+    return parts[0][None] if len(parts) == 1 else torch.stack(parts)
+
+
 def make_em_step(cfg: SynthConfig, level: int, has_coarse: bool,
                  lean: bool = False, polish_iters=None):
-    """One EM step at one level: features -> match -> render.  `lean`
-    (the level's plan) selects `lean_em_step`, or `lean_brute_em_step`
-    for the brute matcher; then `f_a` is the bf16 A table and `nnf` a
-    (py, px) pair."""
-    if lean and cfg.matcher == "brute":
-        def em_step_lean_brute(src_b, flt_b, src_b_c, flt_b_c, f_a, copy_a,
-                               nnf, draws, proj=None, a_planes=None,
-                               plan=None):
-            return lean_brute_em_step(
-                cfg, level, has_coarse, src_b, flt_b, src_b_c, flt_b_c,
-                f_a, copy_a,
-            )
+    """One EM step at one level: features -> match -> render, over a
+    leading frame axis of the B side (a single image is one frame; A is
+    shared): the B images, the field (stacked (F, H, W, 2), or (py, px)
+    planes (F, H, W) at a lean level), `temporal` when given, and
+    `draws`, one `SweepDraws` a frame.  Features are assembled and B'
+    rendered frame by frame; the tile path sweeps all frames in one K1
+    launch a sweep (the matcher's `match_frames`, `tile_patchmatch_lean`).
 
-        return em_step_lean_brute
-    if lean:
-        def em_step_lean(src_b, flt_b, src_b_c, flt_b_c, f_a, copy_a, nnf,
-                         draws, proj=None, a_planes=None, plan=None):
-            return lean_em_step(
-                cfg, level, has_coarse, polish_iters, src_b, flt_b,
-                src_b_c, flt_b_c, f_a, copy_a, nnf, draws, a_planes, plan,
-            )
-
-        return em_step_lean
+    `lean` (the level's plan) selects the lean tables, or the lean-brute
+    oracle (`lean_brute_em_step`, frame by frame) for the brute matcher;
+    then `f_a` is the bf16 A table.  The step's `temporal` (a previous
+    video frame's field) reaches the standard path's matcher; the lean
+    steps take no temporal term, as in the reference."""
     matcher = get_matcher(cfg.matcher)
 
-    def em_step(src_b, flt_b, src_b_c, flt_b_c, f_a, copy_a, nnf,
-                draws: SweepDraws, proj=None, a_planes=None, plan=None):
-        f_b = assemble_features(
-            src_b, flt_b, cfg,
-            src_b_c if has_coarse else None,
-            flt_b_c if has_coarse else None,
-        )
-        if cfg.pca_dims:
-            f_b = project(f_b, proj)
+    def em_step(src_b, flt_b, src_b_c, flt_b_c, f_a, copy_a, nnf, draws,
+                proj=None, a_planes=None, plan=None, temporal=None):
+        frames = range(src_b.shape[0])
+
+        def coarse(x, i):
+            return x[i] if has_coarse else None
+
+        if lean and cfg.matcher == "brute":
+            return _stack_frames([
+                lean_brute_em_step(cfg, level, has_coarse, src_b[i],
+                                   flt_b[i], coarse(src_b_c, i),
+                                   coarse(flt_b_c, i), f_a, copy_a)
+                for i in frames
+            ])
         raw = None
         if plan is not None:
-            raw = RawPlanes(
-                src_b, flt_b,
-                src_b_c if has_coarse else None,
-                flt_b_c if has_coarse else None,
-                a_planes, plan,
+            raw = RawPlanes(src_b, flt_b, src_b_c if has_coarse else None,
+                            flt_b_c if has_coarse else None, a_planes, plan)
+        if lean:
+            from .patchmatch import tile_patchmatch_lean
+
+            f_b = _stack_frames([
+                assemble_features_lean(src_b[i], flt_b[i], cfg,
+                                       coarse(src_b_c, i),
+                                       coarse(flt_b_c, i))
+                for i in frames
+            ])
+            ha, wa = copy_a.shape[:2]
+            py, px, dist = tile_patchmatch_lean(
+                f_b, f_a, nnf[0], nnf[1], draws, raw=raw, cfg=cfg,
+                level=level, plain=cfg.pallas_mode == "interpret", ha=ha,
+                wa=wa, polish_iters=polish_iters,
             )
-        nnf, dist = matcher.match(
-            f_b, f_a, nnf, level=level, cfg=cfg, draws=draws, raw=raw,
-            polish_iters=polish_iters,
+            return (py, px), dist, _stack_frames(
+                [_gather_planes(copy_a, py[i], px[i]) for i in frames])
+
+        def features(i):
+            f = assemble_features(src_b[i], flt_b[i], cfg,
+                                  coarse(src_b_c, i), coarse(flt_b_c, i))
+            return project(f, proj) if cfg.pca_dims else f
+
+        nnf, dist = matcher.match_frames(
+            _stack_frames([features(i) for i in frames]), f_a, nnf,
+            level=level, cfg=cfg, draws=draws, raw=raw,
+            polish_iters=polish_iters, temporal=temporal,
         )
-        return nnf, dist, _gather_image(copy_a, nnf)
+        return nnf, dist, _stack_frames(
+            [_gather_image(copy_a, nnf[i]) for i in frames])
 
     return em_step
 
 
-def _feature_table_bytes(h: int, w: int, ha: int, wa: int) -> int:
-    """The reference's estimate of the feature tables' device bytes,
-    which decides the lean path (kept so both packages pick the same
-    path at the same sizes)."""
-    return (h * w + ha * wa) * 128 * 4
+def _feature_table_bytes(h: int, w: int, ha: int, wa: int,
+                        n_frames: int = 1) -> int:
+    """The reference's estimate of a level's resident feature tables
+    (one 128-lane float32 B table a resident frame plus the shared A
+    table), which decides the lean path; kept so both packages pick the
+    same path at the same sizes (its batch runner's
+    `_batch_feature_table_bytes` for `n_frames` > 1)."""
+    return (n_frames * h * w + ha * wa) * 128 * 4
 
 
 # Lean tables: rows of B (or A) assembled per slab, which bounds the
@@ -395,27 +426,37 @@ class LevelPlan(NamedTuple):
 
 
 def plan_level(cfg: SynthConfig, level: int, src_a_l, flt_a_l,
-               has_coarse: bool, h: int, w: int,
-               prev_nnf=None) -> LevelPlan:
+               has_coarse: bool, h: int, w: int, prev_nnf=None,
+               table_bytes: Optional[int] = None,
+               brute_lean: bool = True) -> LevelPlan:
     """The `LevelPlan` of one level, by the reference's rules.  The tile
     plan exists for PatchMatch under pallas_mode "auto" / "interpret" on
     tile-eligible shapes.  A PatchMatch level is lean when it has a tile
-    plan and `_feature_table_bytes` passes `cfg.feature_bytes_budget`; a
-    brute level when that estimate passes `cfg.brute_lean_bytes` (the
-    oracle keeps float32 tables as long as the larger budget allows).
-    Lean levels match in full-D bf16: `pca_dims` is not applied there,
-    and a warning says so."""
+    plan and the resident tables' estimate (`table_bytes`, by default
+    `_feature_table_bytes`) passes `cfg.feature_bytes_budget`; a brute
+    level when it passes `cfg.brute_lean_bytes` (the oracle keeps
+    float32 tables as long as the larger budget allows) and `brute_lean`
+    allows it.  Lean levels match in full-D bf16: `pca_dims` is not
+    applied there, and a warning says so.
+
+    `plan_frames` passes the estimate of a frame stack (one B table a
+    resident frame); the batch and video runners also pass
+    `brute_lean=False` (their brute levels stay standard).  The reference's `work_scale` fed only
+    its `fuse` rule, which the port drops (`LevelPlan`), so it has no
+    counterpart here."""
     from ..kernels.patchmatch_tile import plan_channels
 
     ha, wa = src_a_l.shape[:2]
-    table_bytes = _feature_table_bytes(h, w, ha, wa)
+    if table_bytes is None:
+        table_bytes = _feature_table_bytes(h, w, ha, wa)
     tile = None
     if cfg.matcher == "patchmatch" and tile_path(cfg):
         n_src = 1 if src_a_l.ndim == 2 else src_a_l.shape[-1]
         n_flt = 1 if flt_a_l.ndim == 2 else flt_a_l.shape[-1]
         tile = plan_channels(n_src, n_flt, cfg, has_coarse, h, w, ha, wa)
     lean = (
-        table_bytes > cfg.brute_lean_bytes if cfg.matcher == "brute"
+        brute_lean and table_bytes > cfg.brute_lean_bytes
+        if cfg.matcher == "brute"
         else tile is not None and table_bytes > cfg.feature_bytes_budget
     )
     if lean and cfg.pca_dims:
@@ -433,39 +474,73 @@ def plan_level(cfg: SynthConfig, level: int, src_a_l, flt_a_l,
     return LevelPlan(lean, prev_kind, tile)
 
 
-def _resolve_channels(a, ap, b, cfg: SynthConfig):
-    """Split inputs into (match-src, match-flt, match-b, copy, yiq_b)."""
+def _resolve_channels(a, ap, frames, cfg: SynthConfig, b_stats=None):
+    """Split inputs into (match-src, match-flt, match-b, copy, yiq_b),
+    the B side with its leading frame axis; `b_stats` overrides the
+    luminance remap's target statistics (a batch's whole stack)."""
     if cfg.color_mode == "luminance":
-        color = b.ndim == 3
-        yiq_b = rgb_to_yiq(b) if color else None
-        y_b = yiq_b[..., 0] if color else b
+        color = frames.ndim == 4
+        yiq_b = rgb_to_yiq(frames) if color else None
+        y_b = yiq_b[..., 0] if color else frames
         y_a = rgb_to_yiq(a)[..., 0] if a.ndim == 3 else a
         y_ap = rgb_to_yiq(ap)[..., 0] if ap.ndim == 3 else ap
         if cfg.luminance_remap:
-            y_a, y_ap = remap_luminance(y_a, y_ap, y_b)
+            y_a, y_ap = remap_luminance(y_a, y_ap, y_b, b_stats=b_stats)
         return y_a, y_ap, y_b, y_ap, yiq_b
-    return a, ap, b, ap, None
+    return a, ap, frames, ap, None
 
 
-def prologue(a, ap, b, cfg: SynthConfig, levels: int):
+def prologue(a, ap, frames, cfg: SynthConfig, levels: int, b_stats=None):
     """Channel resolve + luminance remap + every pyramid + steerable
     banks: (pyr_src_a, pyr_flt_a, pyr_src_b, pyr_copy_a, pyr_raw_b,
-    yiq_b)."""
-    src_a, flt_a, src_b, copy_a, yiq_b = _resolve_channels(a, ap, b, cfg)
+    yiq_b).  `frames` is the B side with a leading frame axis, (F, H, W)
+    or (F, H, W, 3) (a single image is one frame); every B-side level and
+    `yiq_b` keep that axis, the A pyramids are built once."""
+    src_a, flt_a, src_b, copy_a, yiq_b = _resolve_channels(
+        a, ap, frames, cfg, b_stats=b_stats)
     pyr_src_a = [_with_steerable(x, cfg) for x in build_pyramid(src_a, levels)]
     pyr_flt_a = build_pyramid(flt_a, levels)
-    pyr_raw_b = build_pyramid(src_b, levels)
-    pyr_src_b = [_with_steerable(x, cfg) for x in pyr_raw_b]
     pyr_copy_a = build_pyramid(copy_a, levels)
+    per_frame = [build_pyramid(src_b[i], levels)
+                 for i in range(src_b.shape[0])]
+    pyr_raw_b = [_stack_frames([p[lv] for p in per_frame])
+                 for lv in range(levels)]
+    pyr_src_b = [_stack_frames([_with_steerable(x[i], cfg)
+                                for i in range(x.shape[0])])
+                 for x in pyr_raw_b]
     return pyr_src_a, pyr_flt_a, pyr_src_b, pyr_copy_a, pyr_raw_b, yiq_b
 
 
+def plan_frames(cfg: SynthConfig, level: int, levels: int, pyr, prev_nnf,
+                brute_lean: bool = True) -> LevelPlan:
+    """`plan_level` of one level of a `prologue`, the tables' estimate
+    counting one B table a resident frame.  The batch and video runners
+    pass `brute_lean=False` (their brute levels stay standard)."""
+    pyr_src_a, pyr_flt_a, pyr_src_b = pyr[:3]
+    n_f, h, w = pyr_src_b[level].shape[:3]
+    ha, wa = pyr_src_a[level].shape[:2]
+    return plan_level(
+        cfg, level, pyr_src_a[level], pyr_flt_a[level], level < levels - 1,
+        h, w, prev_nnf=prev_nnf,
+        table_bytes=_feature_table_bytes(h, w, ha, wa, n_f),
+        brute_lean=brute_lean,
+    )
+
+
 def run_level(cfg: SynthConfig, level: int, levels: int, pyr, prev_nnf,
-              prev_bp):
-    """One pyramid level: its plan, the A side (lean: the bf16 table;
-    standard: the feature tensor, PCA-projected when asked), the tile
-    path's A planes, the state glue, then `em_iters` EM steps.  Returns
-    (nnf, dist, bp); `nnf` is a (py, px) pair at a lean level."""
+              prev_bp, plan: LevelPlan, frame_idx=(None,),
+              prev_kind: Optional[str] = None, temporal=None):
+    """One pyramid level of a `prologue`'s frame stack: the A side once
+    (lean: the bf16 table; standard: the feature tensor, PCA-projected
+    when asked), the tile path's A planes, the state glue frame by frame,
+    then `em_iters` EM steps.  Frame i's draws are keyed by
+    `frame_idx[i]` (None: a single image's streams); `prev_kind`
+    overrides the plan's (the video passes "direct").  `temporal`
+    (F, H, W, 2), a previous video frame's field, is every EM step's
+    temporal anchor; when the term is active the level runs the
+    per-pixel sweeps and builds no A planes.  The state carries the
+    frame axis: returns the stacked (nnf, dist, bp), `nnf` a (py, px)
+    pair at a lean level."""
     from ..kernels.patchmatch_tile import prepare_a_planes
 
     pyr_src_a, pyr_flt_a, pyr_src_b, pyr_copy_a, pyr_raw_b, _ = pyr
@@ -475,11 +550,9 @@ def run_level(cfg: SynthConfig, level: int, levels: int, pyr, prev_nnf,
     flt_a_c = pyr_flt_a[level + 1] if has_coarse else None
     src_b_l = pyr_src_b[level]
     src_b_c = pyr_src_b[level + 1] if has_coarse else None
-    h, w = src_b_l.shape[:2]
+    h, w = src_b_l.shape[1:3]
     ha, wa = src_a_l.shape[:2]
 
-    plan = plan_level(cfg, level, src_a_l, flt_a_l, has_coarse, h, w,
-                      prev_nnf=prev_nnf)
     if plan.lean:
         # At the feature width for the brute oracle too: the reference's
         # `pad_lanes` is its TPU layout (see `lean_brute_em_step`).
@@ -488,11 +561,12 @@ def run_level(cfg: SynthConfig, level: int, levels: int, pyr, prev_nnf,
     else:
         f_a = assemble_features(src_a_l, flt_a_l, cfg, src_a_c, flt_a_c)
         f_a, proj = fit_and_project(f_a, cfg.pca_dims)
+    tile = None if temporal_active(temporal, cfg) else plan.tile
     a_planes = None
-    if plan.tile is not None:
+    if tile is not None:
         # float32 or int8 planes, under the module's resolved cand_dtype
         # (the matcher's sweeps check they agree).
-        specs, use_coarse = plan.tile
+        specs, use_coarse = tile
         a_planes = prepare_a_planes(
             src_a_l, flt_a_l,
             src_a_c if use_coarse else None,
@@ -500,10 +574,15 @@ def run_level(cfg: SynthConfig, level: int, levels: int, pyr, prev_nnf,
             specs,
         )
 
-    nnf, flt_bp, flt_bp_coarse = _level_state_glue(
-        plan.lean, plan.prev_kind, prev_nnf, prev_bp, pyr_raw_b[level],
-        h, w, ha, wa, init_generator(cfg.seed, level, src_b_l.device),
-    )
+    kind = prev_kind or plan.prev_kind
+    nnf, flt_bp, flt_bp_coarse = _stack_frames([
+        _level_state_glue(
+            plan.lean, kind, _frame(prev_nnf, i), _frame(prev_bp, i),
+            pyr_raw_b[level][i], h, w, ha, wa,
+            init_generator(cfg.seed, level, src_b_l.device, frame=idx),
+        )
+        for i, idx in enumerate(frame_idx)
+    ])
     step_final = make_em_step(cfg, level, has_coarse, plan.lean)
     step_mid = (
         make_em_step(cfg, level, has_coarse, plan.lean, polish_iters=0)
@@ -517,10 +596,47 @@ def run_level(cfg: SynthConfig, level: int, levels: int, pyr, prev_nnf,
             src_b_c if has_coarse else src_b_l,
             flt_bp_coarse if has_coarse else flt_bp,
             f_a, pyr_copy_a[level], nnf,
-            SweepDraws(cfg.seed, level, em), proj, a_planes, plan.tile,
+            [SweepDraws(cfg.seed, level, em, idx) for idx in frame_idx],
+            proj, a_planes, tile, temporal=temporal,
         )
         flt_bp = bp
     return nnf, dist, bp
+
+
+def level_eta_cost_units(cfg: SynthConfig, shapes,
+                         a_hw=None) -> Dict[str, float]:
+    """The reference's modeled RELATIVE cost of every pyramid level,
+    {str(level): units}, as its single-image and batch runners price
+    them (its `runner` argument; the two price alike): per pixel,
+    PatchMatch prices em_iters x pm_iters x K_TOTAL candidate fetches
+    with the reference's candidate-window byte model
+    (`candidate_dma_bytes_per_fetch`, the coarse context doubling the
+    channels below the top level); brute is pixels x A pixels per EM
+    step.  It prices relative cost only (the video's warm-cost ratio is
+    a ratio of two of its sums), so the port keeps the reference's
+    numbers and its aux equals the reference's; no time on the card is
+    derived from it.  The reference's sharded runners add a collective
+    term; they are not ported."""
+    from ..kernels.patchmatch_tile import (
+        K_TOTAL,
+        candidate_dma_bytes_per_fetch,
+    )
+
+    base_chan = 2 if cfg.color_mode == "luminance" else 6
+    if cfg.steerable:
+        base_chan += cfg.n_orientations
+    units: Dict[str, float] = {}
+    for level, (h, w) in enumerate(shapes):
+        px = float(h) * float(w)
+        n_chan = base_chan * (2 if level < len(shapes) - 1 else 1)
+        if cfg.matcher == "brute":
+            ah, aw = a_hw if a_hw is not None else (h, w)
+            cost = cfg.em_iters * px * (float(ah) * float(aw) / 4.0 ** level)
+        else:
+            moved, _ = candidate_dma_bytes_per_fetch(n_chan, 8)
+            cost = cfg.em_iters * cfg.pm_iters * K_TOTAL * px * (moved / 8.0)
+        units[str(level)] = cost
+    return units
 
 
 class LevelState(NamedTuple):
@@ -610,16 +726,21 @@ def _fingerprint_matches(saved: str, expected: str, cfg) -> bool:
     return wild(saved) == wild(expected)
 
 
+def nnf_host(nnf) -> np.ndarray:
+    """A converged field as one host integer array (..., H, W, 2): a
+    lean level's (py, px) planes are stacked on the host."""
+    if isinstance(nnf, tuple):
+        return np.stack([p.cpu().numpy() for p in nnf], axis=-1)
+    return nnf.cpu().numpy()
+
+
 def _save_level(path: str, level: int, nnf, dist, bp, cfg,
                 b_shape) -> None:
     """Write `level_{level}.npz` under `path`: `nnf` int32 (H, W, 2) (a
     lean level's planes stacked on the host), `dist` and `bp` float32,
     and the run's `fingerprint`.  Written to a temporary file and
     renamed, so a kill mid-write never leaves a truncated artifact."""
-    if isinstance(nnf, tuple):
-        nnf_np = np.stack([p.cpu().numpy() for p in nnf], axis=-1)
-    else:
-        nnf_np = nnf.cpu().numpy()
+    nnf_np = nnf_host(nnf)
     os.makedirs(path, exist_ok=True)
     final = os.path.join(path, f"level_{level}.npz")
     tmp = f"{final}.{os.getpid()}.tmp"
@@ -764,7 +885,9 @@ def create_image_analogy(
         raise ValueError(f"A {tuple(a.shape)} and A' {tuple(ap.shape)} "
                          "must match")
     levels = cfg.clamp_levels(tuple(a.shape[:2]), tuple(b.shape[:2]))
-    pyr = prologue(a, ap, b, cfg, levels)
+    # The level body runs on a frame stack: the image is one frame, with
+    # a single image's random streams (frame index None).
+    pyr = prologue(a, ap, b[None], cfg, levels)
     aux: Dict[str, List] = {"nnf": [None] * levels, "dist": [None] * levels}
 
     nnf = bp = None
@@ -774,28 +897,30 @@ def create_image_analogy(
             raise ValueError(f"resume level {resume.level} outside "
                              f"[0, {levels})")
         start = resume.level - 1
-        nnf, bp = resume.nnf.to(dev), resume.bp.to(dev)
-        aux["nnf"][resume.level] = nnf
+        aux["nnf"][resume.level] = resume.nnf.to(dev)
+        nnf, bp = aux["nnf"][resume.level][None], resume.bp.to(dev)[None]
         aux["dist"][resume.level] = resume.dist.to(dev)
     resumed = resume_prologue(resume_from, levels, cfg, b.shape,
                               strict=resume_strict)
     if resumed is not None:
         start, nnf, bp, aux_fill = resumed
-        nnf = torch.as_tensor(nnf, device=dev).long()
-        bp = as_t(bp)
+        nnf = torch.as_tensor(nnf, device=dev).long()[None]
+        bp = as_t(bp)[None]
         if return_aux:
             for lvl, (n, d) in aux_fill.items():
                 aux["nnf"][lvl] = torch.as_tensor(n, device=dev).long()
                 aux["dist"][lvl] = as_t(d)
     for level in range(start, -1, -1):
-        nnf, dist, bp = run_level(cfg, level, levels, pyr, nnf, bp)
+        plan = plan_frames(cfg, level, levels, pyr, nnf)
+        nnf, dist, bp = run_level(cfg, level, levels, pyr, nnf, bp, plan)
         if return_aux:
-            aux["nnf"][level] = nnf
-            aux["dist"][level] = dist
+            aux["nnf"][level] = _frame(nnf, 0)
+            aux["dist"][level] = dist[0]
         if cfg.save_level_artifacts:
-            _save_level(cfg.save_level_artifacts, level, nnf, dist, bp, cfg,
-                        b.shape)
-    out = _finalize(bp, pyr[5], b, cfg)
+            _save_level(cfg.save_level_artifacts, level, _frame(nnf, 0),
+                        dist[0], bp[0], cfg, b.shape)
+    bp = bp[0]
+    out = _finalize(bp, None if pyr[5] is None else pyr[5][0], b, cfg)
     if return_aux:
         return {"bp": out, "nnf": aux["nnf"], "dist": aux["dist"]}
     return out

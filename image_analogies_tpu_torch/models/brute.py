@@ -44,12 +44,14 @@ def exact_nn(
 
 
 class BruteForceMatcher(Matcher):
-    """Exact NN: kernel K2 on the card, the chunked matmul on the CPU."""
+    """Exact NN: kernel K2 on the card, the chunked matmul on the CPU.
+    Exact search has no temporal term: `temporal` is accepted and
+    ignored, as in the reference."""
 
     name = "brute"
 
     def match(self, f_b, f_a, nnf, *, level, cfg: SynthConfig, draws=None,
-              raw=None, polish_iters=None):
+              raw=None, polish_iters=None, temporal=None):
         h, w, d = f_b.shape
         wa = f_a.shape[1]
         idx, dist = exact_nn(

@@ -79,10 +79,10 @@ class CoherenceWrapper(Matcher):
         self.sweeps = sweeps
 
     def match(self, f_b, f_a, nnf, *, level, cfg: SynthConfig, draws=None,
-              raw=None, polish_iters=None):
+              raw=None, polish_iters=None, temporal=None):
         nnf, dist = self.base.match(
             f_b, f_a, nnf, level=level, cfg=cfg, draws=draws, raw=raw,
-            polish_iters=polish_iters,
+            polish_iters=polish_iters, temporal=temporal,
         )
         if cfg.kappa > 0.0:
             nnf, dist = coherence_sweeps(

@@ -110,14 +110,40 @@ class Matcher:
     name: str = "base"
 
     def match(self, f_b, f_a, nnf, *, level: int, cfg, draws=None,
-              raw=None, polish_iters=None):
+              raw=None, polish_iters=None, temporal=None):
         """`draws` is the `SweepDraws` source of the random numbers a
         matcher consumes (None for exact search).  `raw` optionally
         carries the raw channel planes of the tile path
         (models.patchmatch.RawPlanes).  `polish_iters` overrides
         cfg.pm_polish_iters for this call (0 on non-final EM iterations
-        when cfg.pm_polish_final_only)."""
+        when cfg.pm_polish_final_only).  `temporal` optionally carries
+        the previous video frame's converged (H, W, 2) field: with
+        cfg.tau > 0 a matcher that honours it adds the temporal penalty
+        (models.patchmatch.temporal_penalty_fn) to its candidate metric;
+        the others ignore it."""
         raise NotImplementedError
+
+    def match_frames(self, f_b, f_a, nnf, *, level: int, cfg, draws=None,
+                     raw=None, polish_iters=None, temporal=None):
+        """`match` over a leading frame axis of the B side, the level
+        body's entry point (a single image is one frame): f_b
+        (F, H, W, D), nnf (F, H, W, 2), `draws` one source a frame,
+        `raw`'s B images and `temporal` (when given) stacked; A is
+        shared.  Frame by frame here; a matcher that batches frames
+        overrides it.  Returns the stacked (nnf, dist)."""
+        from .patchmatch import _frames_of
+
+        outs = [
+            self.match(
+                f_b[i], f_a, nnf[i], level=level, cfg=cfg,
+                draws=None if draws is None else draws[i],
+                raw=None if raw is None else _frames_of(raw, i),
+                polish_iters=polish_iters,
+                temporal=None if temporal is None else temporal[i],
+            )
+            for i in range(f_b.shape[0])
+        ]
+        return tuple(torch.stack(x) for x in zip(*outs))
 
     def __repr__(self):
         return f"{type(self).__name__}(name={self.name!r})"

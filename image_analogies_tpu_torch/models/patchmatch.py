@@ -69,29 +69,47 @@ def seed_for(*path: int) -> int:
     return int(state[0]) << 31 | int(state[1]) >> 1
 
 
+def _frame_path(frame: Optional[int]) -> tuple:
+    """The frame index's part of a `seed_for` path: nothing for a
+    single image, (frame,) for a frame of a batch or a video."""
+    return () if frame is None else (int(frame),)
+
+
 class SweepDraws(NamedTuple):
     """The random-number source of one matcher call.
 
     Scheme: the generator for slot `slot` of EM step `em` at pyramid
-    level `level` is seeded with seed_for(seed, level, 1 + em, slot).
-    Slots 0 .. pm_iters-1 feed the tile sweeps' candidate tables, slot
-    pm_iters the polish's random offsets; the per-pixel path uses slot 0
-    for all of its sweeps.  The coarsest level's random field uses
-    seed_for(seed, level, 0, 0) (`init_generator`)."""
+    level `level` is seeded with seed_for(seed, level, 1 + em, slot),
+    and for a frame of a batch or a video with the frame index appended,
+    seed_for(seed, level, 1 + em, slot, frame): a frame's streams depend
+    on (seed, level, em, slot, frame) alone, so batched outputs do not
+    depend on the chunking.  Slots 0 .. pm_iters-1 feed the tile sweeps'
+    candidate tables, slot pm_iters the polish's random offsets; the
+    per-pixel path uses slot 0 for all of its sweeps (`offsets`).  The
+    coarsest level's random field uses seed_for(seed, level, 0, 0[,
+    frame]) (`init_generator`)."""
 
     seed: int
     level: int
     em: int
+    frame: Optional[int] = None
 
     def gen(self, slot: int, device) -> torch.Generator:
         g = torch.Generator(device=device)
-        g.manual_seed(seed_for(self.seed, self.level, 1 + self.em, slot))
+        g.manual_seed(seed_for(self.seed, self.level, 1 + self.em, slot,
+                               *_frame_path(self.frame)))
         return g
 
+    def offsets(self, iters: int, radii, h: int, w: int, device):
+        """The per-pixel path's random-search offsets (`sweep_offsets`
+        from slot 0)."""
+        return sweep_offsets(self.gen(0, device), iters, radii, h, w)
 
-def init_generator(seed: int, level: int, device) -> torch.Generator:
+
+def init_generator(seed: int, level: int, device,
+                   frame: Optional[int] = None) -> torch.Generator:
     g = torch.Generator(device=device)
-    g.manual_seed(seed_for(seed, level, 0, 0))
+    g.manual_seed(seed_for(seed, level, 0, 0, *_frame_path(frame)))
     return g
 
 
@@ -191,6 +209,36 @@ def patchmatch_sweeps_lean(
     return py, px, dist
 
 
+def temporal_penalty_fn(temporal: Optional[torch.Tensor], tau: float,
+                        ha: int, wa: int):
+    """The temporal-coherence penalty toward the previous frame's
+    mapping (video): candidate (cy, cx) at pixel q pays
+    tau * ((cy - ty)^2 + (cx - tx)^2) / (ha^2 + wa^2), where (ty, tx) is
+    the previous frame's converged match at q, clamped to A; the squared
+    A diagonal makes tau the price of a full-diagonal divergence.
+    Returns a function of flat candidate indices (N,) -> penalties (N,)
+    float32, or None when the term is off (tau == 0 or no field)."""
+    if temporal is None or tau <= 0.0:
+        return None
+    ty = temporal[..., 0].clamp(0, ha - 1).reshape(-1).float()
+    tx = temporal[..., 1].clamp(0, wa - 1).reshape(-1).float()
+    scale = float(tau) / float(ha * ha + wa * wa)
+
+    def penalty(idx: torch.Tensor) -> torch.Tensor:
+        cy = (idx // wa).float()
+        cx = (idx % wa).float()
+        return scale * ((cy - ty) ** 2 + (cx - tx) ** 2)
+
+    return penalty
+
+
+def temporal_active(temporal, cfg: SynthConfig) -> bool:
+    """Whether a matcher call carries the temporal term: a previous
+    frame's field and tau > 0.  An active term runs the per-pixel sweeps
+    (the tile path's candidate tables have no previous-frame field)."""
+    return temporal is not None and cfg.tau > 0.0
+
+
 def patchmatch_sweeps(
     f_b: torch.Tensor,
     f_a: torch.Tensor,
@@ -199,20 +247,29 @@ def patchmatch_sweeps(
     *,
     coh_factor: float,
     gather_fn=None,
+    temporal: Optional[torch.Tensor] = None,
+    tau: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`patchmatch_sweeps_lean` on the standard path's (H, W, D) feature
     fields and stacked (H, W, 2) field, with distances by
     `candidate_dist` (`gather_fn` swaps its row fetch: the stream and
-    int8 polish engines); returns (nnf, dist)."""
+    int8 polish engines); returns (nnf, dist).  With a previous frame's
+    (H, W, 2) field `temporal` and tau > 0, every candidate's distance,
+    the incumbent's included, carries `temporal_penalty_fn`'s term, so
+    the accept tests and the returned distances are in that metric."""
     d = f_b.shape[-1]
     ha, wa = f_a.shape[:2]
     f_b_flat = f_b.reshape(-1, d)
     f_a_flat = f_a.reshape(-1, d)
+    pen_fn = temporal_penalty_fn(temporal, tau, ha, wa)
+
+    def dist_fn(idx):
+        dist = candidate_dist(f_b_flat, f_a_flat, idx, gather_fn=gather_fn)
+        return dist if pen_fn is None else dist + pen_fn(idx)
+
     py, px, dist = patchmatch_sweeps_lean(
         f_b_flat, f_a_flat, nnf[..., 0], nnf[..., 1], offsets, ha=ha,
-        wa=wa, coh_factor=coh_factor,
-        dist_fn=lambda idx: candidate_dist(f_b_flat, f_a_flat, idx,
-                                           gather_fn=gather_fn),
+        wa=wa, coh_factor=coh_factor, dist_fn=dist_fn,
     )
     return torch.stack([py, px], dim=-1), dist
 
@@ -444,7 +501,7 @@ def tile_patchmatch(
     f_b: torch.Tensor,
     f_a: torch.Tensor,
     nnf: torch.Tensor,
-    draws: SweepDraws,
+    draws,
     *,
     raw: RawPlanes,
     cfg: SynthConfig,
@@ -456,10 +513,19 @@ def tile_patchmatch(
     the bf16 casts of the (H, W, D) feature fields (the accept metric;
     the PCA prune is fit on the float32 fields), then, when the polish
     ran, the exact float32 distance of the result.  Returns (nnf, dist)
-    on the stacked (H, W, 2) field."""
-    d = f_b.shape[-1]
+    on the stacked (H, W, 2) field.  With a leading frame axis (f_b
+    (F, H, W, D), nnf (F, H, W, 2), `draws` one `SweepDraws` a frame and
+    `raw`'s B images stacked) every sweep is one K1 launch for all F
+    frames, and the result carries the axis."""
+    if nnf.ndim == 3:
+        nnf, dist = tile_patchmatch(
+            f_b[None], f_a, nnf[None], [draws], raw=_frames_of(raw, None),
+            cfg=cfg, level=level, plain=plain, polish_iters=polish_iters,
+        )
+        return nnf[0], dist[0]
+    n_f, h, w, d = f_b.shape
     ha, wa = f_a.shape[:2]
-    f_b_flat = f_b.reshape(-1, d)
+    f_b_flat = f_b.reshape(n_f, h * w, d)
     f_a_flat = f_a.reshape(-1, f_a.shape[-1])
     py, px, dist = tile_patchmatch_lean(
         f_b_flat.to(torch.bfloat16), f_a_flat.to(torch.bfloat16),
@@ -470,7 +536,22 @@ def tile_patchmatch(
     nnf = torch.stack([py, px], dim=-1)
     if _polish_schedule_for(cfg, ha, wa, polish_iters)[0] == 0:
         return nnf, dist
-    return nnf, nnf_dist(f_b, f_a_flat, nnf, wa)
+    return nnf, torch.stack([
+        nnf_dist(f_b[i], f_a_flat, nnf[i], wa) for i in range(n_f)
+    ])
+
+
+def _frames_of(raw: RawPlanes, i: Optional[int]) -> RawPlanes:
+    """`raw` with a frame axis added to its B images (i None), or frame i
+    of a frame-stacked `raw`."""
+    def sel(x):
+        if x is None:
+            return None
+        return x[None] if i is None else x[i]
+
+    return raw._replace(src_b=sel(raw.src_b), flt_b=sel(raw.flt_b),
+                        src_b_coarse=sel(raw.src_b_coarse),
+                        flt_b_coarse=sel(raw.flt_b_coarse))
 
 
 def tile_patchmatch_lean(
@@ -478,7 +559,7 @@ def tile_patchmatch_lean(
     f_a_tab: torch.Tensor,
     py: torch.Tensor,
     px: torch.Tensor,
-    draws: SweepDraws,
+    draws,
     *,
     raw: RawPlanes,
     cfg: SynthConfig,
@@ -502,10 +583,30 @@ def tile_patchmatch_lean(
     once per call.  `plain` runs the kernels' plain versions on either
     device (pallas_mode="interpret").  The returned distances are in the
     bf16-table metric.  One A band (`n_bands == 1`).  Returns
-    (py, px, dist)."""
+    (py, px, dist).
+
+    Frames.  With a leading frame axis F on `f_b_tab` (F, N, D), on
+    `py` / `px` (F, H, W), on `raw`'s B images and on the B side of
+    `prune_tabs`, and `draws` a sequence of F `SweepDraws`, each frame
+    is staged with its own draws and every sweep is one K1 launch over
+    all F frames (A is shared); the merge, the polish and the kappa pass
+    run frame by frame.  The result carries the axis.  Frame i's result
+    is the single-frame call's on frame i's inputs."""
     from ..kernels import patchmatch_tile as pt
 
-    h, w = py.shape
+    if py.ndim == 2:
+        py, px, dist = tile_patchmatch_lean(
+            f_b_tab[None], f_a_tab, py[None], px[None], [draws],
+            raw=_frames_of(raw, None), cfg=cfg, level=level, plain=plain,
+            ha=ha, wa=wa, polish_iters=polish_iters,
+            prune_tabs=None if prune_tabs is None
+            else (prune_tabs[0][None], prune_tabs[1]),
+        )
+        return py[0], px[0], dist[0]
+
+    n_f, h, w = py.shape
+    if len(draws) != n_f:
+        raise ValueError(f"{len(draws)} draws for {n_f} frames")
     dev = py.device
     specs, use_coarse = raw.plan
     geom = pt.tile_geometry(h, w, specs)
@@ -516,54 +617,94 @@ def tile_patchmatch_lean(
     )
     cand_dtype, polish_mode = pt.resolve_cand_dtype(), _POLISH_MODE
     coarse_restarts = pt._RESTART_MODE == "coarse"
-    prune_state = _prune_setup(pt.resolve_prune(),
-                               *(prune_tabs or (f_b_tab, f_a_tab)),
-                               geom, h, w)
+    prune = pt.resolve_prune()
+    b_prune, a_prune = prune_tabs or (f_b_tab, f_a_tab)
+    prune_states = [
+        _prune_setup(prune, b_prune[i], a_prune, geom, h, w)
+        for i in range(n_f)
+    ]
 
-    def dist_fn(idx):
-        return candidate_dist_lean(f_b_tab, f_a_tab, idx)
+    def dist_fn(i):
+        return lambda idx: candidate_dist_lean(f_b_tab[i], f_a_tab, idx)
 
     py = py.long().clamp(0, ha - 1)
     px = px.long().clamp(0, wa - 1)
-    dist0 = dist_fn((py * wa + px).reshape(-1)).reshape(h, w)
+    dist0 = torch.stack([
+        dist_fn(i)((py[i] * wa + px[i]).reshape(-1)).reshape(h, w)
+        for i in range(n_f)
+    ])
 
-    # K1 sweeps (candidate slots 0 .. pm_iters-1 of `draws`) in the
-    # raw-plane metric, on compact offsets from the incoming field.
-    b_planes = pt.prepare_b_planes(
-        raw.src_b, raw.flt_b,
-        raw.src_b_coarse if use_coarse else None,
-        raw.flt_b_coarse if use_coarse else None,
-        geom,
-    )
+    # K1 sweeps (candidate slots 0 .. pm_iters-1 of each frame's draws)
+    # in the raw-plane metric, on compact offsets from the incoming
+    # field; one launch a sweep for all frames.
+    def coarse(x, i):
+        return x[i] if use_coarse else None
+
+    b_planes = torch.stack([
+        pt.prepare_b_planes(raw.src_b[i], raw.flt_b[i],
+                            coarse(raw.src_b_coarse, i),
+                            coarse(raw.flt_b_coarse, i), geom)
+        for i in range(n_f)
+    ])
     qy = torch.arange(h, device=dev)[:, None].expand(h, w)
     qx = torch.arange(w, device=dev)[None, :].expand(h, w)
-    oy = pt.to_compact((py - qy).to(torch.int32), geom)
-    ox = pt.to_compact((px - qx).to(torch.int32), geom)
+    oy = torch.stack([pt.to_compact((py[i] - qy).to(torch.int32), geom)
+                      for i in range(n_f)])
+    ox = torch.stack([pt.to_compact((px[i] - qx).to(torch.int32), geom)
+                      for i in range(n_f)])
     # Kernel-metric incumbents start at +inf: the raw-plane metric and
     # the feature metric must not meet in one accept test.
     d = torch.full(oy.shape, float("inf"), dtype=torch.float32, device=dev)
     for t in range(pm_iters):
-        cand_y, cand_x, cand_valid = pt.sample_candidates_blocked(
-            oy, ox,
-            pt.draw_candidates(draws.gen(t, dev), geom, ha, wa,
-                               coarse_restarts),
-            geom, ha, wa,
-        )
-        if prune_state is not None:
-            proj_b_tiles, qy_s, qx_s, proj_a, m_keep = prune_state
-            cand_valid = pt.prune_candidates(
-                cand_y, cand_x, cand_valid, proj_b_tiles, qy_s, qx_s,
-                proj_a, ha, wa, m_keep,
+        tables = []
+        for i in range(n_f):
+            cand_y, cand_x, cand_valid = pt.sample_candidates_blocked(
+                oy[i], ox[i],
+                pt.draw_candidates(draws[i].gen(t, dev), geom, ha, wa,
+                                   coarse_restarts),
+                geom, ha, wa,
             )
+            if prune_states[i] is not None:
+                proj_b_tiles, qy_s, qx_s, proj_a, m_keep = prune_states[i]
+                cand_valid = pt.prune_candidates(
+                    cand_y, cand_x, cand_valid, proj_b_tiles, qy_s, qx_s,
+                    proj_a, ha, wa, m_keep,
+                )
+            tables.append((cand_y, cand_x, cand_valid))
+        cand_y, cand_x, cand_valid = (torch.stack(c) for c in zip(*tables))
         oy, ox, d = pt.tile_sweep(
             raw.a_planes, b_planes, cand_y, cand_x, cand_valid, oy, ox, d,
             specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=coh,
             plain=plain, cand_dtype=cand_dtype,
         )
-    ky = (qy + pt.from_compact(oy, h, w).long()).clamp(0, ha - 1)
-    kx = (qx + pt.from_compact(ox, h, w).long()).clamp(0, wa - 1)
+    ky = (qy + oy[:, :h, :w].long()).clamp(0, ha - 1)
+    kx = (qx + ox[:, :h, :w].long()).clamp(0, wa - 1)
     # The sweep state is dead from here; free it before the polish.
-    del b_planes, oy, ox, d
+    del b_planes, oy, ox, d, prune_states
+    outs = [
+        _merge_and_polish(
+            py[i], px[i], dist0[i], ky[i], kx[i], draws[i], dist_fn(i),
+            f_b_tab[i], f_a_tab, cfg=cfg, plain=plain, ha=ha, wa=wa,
+            coh=coh, pm_iters=pm_iters, polish_iters=polish_iters,
+            polish_random=polish_random, cand_dtype=cand_dtype,
+            polish_mode=polish_mode,
+        )
+        for i in range(n_f)
+    ]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def _merge_and_polish(py, px, dist0, ky, kx, draws: SweepDraws, dist_fn,
+                      f_b_tab, f_a_tab, *, cfg: SynthConfig, plain: bool,
+                      ha: int, wa: int, coh: float, pm_iters: int,
+                      polish_iters: int, polish_random: int,
+                      cand_dtype: str, polish_mode: str):
+    """One frame's tail of the tile path: the exact-metric merge of the
+    kernel's match (ky, kx) into the incoming field (py, px; distances
+    dist0), the polish from slot `pm_iters` of `draws`, and the kappa
+    pass.  Returns (py, px, dist)."""
+    h, w = py.shape
+    dev = py.device
     # Exact-metric merge: adopt the kernel's match only where it wins.
     d_k = dist_fn((ky * wa + kx).reshape(-1)).reshape(h, w)
     better = d_k < dist0
@@ -598,18 +739,20 @@ def tile_patchmatch_lean(
 
 
 class PatchMatchMatcher(Matcher):
-    """PatchMatch seeded from the incoming NNF.  The tile path when raw
-    planes are given (the level's plan chose it); the per-pixel sweeps
-    otherwise."""
+    """PatchMatch seeded from the incoming NNF.  The per-pixel sweeps
+    with the temporal term when it is active (`temporal_active`); else
+    the tile path when raw planes are given (the level's plan chose
+    it); else the per-pixel sweeps."""
 
     name = "patchmatch"
 
     def match(self, f_b, f_a, nnf, *, level, cfg: SynthConfig,
               draws: SweepDraws = None, raw: Optional[RawPlanes] = None,
-              polish_iters=None):
+              polish_iters=None, temporal=None):
         h, w = f_b.shape[:2]
         ha, wa = f_a.shape[:2]
-        if raw is not None:
+        active = temporal_active(temporal, cfg)
+        if raw is not None and not active:
             return tile_patchmatch(
                 f_b, f_a, nnf, draws, raw=raw, cfg=cfg, level=level,
                 plain=cfg.pallas_mode == "interpret",
@@ -618,11 +761,11 @@ class PatchMatchMatcher(Matcher):
         coh = kappa_factor(cfg.kappa, level)
         nnf, dist = patchmatch_sweeps(
             f_b, f_a, nnf,
-            sweep_offsets(
-                draws.gen(0, f_b.device), _pm_iters_for(cfg, ha, wa),
-                sweep_radii(ha, wa, cfg.pm_random_candidates), h, w,
-            ),
-            coh_factor=coh,
+            draws.offsets(_pm_iters_for(cfg, ha, wa),
+                          sweep_radii(ha, wa, cfg.pm_random_candidates),
+                          h, w, f_b.device),
+            coh_factor=coh, temporal=temporal if active else None,
+            tau=cfg.tau,
         )
         if cfg.kappa > 0.0:
             from .coherence import coherence_sweeps
@@ -631,6 +774,22 @@ class PatchMatchMatcher(Matcher):
                 f_b, f_a, nnf, dist, factor=coh, sweeps=2
             )
         return nnf, dist
+
+    def match_frames(self, f_b, f_a, nnf, *, level, cfg: SynthConfig,
+                     draws=None, raw: Optional[RawPlanes] = None,
+                     polish_iters=None, temporal=None):
+        """The tile path takes all frames at once (one K1 launch a
+        sweep); the per-pixel paths go frame by frame."""
+        if raw is not None and not temporal_active(temporal, cfg):
+            return tile_patchmatch(
+                f_b, f_a, nnf, draws, raw=raw, cfg=cfg, level=level,
+                plain=cfg.pallas_mode == "interpret",
+                polish_iters=polish_iters,
+            )
+        return super().match_frames(
+            f_b, f_a, nnf, level=level, cfg=cfg, draws=draws, raw=raw,
+            polish_iters=polish_iters, temporal=temporal,
+        )
 
 
 register_matcher("patchmatch", PatchMatchMatcher())

@@ -1,1 +1,2 @@
-"""Slab geometry of the port (the spatial runner itself is not ported)."""
+"""The port's frame-batch runner (`batch`) and slab geometry (`spatial`;
+the spatial runner itself is not ported)."""

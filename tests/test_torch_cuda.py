@@ -3,8 +3,10 @@ card, over shapes and channel sets the main path's smoke check does not
 cover: ragged tiles, A and B of different sizes, rgb and steerable
 channel sets, a wider window, kappa > 1, tied and tiny tables; K1's
 int8 mode and both its instantiations (compile-time and run-time
-windows); K2's float32 (three TF32 passes) and bfloat16 rows at widths
-8 to 256; and K3's row gather in three dtypes.
+windows), its frame axis against single-frame launches (bit for bit) and
+the batch runner's frames against their solo runs; K2's float32 (three
+TF32 passes) and bfloat16 rows at widths 8 to 256; and K3's row gather
+in three dtypes.
 
 Needs an NVIDIA GPU, nvcc and no JAX; skipped elsewhere.  On the card:
 
@@ -263,6 +265,73 @@ def test_tile_sweep_kernel_int8_matches_plain_and_f32(dev, h, w, ha, wa,
 
 @pytest.mark.parametrize("general", [False, True])
 @pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("h,w,ha,wa,coarse,rgb", [
+    (300, 500, 260, 380, True, False), (200, 260, 200, 260, True, True),
+])
+def test_tile_sweep_kernel_frame_axis_equals_single_frames(
+        dev, h, w, ha, wa, coarse, rgb, int8, general):
+    """Three frames in one launch (the grid's z dimension) against three
+    single-frame launches on the same inputs: every output bit-equal,
+    and one launch counted."""
+    rng = np.random.default_rng(h + w + int(int8))
+    extra = dict(n_chan=3, color_mode="rgb") if rgb else {}
+    cases = [_sweep_case(dev, rng, h, w, ha, wa, coarse, **extra)
+             for _ in range(3)]
+    a8, _, _, kw = cases[0]
+    a_planes = a8 if int8 else pt.dequantize_planes(a8)
+    b_planes = torch.stack([c[1] for c in cases])
+    rest = [torch.stack([c[2][k] for c in cases]) for k in range(6)]
+    counter = pt.launches_int8 if int8 else pt.launches
+    before = counter.count
+    got = pt.tile_sweep_kernel(a_planes, b_planes, *rest, general=general,
+                               **kw)
+    assert counter.count == before + 1
+    for i, (_, b_i, rest_i, _) in enumerate(cases):
+        one = pt.tile_sweep_kernel(a_planes, b_i, *rest_i, general=general,
+                                   **kw)
+        torch.cuda.synchronize()
+        for g, o in zip(got, one):
+            assert torch.equal(g[i], o), i
+    want = pt.tile_sweep_plain(a_planes, b_planes, *rest, **kw)
+    torch.cuda.synchronize()
+    geo = {k: v for k, v in kw.items() if k != "coh_factor"}
+    for i in range(3):
+        bad = pt.unexplained_offsets(
+            [t[i] for t in got], [t[i] for t in want],
+            [t[i] for t in rest[3:]], a_planes, b_planes[i], h=h, w=w, **geo)
+        assert not bool(bad.any()), i
+
+
+def test_batch_on_the_card_frames_equal_solo_runs(dev):
+    """`synthesize_batch` at 256^2, three frames, both levels on the tile
+    path: with frame_indices=[0] * 3 each frame equals its solo run (one
+    frame-axis K1 launch a sweep against one a frame), and the kernel's
+    result stays within the oracle bar of its plain version's."""
+    from image_analogies_tpu_torch import psnr, synthesize_batch
+    from image_analogies_tpu_torch.parallel.batch import stack_stats
+    from image_analogies_tpu_torch.utils.examples import super_resolution
+
+    a, ap, b = super_resolution(256)
+    b = torch.as_tensor(np.asarray(b, np.float32), device=dev)
+    frames = torch.stack([b, b.flip(0), b.flip(1)])
+    cfg = SynthConfig(levels=2, em_iters=2, pm_iters=3)
+    before = pt.launches.count
+    batched = synthesize_batch(a, ap, frames, cfg, frame_indices=[0] * 3)
+    # Both levels (256^2, 128^2) take the tile path.
+    assert pt.launches.count == before + 2 * 2 * 3
+    stats = stack_stats(frames, cfg)
+    for i in range(3):
+        solo = synthesize_batch(a, ap, frames[i:i + 1], cfg, _b_stats=stats)
+        assert torch.equal(batched[i], solo[0]), i
+    plain = synthesize_batch(a, ap, frames, SynthConfig(
+        levels=2, em_iters=2, pm_iters=3, pallas_mode="interpret"),
+        frame_indices=[0] * 3)
+    for i in range(3):
+        assert psnr(batched[i], plain[i]) > 30.0, i
+
+
+@pytest.mark.parametrize("general", [False, True])
+@pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("keep", [0.7, 0.1, 0.0])
 def test_tile_sweep_kernel_keeps_slot_order_on_ties(dev, keep, int8, general):
     """Flat A planes: every candidate of a pixel scores the same bits, so
@@ -364,6 +433,8 @@ def test_lean_patchmatch_kernels_against_interpret(dev):
         pallas_mode="interpret", **kw))
     assert pt.launches.count == before
     args, kwargs = first[0]
+    # The tile path passes one image with a frame axis of 1.
+    args = args[:1] + tuple(t[0] for t in args[1:])
     geo = {k: kwargs[k] for k in ("specs", "geom", "ha", "wa")}
     got = pt.tile_sweep_kernel(*args, coh_factor=kwargs["coh_factor"], **geo)
     want = pt.tile_sweep_plain(*args, coh_factor=kwargs["coh_factor"], **geo)

@@ -31,6 +31,9 @@ def test_imports_without_jax():
         "image_analogies_tpu_torch.kernels.nn_brute, "
         "image_analogies_tpu_torch.kernels.polish_stream, "
         "image_analogies_tpu_torch.parallel.spatial, "
+        "image_analogies_tpu_torch.parallel.batch, "
+        "image_analogies_tpu_torch.video.sequence, "
+        "image_analogies_tpu_torch.utils.io, "
         "image_analogies_tpu_torch.utils.examples; "
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules "
         "if sys.modules[m] is not None}; print('ok')"
@@ -47,6 +50,14 @@ def test_parallel_subpackage_is_checked():
     """The slab helpers' subpackage is among the files held to no JAX
     import below."""
     assert (PORT / "parallel" / "spatial.py") in set(PORT.rglob("*.py"))
+
+
+@pytest.mark.parametrize("rel", ["parallel/batch.py", "video/sequence.py",
+                                 "video/__init__.py", "utils/io.py"])
+def test_batch_and_video_modules_are_checked(rel):
+    """The batch runner, the video package and the image reader are
+    among the files held to no JAX import below."""
+    assert (PORT / rel) in set(PORT.rglob("*.py"))
 
 
 def _imported_roots(path: pathlib.Path):
@@ -116,6 +127,46 @@ def test_tile_wrapper_cpu_goes_plain_and_counts_nothing():
     with pytest.raises(ValueError, match="CUDA tensor"):
         pt.tile_sweep_kernel(*args, **kw)
     assert pt.launches.count == 0
+
+
+def test_tile_wrapper_frame_axis_cpu_goes_plain_and_counts_nothing():
+    pt.launches.reset()
+    specs = pt.channel_specs(1, 1, SynthConfig(device="cpu"), False)
+    h = w = ha = wa = 128
+    n_f = 3
+    geom = pt.tile_geometry(h, w, specs)
+    img = [torch.rand(h, w) for _ in range(2 + 2 * n_f)]
+    a_planes = pt.prepare_a_planes(img[0], img[1], None, None, specs)
+    b_planes = torch.stack([
+        pt.prepare_b_planes(img[2 + 2 * i], img[3 + 2 * i], None, None, geom)
+        for i in range(n_f)])
+    cand = torch.zeros(n_f, geom.n_ty, geom.n_tx, pt.K_TOTAL,
+                       dtype=torch.int32)
+    z = torch.zeros(n_f, geom.n_ty * 64, geom.n_tx * geom.tile_w,
+                    dtype=torch.int32)
+    d = torch.full(z.shape, float("inf"))
+    args = (a_planes, b_planes, cand, cand, cand + 1, z, z, d)
+    kw = dict(specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=1.0)
+    out = pt.tile_sweep(*args, **kw)
+    assert out[2].shape == z.shape and torch.isfinite(out[2]).all()
+    assert pt.launches.count == 0
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pt.tile_sweep_kernel(*args, **kw)
+    with pytest.raises(ValueError, match="cand tables"):
+        pt.tile_sweep(a_planes, b_planes, cand[:2], cand[:2], cand[:2] + 1,
+                      z, z, d, **kw)
+    assert pt.launches.count == 0
+
+
+def test_batch_and_video_never_fall_back():
+    from image_analogies_tpu_torch import synthesize_batch, synthesize_video
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    a = torch.rand(32, 32)
+    for fn in (synthesize_batch, synthesize_video):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(a, a, a[None].repeat(2, 1, 1), SynthConfig(levels=1))
 
 
 def test_tile_wrapper_int8_cpu_goes_plain_and_counts_nothing():

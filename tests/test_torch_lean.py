@@ -382,8 +382,9 @@ def test_lean_brute_field_is_exact_argmin_of_its_tables():
     r = create_image_analogy(a, ap, b, cfg, return_aux=True)
     py0, px0 = r["nnf"][0]
     t = (lambda x: torch.as_tensor(x))
-    pyr = tan.prologue(t(a), t(ap), t(b), cfg, 2)
-    src_a, flt_a, src_b, copy_a = pyr[:4]
+    pyr = tan.prologue(t(a), t(ap), t(b)[None], cfg, 2)
+    src_a, flt_a, _, copy_a = pyr[:4]
+    src_b = [x[0] for x in pyr[2]]
     flt1 = tan._gather_planes(copy_a[1], *r["nnf"][1])
     h, w = src_b[0].shape[:2]
     f_b = tan.assemble_features_lean(src_b[0], upsample(flt1, (h, w)), cfg,
