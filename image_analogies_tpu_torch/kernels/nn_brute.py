@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..telemetry.metrics import count_kernel_launch
 from . import LaunchCounter, check, library, on_cuda, require, stream_ptr
 from ..ops.pca import full_f32_matmul
 
@@ -178,6 +179,7 @@ def nn_argmin_kernel(
             stream)
         check(err, "ia_nn_argmin_bf16")
     launches.add()
+    count_kernel_launch("exact_nn")
     # Match fields are int64 in the port (models/matcher.py).
     return idx.long()
 

@@ -63,6 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import SynthConfig
+from ..telemetry.metrics import count_kernel_launch
 from . import LaunchCounter, check, library, on_cuda, require, stream_ptr
 
 LANE = 128
@@ -827,6 +828,7 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
     )
     check(err, "ia_tile_sweep")
     (launches_int8 if int8 else launches).add()
+    count_kernel_launch("tile_sweep")
     return oy_o, ox_o, d_o
 
 

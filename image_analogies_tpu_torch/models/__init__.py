@@ -2,6 +2,7 @@
 
 from .matcher import Matcher, get_matcher, register_matcher
 from .brute import BruteForceMatcher, exact_nn
+from .ann import AnnMatcher
 from .patchmatch import PatchMatchMatcher, patchmatch_sweeps, random_init
 from .coherence import CoherenceWrapper, coherence_sweeps
 from .analogy import (
@@ -12,6 +13,7 @@ from .analogy import (
 )
 
 __all__ = [
+    "AnnMatcher",
     "BruteForceMatcher",
     "CoherenceWrapper",
     "LevelState",

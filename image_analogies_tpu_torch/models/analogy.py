@@ -29,6 +29,15 @@ With `cfg.save_level_artifacts` every level writes a checkpoint in the
 reference's .npz schema and fingerprint; `resume_from` restarts from a
 checkpoint directory written by either package, and `resume` from one
 level's `LevelState`.
+
+Telemetry and faults, as in the reference: `progress` (a
+ProgressWriter or a `telemetry.Tracer`) gets the `run` span, the
+`prologue` span with the `run_plan` mark, one `level` span a level with
+its declared `em_iter` children, and the registry's level counters; an
+enabled tracer costs one device sync a level, a disabled one none.  The
+fault points `xfer`, `level`, `kernel` and `ckpt` (runtime/faults.py)
+sit in the host loop; the reference's `jax.named_scope` tags are
+`torch.profiler` ranges of the same names (`utils/profiling.scope`).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import dataclasses
 import logging
 import os
 import re
+import time
 import zipfile
 from typing import Dict, List, NamedTuple, Optional, Union
 
@@ -51,6 +61,10 @@ from ..ops.pca import fit_and_project, project
 from ..ops.pyramid import build_pyramid, upsample
 from ..ops.remap import remap_luminance
 from ..ops.steerable import steerable_responses
+from ..runtime.faults import fire as _fault_fire
+from ..telemetry.metrics import get_registry
+from ..telemetry.spans import as_tracer
+from ..utils.profiling import scope
 from .matcher import clamp_nnf, get_matcher
 from .patchmatch import (
     RawPlanes,
@@ -62,6 +76,7 @@ from .patchmatch import (
 )
 
 # Register the built-in matchers.
+from . import ann as _ann  # noqa: F401
 from . import brute as _brute  # noqa: F401
 from . import coherence as _coherence  # noqa: F401
 from . import patchmatch as _patchmatch  # noqa: F401
@@ -311,33 +326,39 @@ def make_em_step(cfg: SynthConfig, level: int, has_coarse: bool,
         if lean:
             from .patchmatch import tile_patchmatch_lean
 
-            f_b = _stack_frames([
-                assemble_features_lean(src_b[i], flt_b[i], cfg,
-                                       coarse(src_b_c, i),
-                                       coarse(flt_b_c, i))
-                for i in frames
-            ])
+            with scope("tlm_assemble"):
+                f_b = _stack_frames([
+                    assemble_features_lean(src_b[i], flt_b[i], cfg,
+                                           coarse(src_b_c, i),
+                                           coarse(flt_b_c, i))
+                    for i in frames
+                ])
             ha, wa = copy_a.shape[:2]
-            py, px, dist = tile_patchmatch_lean(
-                f_b, f_a, nnf[0], nnf[1], draws, raw=raw, cfg=cfg,
-                level=level, plain=cfg.pallas_mode == "interpret", ha=ha,
-                wa=wa, polish_iters=polish_iters,
-            )
-            return (py, px), dist, _stack_frames(
-                [_gather_planes(copy_a, py[i], px[i]) for i in frames])
+            with scope("tlm_match"):
+                py, px, dist = tile_patchmatch_lean(
+                    f_b, f_a, nnf[0], nnf[1], draws, raw=raw, cfg=cfg,
+                    level=level, plain=cfg.pallas_mode == "interpret",
+                    ha=ha, wa=wa, polish_iters=polish_iters,
+                )
+            with scope("tlm_render"):
+                return (py, px), dist, _stack_frames(
+                    [_gather_planes(copy_a, py[i], px[i]) for i in frames])
 
         def features(i):
             f = assemble_features(src_b[i], flt_b[i], cfg,
                                   coarse(src_b_c, i), coarse(flt_b_c, i))
             return project(f, proj) if cfg.pca_dims else f
 
-        nnf, dist = matcher.match_frames(
-            _stack_frames([features(i) for i in frames]), f_a, nnf,
-            level=level, cfg=cfg, draws=draws, raw=raw,
-            polish_iters=polish_iters, temporal=temporal,
-        )
-        return nnf, dist, _stack_frames(
-            [_gather_image(copy_a, nnf[i]) for i in frames])
+        with scope("tlm_assemble"):
+            f_b = _stack_frames([features(i) for i in frames])
+        with scope("tlm_match"):
+            nnf, dist = matcher.match_frames(
+                f_b, f_a, nnf, level=level, cfg=cfg, draws=draws, raw=raw,
+                polish_iters=polish_iters, temporal=temporal,
+            )
+        with scope("tlm_render"):
+            return nnf, dist, _stack_frames(
+                [_gather_image(copy_a, nnf[i]) for i in frames])
 
     return em_step
 
@@ -541,6 +562,14 @@ def run_level(cfg: SynthConfig, level: int, levels: int, pyr, prev_nnf,
     per-pixel sweeps and builds no A planes.  The state carries the
     frame axis: returns the stacked (nnf, dist, bp), `nnf` a (py, px)
     pair at a lean level."""
+    with scope(f"tlm_L{level}"):
+        return _run_level(cfg, level, levels, pyr, prev_nnf, prev_bp, plan,
+                          frame_idx, prev_kind, temporal)
+
+
+def _run_level(cfg, level, levels, pyr, prev_nnf, prev_bp, plan, frame_idx,
+               prev_kind, temporal):
+    """`run_level`'s body, inside its profiler range."""
     from ..kernels.patchmatch_tile import prepare_a_planes
 
     pyr_src_a, pyr_flt_a, pyr_src_b, pyr_copy_a, pyr_raw_b, _ = pyr
@@ -591,14 +620,15 @@ def run_level(cfg: SynthConfig, level: int, levels: int, pyr, prev_nnf,
     dist = bp = None
     for em in range(cfg.em_iters):
         step = step_final if em == cfg.em_iters - 1 else step_mid
-        nnf, dist, bp = step(
-            src_b_l, flt_bp,
-            src_b_c if has_coarse else src_b_l,
-            flt_bp_coarse if has_coarse else flt_bp,
-            f_a, pyr_copy_a[level], nnf,
-            [SweepDraws(cfg.seed, level, em, idx) for idx in frame_idx],
-            proj, a_planes, tile, temporal=temporal,
-        )
+        with scope(f"tlm_em{em}"):
+            nnf, dist, bp = step(
+                src_b_l, flt_bp,
+                src_b_c if has_coarse else src_b_l,
+                flt_bp_coarse if has_coarse else flt_bp,
+                f_a, pyr_copy_a[level], nnf,
+                [SweepDraws(cfg.seed, level, em, idx) for idx in frame_idx],
+                proj, a_planes, tile, temporal=temporal,
+            )
         flt_bp = bp
     return nnf, dist, bp
 
@@ -637,6 +667,108 @@ def level_eta_cost_units(cfg: SynthConfig, shapes,
             cost = cfg.em_iters * cfg.pm_iters * K_TOTAL * px * (moved / 8.0)
         units[str(level)] = cost
     return units
+
+
+def _device_sync(t: torch.Tensor) -> None:
+    """Wait for the device work queued so far (a CUDA tensor's device;
+    nothing for a CPU tensor)."""
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+def level_energy(dist: torch.Tensor) -> float:
+    """A finished level's mean match distance, after one device sync:
+    the level span's `nnf_energy`, read only by an enabled tracer."""
+    _device_sync(dist)
+    return float(dist.mean())
+
+
+def record_prologue(tracer, pyr_raw_b, levels: int, t0: float,
+                    cfg: SynthConfig, a_hw=None,
+                    runner: str = "single") -> None:
+    """Sync the prologue and record its span, then the `run_plan` mark:
+    levels, per-level shapes and the modeled per-level cost units the
+    supervisor's watchdog calibrates its deadlines from.  Shared by the
+    three runners; `pyr_raw_b` carries the leading frame axis.  A
+    disabled tracer returns at once (no sync)."""
+    if not tracer.enabled:
+        return
+    _device_sync(pyr_raw_b[levels - 1])
+    tracer.record("prologue", round((time.perf_counter() - t0) * 1000, 3))
+    shapes = [[int(s) for s in pyr_raw_b[lvl].shape[1:3]]
+              for lvl in range(levels)]
+    tracer.annotate(
+        "run_plan",
+        levels=levels,
+        shapes=shapes,
+        em_iters=cfg.em_iters,
+        matcher=cfg.matcher,
+        runner=runner,
+        eta_cost_units=level_eta_cost_units(cfg, shapes, a_hw),
+    )
+
+
+def record_level_span(tracer, cfg: SynthConfig, level_t0: float,
+                      level: int, h, w, nnf_energy: float):
+    """A timed `level` span recorded after the fact, with its declared
+    `em_iter` children: the batch and video runners' form (their level
+    wall is clocked around one synced level).  The single-image runner
+    records the same structure with a context-managed span and
+    `_record_level_telemetry`.  One device, so none of the reference's
+    per-shard walls."""
+    sp = tracer.record(
+        "level",
+        round((time.perf_counter() - level_t0) * 1000, 3),
+        level=level,
+        shape=[int(h), int(w)],
+        em_iters=cfg.em_iters,
+        nnf_energy=nnf_energy,
+    )
+    for em in range(cfg.em_iters):
+        tracer.annotate("em_iter", parent=sp, em=em)
+    return sp
+
+
+def _record_level_telemetry(tracer, cfg: SynthConfig, level: int,
+                            lvl_span) -> None:
+    """The span tree's structure and the registry's counters for one
+    finished level of the single-image runner: `em_iters` declared on
+    the level span, one untimed `em_iter` child an EM step with its
+    `assemble`, `match` and `render` phases and the polish and candidate
+    modes it ran under; `ia_levels_total`, `ia_em_iters_total`,
+    `ia_nnf_energy{level}` and the `ia_level_wall_ms` histogram."""
+    from . import patchmatch as _pm_mod
+    from ..kernels import patchmatch_tile as _pt_mod
+
+    lvl_span.set(em_iters=cfg.em_iters)
+    prune = _pt_mod.resolve_prune()
+    for em in range(cfg.em_iters):
+        em_sp = tracer.annotate(
+            "em_iter", parent=lvl_span, em=em,
+            polish_mode=_pm_mod._POLISH_MODE,
+            cand_dtype=_pt_mod.resolve_cand_dtype(),
+            cand_prune=("off" if prune is None
+                        else f"{prune[0]}:{prune[1]}"),
+        )
+        for phase in ("assemble", "match", "render"):
+            tracer.annotate(phase, parent=em_sp)
+    reg = tracer.registry if tracer.registry is not None else get_registry()
+    reg.counter("ia_levels_total", "pyramid levels executed").inc()
+    reg.counter(
+        "ia_em_iters_total",
+        "EM iterations executed (em_iters per executed level)",
+    ).inc(cfg.em_iters)
+    energy = lvl_span.attrs.get("nnf_energy")
+    if energy is not None:
+        reg.gauge(
+            "ia_nnf_energy",
+            "final NNF mean match distance per pyramid level "
+            "(the PatchMatch convergence monitor)",
+        ).set(energy, labels={"level": str(level)})
+    if lvl_span.wall_ms is not None:
+        reg.histogram(
+            "ia_level_wall_ms", "host wall-clock per pyramid level (ms)"
+        ).observe(lvl_span.wall_ms)
 
 
 class LevelState(NamedTuple):
@@ -739,7 +871,10 @@ def _save_level(path: str, level: int, nnf, dist, bp, cfg,
     """Write `level_{level}.npz` under `path`: `nnf` int32 (H, W, 2) (a
     lean level's planes stacked on the host), `dist` and `bp` float32,
     and the run's `fingerprint`.  Written to a temporary file and
-    renamed, so a kill mid-write never leaves a truncated artifact."""
+    renamed, so a kill mid-write never leaves a truncated artifact.
+    The `ckpt` fault point fires first; its `truncate` action cuts the
+    renamed file to a third, the partial write that resume must skip."""
+    act = _fault_fire("ckpt", level)
     nnf_np = nnf_host(nnf)
     os.makedirs(path, exist_ok=True)
     final = os.path.join(path, f"level_{level}.npz")
@@ -753,6 +888,10 @@ def _save_level(path: str, level: int, nnf, dist, bp, cfg,
             fingerprint=np.asarray(_ckpt_fingerprint(cfg, b_shape)),
         )
     os.replace(tmp, final)
+    if act == "truncate":
+        size = os.path.getsize(final)
+        with open(final, "r+b") as f:
+            f.truncate(max(1, size // 3))
 
 
 class ResumeError(RuntimeError):
@@ -761,12 +900,13 @@ class ResumeError(RuntimeError):
 
 
 def resume_prologue(resume_from, levels: int, cfg, b_shape,
-                    strict: bool = False):
+                    strict: bool = False, progress=None):
     """None (no usable checkpoint: start fresh, with a warning) or
     (start_level, nnf, bp, {level: (nnf, dist)}) as numpy arrays:
     start at `start_level` (-1: every level was checkpointed) from the
     finest loadable level's state.  `strict=True` raises `ResumeError`
-    where the default warns and recomputes."""
+    where the default warns and recomputes.  `progress` (a tracer or
+    writer) gets the `resume` event with the level resumed from."""
     if not resume_from:
         return None
     reasons: List[str] = []
@@ -790,6 +930,8 @@ def resume_prologue(resume_from, levels: int, cfg, b_shape,
         )
         return None
     level, nnf, _dist, bp, aux_fill = loaded
+    if progress is not None:
+        progress.emit("resume", from_level=level)
     return level - 1, nnf, bp, aux_fill
 
 
@@ -849,6 +991,7 @@ def create_image_analogy(
     resume: Optional[LevelState] = None,
     resume_from: Optional[str] = None,
     resume_strict: bool = False,
+    progress=None,
 ):
     """Synthesize B' such that A : A' :: B : B'.
 
@@ -868,8 +1011,12 @@ def create_image_analogy(
     `ResumeError` instead of a warned recompute from scratch.
     `resume`: the converged state of one level L (`load_level_state`);
     the run then starts at level L-1 from it.
+    `progress`: a `utils.progress.ProgressWriter` (one `level_done`
+    event a level) or a `telemetry.Tracer` (span tree and registry);
+    either costs one device sync a level, None costs none.
     """
     cfg = cfg or SynthConfig()
+    tracer = as_tracer(progress)
     if resume is not None and resume_from:
         raise ValueError("pass resume (one level's state) or resume_from "
                          "(a checkpoint directory), not both")
@@ -885,9 +1032,24 @@ def create_image_analogy(
         raise ValueError(f"A {tuple(a.shape)} and A' {tuple(ap.shape)} "
                          "must match")
     levels = cfg.clamp_levels(tuple(a.shape[:2]), tuple(b.shape[:2]))
+    with tracer.span("run", matcher=cfg.matcher, levels=levels,
+                     shape=[int(s) for s in b.shape[:2]]):
+        return _synthesize_single(a, ap, b, cfg, levels, return_aux, tracer,
+                                  resume, resume_from, resume_strict)
+
+
+def _synthesize_single(a, ap, b, cfg: SynthConfig, levels: int,
+                       return_aux: bool, tracer, resume, resume_from,
+                       resume_strict: bool):
+    """`create_image_analogy`'s body, under its `run` span."""
+    dev = a.device
+    # The prologue's dispatch is the run's transfer boundary.
+    _fault_fire("xfer", 0)
+    prologue_t0 = time.perf_counter()
     # The level body runs on a frame stack: the image is one frame, with
     # a single image's random streams (frame index None).
-    pyr = prologue(a, ap, b[None], cfg, levels)
+    with scope("tlm_prologue"):
+        pyr = prologue(a, ap, b[None], cfg, levels)
     aux: Dict[str, List] = {"nnf": [None] * levels, "dist": [None] * levels}
 
     nnf = bp = None
@@ -901,21 +1063,38 @@ def create_image_analogy(
         nnf, bp = aux["nnf"][resume.level][None], resume.bp.to(dev)[None]
         aux["dist"][resume.level] = resume.dist.to(dev)
     resumed = resume_prologue(resume_from, levels, cfg, b.shape,
-                              strict=resume_strict)
+                              strict=resume_strict, progress=tracer)
     if resumed is not None:
         start, nnf, bp, aux_fill = resumed
         nnf = torch.as_tensor(nnf, device=dev).long()[None]
-        bp = as_t(bp)[None]
+        bp = torch.as_tensor(np.asarray(bp, np.float32), device=dev)[None]
         if return_aux:
             for lvl, (n, d) in aux_fill.items():
                 aux["nnf"][lvl] = torch.as_tensor(n, device=dev).long()
-                aux["dist"][lvl] = as_t(d)
+                aux["dist"][lvl] = torch.as_tensor(
+                    np.asarray(d, np.float32), device=dev)
+    if start >= 0:
+        record_prologue(tracer, pyr[4], levels, prologue_t0, cfg=cfg,
+                        a_hw=tuple(a.shape[:2]), runner="single")
     for level in range(start, -1, -1):
-        plan = plan_frames(cfg, level, levels, pyr, nnf)
-        nnf, dist, bp = run_level(cfg, level, levels, pyr, nnf, bp, plan)
-        if return_aux:
-            aux["nnf"][level] = _frame(nnf, 0)
-            aux["dist"][level] = dist[0]
+        # The level point is also the supervisor's abort checkpoint.
+        _fault_fire("level", level)
+        with tracer.span("level", level=level) as lvl_span:
+            if tracer.enabled:
+                lvl_span.set(
+                    shape=[int(s) for s in pyr[2][level].shape[1:3]])
+            plan = plan_frames(cfg, level, levels, pyr, nnf)
+            _fault_fire("kernel", level)
+            nnf, dist, bp = run_level(cfg, level, levels, pyr, nnf, bp, plan)
+            if return_aux:
+                aux["nnf"][level] = _frame(nnf, 0)
+                aux["dist"][level] = dist[0]
+            if tracer.enabled:
+                # The loop's one device sync, before the span's clock
+                # stops, so the level's queued work is charged to it.
+                lvl_span.set(nnf_energy=level_energy(dist))
+        if tracer.enabled:
+            _record_level_telemetry(tracer, cfg, level, lvl_span)
         if cfg.save_level_artifacts:
             _save_level(cfg.save_level_artifacts, level, _frame(nnf, 0),
                         dist[0], bp[0], cfg, b.shape)

@@ -25,13 +25,19 @@ Dropped from the reference, as TPU or not-yet-ported mechanics:
     brute runs to one frame per step: TPU execution-size rules, dropped
     as the single-image runner drops them (outputs do not depend on the
     chunking, so no result changes);
-  - fault points, tracer spans and shard walls (steps 12-13).
+  - the per-shard completion walls of the level spans (one device).
+The reference's telemetry and faults are kept: `progress` gets the
+`prologue` span, the `run_plan` mark and one `level` span a level with
+its `em_iter` children (one device sync a level when enabled), and the
+`xfer`, `level`, `kernel` and `ckpt` fault points fire where the
+reference's do.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -41,16 +47,22 @@ from ..config import SynthConfig
 from ..models.analogy import (
     _finalize,
     _save_level,
+    level_energy,
     nnf_host,
     plan_frames,
     prologue,
+    record_level_span,
+    record_prologue,
     resolve_device,
     resume_prologue,
     run_level,
 )
 from ..ops.color import rgb_to_yiq
 from ..ops.remap import luminance_stats
+from ..runtime.faults import fire as _fault_fire
+from ..telemetry.spans import as_tracer
 from ..utils.io import load_image
+from ..utils.profiling import scope
 
 
 def _as_tensor(x, dev) -> torch.Tensor:
@@ -98,6 +110,7 @@ def synthesize_batch(
     resume_strict: bool = False,
     frame_indices=None,
     return_nnf: bool = False,
+    progress=None,
     _b_stats=None,
     _frame_offset: int = 0,
     _n_stack: Optional[int] = None,
@@ -121,10 +134,12 @@ def synthesize_batch(
     from such a directory, written by either package, with the
     reference's fingerprint ((F, H, W[, C], whole-stack length, chunk
     offset[, frame indices])).  `resume_strict` raises on an unusable
-    one.  `_b_stats`, `_frame_offset` and `_n_stack` carry the whole
-    stack's statistics, the chunk's offset and the stack's length into
-    the chunks."""
+    one.  `progress`: a ProgressWriter or `telemetry.Tracer` (module
+    docstring).  `_b_stats`, `_frame_offset` and `_n_stack` carry the
+    whole stack's statistics, the chunk's offset and the stack's length
+    into the chunks."""
     cfg = cfg or SynthConfig()
+    tracer = as_tracer(progress)
     dev = resolve_device(cfg)
     if frames_per_step is not None and frames_per_step < 1:
         raise ValueError("frames_per_step must be >= 1")
@@ -165,8 +180,8 @@ def synthesize_batch(
                 resume_from=(os.path.join(resume_from, f"frames_{i:05d}")
                              if resume_from else None),
                 resume_strict=resume_strict, frame_indices=idx,
-                return_nnf=return_nnf, _b_stats=_b_stats, _frame_offset=i,
-                _n_stack=n,
+                return_nnf=return_nnf, progress=tracer, _b_stats=_b_stats,
+                _frame_offset=i, _n_stack=n,
             )
             if return_nnf:
                 res, chunk_nnf = res
@@ -175,6 +190,8 @@ def synthesize_batch(
         out = torch.cat(outs)
         return (out, np.concatenate(nnfs)) if return_nnf else out
 
+    # The frame stack's (chunk's) transfer point.
+    _fault_fire("xfer", 0)
     a, ap = _as_tensor(a, dev), _as_tensor(ap, dev)
     levels = cfg.clamp_levels(tuple(a.shape[:2]), tuple(frames.shape[1:3]))
     frame_idx = (list(frame_indices) if frame_indices is not None
@@ -184,7 +201,7 @@ def synthesize_batch(
     start = levels - 1
     nnf = bp = None
     resumed = resume_prologue(resume_from, levels, cfg, fp_shape,
-                              strict=resume_strict)
+                              strict=resume_strict, progress=tracer)
     if resumed is not None:
         start, nnf, bp, _ = resumed
         nnf = torch.as_tensor(nnf, device=dev).long()
@@ -196,11 +213,22 @@ def synthesize_batch(
             out = _finalize_batch(bp, yiq_b, frames, cfg)
             return (out, nnf_host(nnf)) if return_nnf else out
 
-    pyr = prologue(a, ap, frames, cfg, levels, _b_stats)
+    prologue_t0 = time.perf_counter()
+    with scope("tlm_prologue"):
+        pyr = prologue(a, ap, frames, cfg, levels, _b_stats)
+    record_prologue(tracer, pyr[4], levels, prologue_t0, cfg=cfg,
+                    a_hw=tuple(a.shape[:2]), runner="batch")
     for level in range(start, -1, -1):
+        _fault_fire("level", level)
+        level_t0 = time.perf_counter()
         plan = plan_frames(cfg, level, levels, pyr, nnf, brute_lean=False)
+        _fault_fire("kernel", level)
         nnf, dist, bp = run_level(cfg, level, levels, pyr, nnf, bp, plan,
                                   frame_idx)
+        if tracer.enabled:
+            h, w = pyr[2][level].shape[1:3]
+            record_level_span(tracer, cfg, level_t0, level, h, w,
+                              level_energy(dist))
         if cfg.save_level_artifacts:
             _save_level(cfg.save_level_artifacts, level, nnf, dist, bp, cfg,
                         fp_shape)

@@ -22,11 +22,18 @@ barely changes.  Three mechanisms sit on the runners' level body
    The modeled cost of the schedule actually run, against the cold one
    (`level_eta_cost_units`), is the stream's `run_units` / `cold_units`.
 
+Telemetry as in the reference: `progress` gets each frame's
+`prologue` span, `run_plan` mark and `level` spans; the registry counts
+streams and frames (`ia_video_streams_total`, `ia_video_frames_total
+{mode}`), books each warm frame's sweeps against its cold equivalent
+(`_book_warm_frame`: `ia_warm_start_frames_total`,
+`ia_warm_start_sweeps_total{mode}`) and ends with the `ia_video_flicker`
+gauge; the `xfer`, `level`, `kernel` and `ckpt` fault points fire where
+the reference's do.
+
 Dropped from the reference: the device mesh and its padding rows (one
-device; ROADMAP Queue 1 step 14), fault points, tracer spans, shard
-walls, the metrics registry's counters and the sentinel ledger of warm
-frames (`ia_video_*`, `_book_warm_frame`), and the serving request ids
-(steps 12-13).
+device; ROADMAP Queue 1 step 14), the per-shard level walls, and the
+serving request ids (step 13).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -42,15 +50,22 @@ import torch
 from ..config import SynthConfig
 from ..models.analogy import (
     _save_level,
+    level_energy,
     level_eta_cost_units,
     plan_frames,
     prologue,
+    record_level_span,
+    record_prologue,
     resolve_device,
     resume_prologue,
     run_level,
 )
 from ..ops.color import rgb_to_yiq
 from ..ops.remap import luminance_stats
+from ..runtime.faults import fire as _fault_fire
+from ..telemetry.metrics import get_registry
+from ..telemetry.spans import as_tracer
+from ..utils.profiling import scope
 from ..parallel.batch import (
     _as_tensor,
     _finalize_batch,
@@ -187,6 +202,38 @@ def _pyr_shapes(hw, levels: int):
             for lv in range(levels)]
 
 
+def _book_warm_frame(cfg: SynthConfig, run_cfg: SynthConfig,
+                     levels: int, registry=None) -> None:
+    """Ledger one warm-started frame: the frame count, and its scheduled
+    PM sweeps against the cold equivalent, each priced as levels x
+    em_iters x pm_iters (at the warm schedule and at the base config)."""
+    reg = registry if registry is not None else get_registry()
+    reg.counter(
+        "ia_warm_start_frames_total",
+        "video frames synthesized from a warm-start seed",
+    ).inc()
+    sweeps = reg.counter(
+        "ia_warm_start_sweeps_total",
+        "scheduled PM sweeps on warm-started frames vs their cold "
+        "equivalent",
+    )
+    sweeps.inc(float(levels * run_cfg.em_iters * run_cfg.pm_iters),
+               labels={"mode": "warm"})
+    sweeps.inc(float(levels * cfg.em_iters * cfg.pm_iters),
+               labels={"mode": "cold_equiv"})
+
+
+def _set_flicker(out) -> float:
+    """The output's flicker, also set as the `ia_video_flicker` gauge of
+    the process-default registry."""
+    flick = flicker_metric(_host(out))
+    get_registry().gauge(
+        "ia_video_flicker",
+        "mean per-pixel temporal delta of the stylized output",
+    ).set(flick)
+    return flick
+
+
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -204,11 +251,17 @@ class VideoStream:
     whole stack's, from `synthesize_video`) or else on the first frame's
     own: every frame is remapped against one normalization, or the style
     itself would flicker.  The carried state lives on the run's device.
+    `progress` (a ProgressWriter or tracer) gets every frame's spans;
+    `registry` receives the video counters (None: the process default
+    at booking time).
     """
 
     def __init__(self, a, ap, cfg: Optional[SynthConfig] = None,
-                 b_stats=None, n_stack: Optional[int] = None):
+                 b_stats=None, n_stack: Optional[int] = None,
+                 progress=None, registry=None):
         self.cfg = cfg or SynthConfig()
+        self.tracer = as_tracer(progress)
+        self.registry = registry
         self.dev = resolve_device(self.cfg)
         self.a = _as_tensor(a, self.dev)
         self.ap = _as_tensor(ap, self.dev)
@@ -250,8 +303,20 @@ class VideoStream:
 
         out, fields, bps, shapes, seeded, ran = self._run_frame(
             frame, run_cfg, can_warm, resume_root, resume_strict)
+        reg = self.registry if self.registry is not None else get_registry()
+        if t == 0:
+            reg.counter(
+                "ia_video_streams_total",
+                "video streams started (each stream's head frame is "
+                "cold)",
+            ).inc()
         if ran:
-            # A fully resumed frame scheduled no synthesis.
+            # A fully resumed frame scheduled no synthesis: the ledger
+            # records this run's work.
+            reg.counter(
+                "ia_video_frames_total",
+                "video frames synthesized, by schedule mode",
+            ).inc(labels={"mode": "warm" if seeded else "cold"})
             a_hw = tuple(self.a.shape[:2])
             self.run_units += sum(level_eta_cost_units(
                 run_cfg, shapes, a_hw).values())
@@ -259,6 +324,7 @@ class VideoStream:
                 cfg, shapes, a_hw).values())
         if seeded:
             self.warm_frames += 1
+            _book_warm_frame(cfg, run_cfg, len(shapes), reg)
         finest = fields.get(0)
         self._prev_frame = frame_np
         if finest is not None:
@@ -340,7 +406,9 @@ class VideoStream:
 
     def _run_frame(self, frame, run_cfg: SynthConfig, warm: bool,
                    resume_root, resume_strict):
-        cfg, t, dev = self.cfg, self.t, self.dev
+        cfg, t, dev, tracer = self.cfg, self.t, self.dev, self.tracer
+        # This frame's transfer point.
+        _fault_fire("xfer", 0)
         frames = _as_tensor(frame, dev)
         if frames.ndim == 2 or (frames.ndim == 3
                                 and frames.shape[-1] in (1, 3)):
@@ -371,7 +439,7 @@ class VideoStream:
         bp = nnf = None
         aux = {}
         resumed = resume_prologue(resume_dir, levels, run_cfg, fp_shape,
-                                  strict=resume_strict)
+                                  strict=resume_strict, progress=tracer)
         if resumed is not None:
             start_level, nnf, bp, aux = resumed
             nnf = torch.as_tensor(nnf, device=dev).long()
@@ -386,7 +454,12 @@ class VideoStream:
                 return (out[0], fields, _ckpt_bps(resume_dir, levels),
                         _pyr_shapes(frames.shape[1:3], levels), False, False)
 
-        pyr = prologue(self.a, self.ap, frames, cfg, levels, self.b_stats)
+        prologue_t0 = time.perf_counter()
+        with scope("tlm_prologue"):
+            pyr = prologue(self.a, self.ap, frames, cfg, levels,
+                           self.b_stats)
+        record_prologue(tracer, pyr[4], levels, prologue_t0, cfg=run_cfg,
+                        a_hw=tuple(self.a.shape[:2]), runner="video")
         _, _, pyr_src_b, _, pyr_raw_b, yiq_b = pyr
         seed_fields = self._fields if warm else None
         seed_bps = self._bps if warm else None
@@ -405,6 +478,8 @@ class VideoStream:
             return torch.as_tensor(x, device=dev)
 
         for level in range(start_level, -1, -1):
+            _fault_fire("level", level)
+            level_t0 = time.perf_counter()
             h, w = pyr_src_b[level].shape[1:3]
             has_coarse = level < levels - 1
             plan = plan_frames(run_cfg, level, levels, pyr, nnf,
@@ -430,6 +505,7 @@ class VideoStream:
                 warm and cfg.tau > 0.0 and cfg.matcher == "patchmatch"
                 and not plan.lean and field is not None
             )
+            _fault_fire("kernel", level)
             if use_temporal:
                 nnf, dist, bp = _video_level(
                     run_cfg, level, levels, pyr, nnf, bp, frame_idx, plan,
@@ -438,6 +514,9 @@ class VideoStream:
                 nnf, dist, bp = run_level(
                     run_cfg, level, levels, pyr, nnf, bp, plan, frame_idx,
                     prev_kind=prev_kind)
+            if tracer.enabled:
+                record_level_span(tracer, run_cfg, level_t0, level, h, w,
+                                  level_energy(dist))
             fields[level] = (torch.stack(nnf, dim=-1)
                              if isinstance(nnf, tuple) else nnf)
             bps[level] = bp
@@ -465,6 +544,7 @@ def synthesize_video(
     resume_from: Optional[str] = None,
     resume_strict: bool = False,
     return_aux: bool = False,
+    progress=None,
 ):
     """Stylized B' for a frame SEQUENCE ((F, H, W[, 3])) against one style
     pair, warm-started frame to frame (module docstring), on
@@ -478,7 +558,8 @@ def synthesize_video(
     With the seam off the sequence runs through
     `synthesize_batch(frames_per_step=1)`, every frame cold.  Both modes
     write and resume the same `frames_{t:05d}` checkpoint layout
-    (`cfg.save_level_artifacts`, `resume_from`)."""
+    (`cfg.save_level_artifacts`, `resume_from`).  `progress`: a
+    ProgressWriter or `telemetry.Tracer` (module docstring)."""
     cfg = cfg or SynthConfig()
     dev = resolve_device(cfg)
     frames = _as_tensor(frames, dev)
@@ -490,8 +571,10 @@ def synthesize_video(
         res = synthesize_batch(
             a, ap, frames, cfg, frames_per_step=1, resume_from=resume_from,
             resume_strict=resume_strict, return_nnf=return_aux,
+            progress=progress,
         )
         out, nnf = res if return_aux else (res, None)
+        flick = _set_flicker(out)
         if not return_aux:
             return out
         return out, {
@@ -499,7 +582,7 @@ def synthesize_video(
             "fields": nnf,
             "deltas": [None] * n,
             "schedules": [(cfg.pm_iters, cfg.em_iters)] * n,
-            "flicker": flicker_metric(_host(out)),
+            "flicker": flick,
             "warm_frames": 0,
             "run_units": None,
             "cold_units": None,
@@ -508,12 +591,13 @@ def synthesize_video(
     # The batch runner's whole-stack normalization: frame 0 of a warm run
     # is then frame 0 of the batch run over the same stack.
     stream = VideoStream(a, ap, cfg=cfg, b_stats=stack_stats(frames, cfg),
-                         n_stack=n)
+                         n_stack=n, progress=progress)
     out = torch.stack([
         stream.step(frames[t], resume_root=resume_from,
                     resume_strict=resume_strict)
         for t in range(n)
     ])
+    flick = _set_flicker(out)
     if not return_aux:
         return out
     return out, {
@@ -522,7 +606,7 @@ def synthesize_video(
                    if stream.finest_history else np.zeros((0,), np.int32)),
         "deltas": list(stream.deltas),
         "schedules": list(stream.schedules),
-        "flicker": flicker_metric(_host(out)),
+        "flicker": flick,
         "warm_frames": stream.warm_frames,
         "run_units": stream.run_units,
         "cold_units": stream.cold_units,

@@ -482,3 +482,55 @@ def test_lean_brute_k2_bf16_against_plain(dev):
         differ = idx_k != idx_p
         assert not bool(
             (differ & ((m_k - m_p).abs() > 1e-5 * m_p.abs())).any())
+
+
+def test_traced_run_books_each_launch_in_the_registry(dev):
+    """On the card each K1 and K2 launch books
+    `ia_kernel_launches_total{kernel}` beside its module counter, and a
+    traced run's B' is the untraced run's."""
+    from image_analogies_tpu_torch import create_image_analogy
+    from image_analogies_tpu_torch.telemetry import MetricsRegistry, Tracer
+    from image_analogies_tpu_torch.telemetry.metrics import set_registry
+
+    rng = np.random.default_rng(11)
+    a = rng.random((256, 256)).astype(np.float32)
+    for matcher, counter, name in (("patchmatch", pt.launches, "tile_sweep"),
+                                   ("brute", nb.launches, "exact_nn")):
+        cfg = SynthConfig(levels=2, em_iters=2, matcher=matcher)
+        plain = create_image_analogy(a, a * 0.5, a[::-1].copy(), cfg)
+        reg = MetricsRegistry()
+        prev = set_registry(reg)
+        counter.reset()
+        try:
+            traced = create_image_analogy(a, a * 0.5, a[::-1].copy(), cfg,
+                                          progress=Tracer(registry=reg))
+        finally:
+            set_registry(prev)
+        assert counter.count > 0
+        assert reg.counter("ia_kernel_launches_total").value(
+            labels={"kernel": name}) == counter.count
+        assert torch.equal(traced, plain)
+
+
+def test_ann_matcher_on_the_card_equals_the_cpu(dev):
+    """The ann matcher copies CUDA features to the host tree and its
+    field back to the card: the same field and distances as on the CPU."""
+    from image_analogies_tpu_torch.models import get_matcher
+    from image_analogies_tpu_torch.utils.native import ann_available
+
+    if not ann_available():
+        pytest.skip("native ANN library not buildable")
+    rng = np.random.default_rng(5)
+    f_a = rng.standard_normal((40, 40, 12)).astype(np.float32)
+    f_b = rng.standard_normal((30, 50, 12)).astype(np.float32)
+    m = get_matcher("ann")
+    outs = {}
+    for d in ("cpu", "cuda"):
+        nnf, dist = m.match(
+            torch.as_tensor(f_b, device=d), torch.as_tensor(f_a, device=d),
+            torch.zeros(30, 50, 2, dtype=torch.long, device=d), level=0,
+            cfg=SynthConfig(matcher="ann", ann_eps=0.0, device=d))
+        assert nnf.device.type == d
+        outs[d] = (nnf.cpu(), dist.cpu())
+    assert torch.equal(outs["cpu"][0], outs["cuda"][0])
+    assert torch.equal(outs["cpu"][1], outs["cuda"][1])

@@ -34,7 +34,17 @@ def test_imports_without_jax():
         "image_analogies_tpu_torch.parallel.batch, "
         "image_analogies_tpu_torch.video.sequence, "
         "image_analogies_tpu_torch.utils.io, "
-        "image_analogies_tpu_torch.utils.examples; "
+        "image_analogies_tpu_torch.utils.examples, "
+        "image_analogies_tpu_torch.utils.native, "
+        "image_analogies_tpu_torch.utils.profiling, "
+        "image_analogies_tpu_torch.utils.progress, "
+        "image_analogies_tpu_torch.models.ann, "
+        "image_analogies_tpu_torch.telemetry.metrics, "
+        "image_analogies_tpu_torch.telemetry.spans, "
+        "image_analogies_tpu_torch.telemetry.flight, "
+        "image_analogies_tpu_torch.runtime.faults, "
+        "image_analogies_tpu_torch.runtime.supervisor, "
+        "image_analogies_tpu_torch.cli; "
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules "
         "if sys.modules[m] is not None}; print('ok')"
     )
@@ -58,6 +68,29 @@ def test_batch_and_video_modules_are_checked(rel):
     """The batch runner, the video package and the image reader are
     among the files held to no JAX import below."""
     assert (PORT / rel) in set(PORT.rglob("*.py"))
+
+
+@pytest.mark.parametrize("rel", [
+    "cli.py", "__main__.py", "telemetry/__init__.py", "telemetry/metrics.py",
+    "telemetry/spans.py", "telemetry/flight.py", "runtime/__init__.py",
+    "runtime/faults.py", "runtime/supervisor.py", "utils/native.py",
+    "utils/profiling.py", "utils/progress.py", "models/ann.py",
+])
+def test_cli_telemetry_runtime_and_ann_modules_are_checked(rel):
+    """The command line, the telemetry and runtime packages, the native
+    loader, the profiling and progress utilities and the ann matcher are
+    among the files held to no JAX import below."""
+    assert (PORT / rel) in set(PORT.rglob("*.py"))
+
+
+def test_native_library_builds_apart_from_the_reference():
+    """The port builds native/ann.cpp into its own directory, never the
+    reference's native/build/."""
+    from image_analogies_tpu_torch.utils import native
+
+    assert native.BUILD_DIR.relative_to(ROOT).as_posix() == \
+        "build/ia_torch_native"
+    assert native.SRC.relative_to(ROOT).as_posix() == "native/ann.cpp"
 
 
 def _imported_roots(path: pathlib.Path):
