@@ -10,6 +10,8 @@
 
     python3 chip_smoke.py --phases cli   # the command line, configs 2, 4
 
+    python3 chip_smoke.py --phases telemetry   # sentinel, live, report, bench
+
 Builds the port's CUDA kernels from `image_analogies_tpu_torch/kernels/
 csrc/`, holds each kernel against its plain PyTorch version at the main
 path's shapes (K1 in float32 and int8 mode, on a seeded case and on the
@@ -31,7 +33,11 @@ the command line in subprocesses, `python -m image_analogies_tpu_torch.cli`,
 on assets its `examples` wrote: the headline with its telemetry
 directory, progress stream and torch.profiler trace, the ann matcher,
 and `--supervise` under injected faults, beside BASELINE configs 2 and
-4 against their brute oracles with K1 at steerable width), checks the
+4 against their brute oracles with K1 at steerable width; and the
+telemetry layer: the headline through `synth` with `--health` and
+`--metrics-port`, its live exporter scraped while it runs, `health` and
+`report` on its directory, the compressed arm's three byte ledgers, the
+telemetry layers' overhead and the K1 bench), checks the
 outputs and their PSNR against the brute oracle, and the batch and
 video runners' isolation and gates, and prints one JSON line per
 phase.  The line before the
@@ -54,6 +60,7 @@ import argparse
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -67,7 +74,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 PHASES = ("k1", "k2", "k3", "k1i8", "headline", "compressed", "config1",
-          "quality", "profile", "lean", "batch", "video", "cli")
+          "quality", "profile", "lean", "batch", "video", "cli", "telemetry")
 HEADLINE = dict(levels=5, matcher="patchmatch", em_iters=2, pm_iters=6,
                 pm_polish_iters=1, device="cuda")
 
@@ -714,9 +721,13 @@ def profile_call(fn, arm):
     rows, host = [], []
     for ev in prof.key_averages():
         # Device-side events (kernels, memcpy, memset) apart: the CPU ops
-        # that launched them carry the same device time again.
+        # that launched them carry the same device time again.  The
+        # `tlm_*` ranges also appear on the device side, spanning their
+        # kernels: they are not device work of their own.
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             host.append((ev.self_cpu_time_total, ev.key, ev.count))
+            continue
+        if ev.key.startswith("tlm_"):
             continue
         t = getattr(ev, "self_device_time_total",
                     getattr(ev, "self_cuda_time_total", 0.0))
@@ -1696,12 +1707,18 @@ def run_cli(args, env=None, timeout=900):
     """One `python -m image_analogies_tpu_torch.cli` process from the
     repository root: (its wall in seconds, its stdout); raises on a
     non-zero exit."""
+    return run_cli_module("image_analogies_tpu_torch.cli", args, env,
+                          timeout)
+
+
+def run_cli_module(module, args, env=None, timeout=900):
+    """`run_cli` for any module of the port run with `python -m`."""
     import os
 
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     res = subprocess.run(
-        [sys.executable, "-m", "image_analogies_tpu_torch.cli", *args],
+        [sys.executable, "-m", module, *args],
         cwd=root, capture_output=True, text=True, timeout=timeout,
         env={**os.environ, **(env or {})},
     )
@@ -2049,6 +2066,463 @@ def phase_cli(dev, smi, l2_rate, sizes=(1024, 512, 256)):
     return rec
 
 
+TELEMETRY_COMPRESSED_ENV = {"IA_CAND_DTYPE": "int8", "IA_CAND_PRUNE": "16:8",
+                            "IA_POLISH_MODE": "stream"}
+SCRAPE_ENDPOINTS = ("/metrics", "/healthz", "/progress")
+# One sample line of the text exposition: name{labels} value.
+EXPOSITION_LINE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})? \S+$")
+OVERHEAD_REPS = 9
+SCRAPE_HZ = 10.0
+
+
+def http_get(url, timeout=5.0):
+    """(status, body) of one GET; an HTTP error status is returned, not
+    raised."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def scrape_while_running(proc, td, poll_s=0.05):
+    """Scrape a running CLI process's live exporter (its URL from
+    `<td>/live.json`) until the process exits: each of `SCRAPE_ENDPOINTS`
+    in turn.  Returns {endpoint: [(status, parsed body or None)]} and the
+    count of refused connections (the exporter stops before the process
+    exits)."""
+    import os
+
+    got = {ep: [] for ep in SCRAPE_ENDPOINTS}
+    refused = 0
+    url = None
+    while proc.poll() is None:
+        if url is None:
+            try:
+                with open(os.path.join(td, "live.json")) as f:
+                    url = json.load(f)["url"]
+            except (FileNotFoundError, ValueError):
+                time.sleep(poll_s)
+                continue
+        for ep in SCRAPE_ENDPOINTS:
+            try:
+                code, body = http_get(url + ep)
+            except OSError:
+                refused += 1
+                continue
+            parsed = body.decode() if ep == "/metrics" else (
+                json.loads(body) if code in (200, 503) else None)
+            got[ep].append((code, parsed))
+        time.sleep(poll_s)
+    return got, refused
+
+
+def expected_fetches(size, cfg, budget=None):
+    """K1's candidate-window fetches of one run on a square image,
+    counted apart from the wrapper: per tile level, em_iters x pm_iters
+    launches of tiles x slots (the prune's M, else 36) x strips."""
+    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+    from image_analogies_tpu_torch.models import patchmatch as pm
+
+    total = 0
+    for lv in range(cfg.levels):
+        s = -(-size // 2**lv)
+        if s < 128:
+            continue
+        specs = pt.channel_specs(1, 1, cfg, lv < cfg.levels - 1)
+        geom = pt.tile_geometry(s, s, specs)
+        strips = geom.tile_h // pt.sweep_plan(len(specs), geom.halo)
+        total += cfg.em_iters * pm._pm_iters_for(cfg, s, s) * geom.n_ty \
+            * geom.n_tx * (budget or pt.K_TOTAL) * strips
+    return total
+
+
+def check_named(health, names, what):
+    """Raise unless each named check of `health` is ok with its observed
+    equal to its expected."""
+    by = {c["name"]: c for c in health["checks"]}
+    for name in names:
+        c = by[name]
+        if c["status"] != "ok" or c["expected"] != c["observed"]:
+            raise AssertionError(f"{what}: {name} {c['status']}: "
+                                 f"{c.get('expected')} != "
+                                 f"{c.get('observed')}")
+
+
+def run_traced_cli(args, td, env=None):
+    """One CLI process (its output to `<td>.log`) with its live exporter
+    scraped while it runs; returns (process wall s, scrapes, refused
+    connections)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    log = f"{td}.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "image_analogies_tpu_torch.cli", *args],
+            cwd=root, stdout=f, stderr=subprocess.STDOUT,
+            env={**os.environ, **(env or {})},
+        )
+    scrapes, refused = scrape_while_running(proc, td)
+    proc.wait(timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        with open(log) as f:
+            raise AssertionError(f"cli {args[0]} exited {proc.returncode}: "
+                                 f"{f.read()[-3000:]}")
+    return wall, scrapes, refused
+
+
+def check_scrapes(scrapes, what):
+    """Each endpoint answered 200 at least twice, never 503, with a
+    well-formed body; some /progress after a finished level carries an
+    ETA.  Returns a summary."""
+    summary = {}
+    for ep, rows in scrapes.items():
+        codes = [c for c, _ in rows]
+        if codes.count(200) < 2 or 503 in codes:
+            raise AssertionError(f"{what}: {ep} answered {codes}")
+        for code, body in rows:
+            if code != 200:
+                continue
+            if ep == "/metrics" and any(
+                    ln and not ln.startswith("#")
+                    and not EXPOSITION_LINE.match(ln)
+                    for ln in body.splitlines()):
+                raise AssertionError(f"{what}: /metrics body {body[:200]}")
+            if ep == "/healthz" and (body.get("kind") != "health"
+                                     or body["verdict"] == "violated"):
+                raise AssertionError(f"{what}: /healthz {body}")
+            if ep == "/progress" and "stack" not in body:
+                raise AssertionError(f"{what}: /progress {body}")
+        summary[ep] = {"answers": len(codes), "ok": codes.count(200),
+                       "other": sorted(set(codes) - {200})}
+    if not any("# TYPE ia_" in b for c, b in scrapes["/metrics"]
+               if c == 200):
+        raise AssertionError(f"{what}: /metrics never carried a family")
+    done = [b for c, b in scrapes["/progress"] if c == 200
+            and b["levels_done"]]
+    if not done or any(b["eta_s"] is None for b in done):
+        raise AssertionError(f"{what}: no ETA after a finished level "
+                             f"({len(done)} progress answers with levels)")
+    first = done[0]
+    summary["first_eta"] = {k: first[k] for k in (
+        "levels_done", "levels_total", "eta_s", "eta_basis")}
+    summary["healthz_verdicts"] = sorted({b["verdict"] for c, b in
+                                          scrapes["/healthz"] if c == 200})
+    return summary
+
+
+def min_paired_delta(bases, fulls):
+    """The reference's overhead estimator (tests/test_live.py): the least
+    paired delta over the median base wall, floored at 0 (a stall only
+    adds time, so the least delta is the cleanest pair)."""
+    return max(0.0, min(f - b for b, f in zip(bases, fulls))
+               / statistics.median(bases))
+
+
+def telemetry_overhead(sr, cfg, work):
+    """The headline's library wall in four arms, in turns, in this warm
+    process: telemetry off; spans + registry (the instrumented run, one
+    sync a level); the same with the live exporter and flight recorder
+    idle; and with a thread scraping /progress and /metrics at
+    `SCRAPE_HZ` while the run runs.  The published layers are the
+    reference's: `ia_telemetry_overhead_frac` (spans vs off) and
+    `ia_live_telemetry_overhead_frac` (scraped vs spans), each the min
+    paired delta; the idle arm and the scrapes' own latencies say where
+    a cost comes from.  Each instrumented arm keeps one tracer across its
+    runs, as the reference's measurement does."""
+    import threading
+
+    from image_analogies_tpu_torch import create_image_analogy
+    from image_analogies_tpu_torch.telemetry import MetricsRegistry, Tracer
+    from image_analogies_tpu_torch.telemetry.flight import FlightRecorder
+    from image_analogies_tpu_torch.telemetry.live import LiveTelemetryServer
+    from image_analogies_tpu_torch.telemetry.sentinel import (
+        check_telemetry_overhead,
+    )
+
+    def live_arm(name):
+        reg = MetricsRegistry()
+        tracer = Tracer(registry=reg)
+        rec = FlightRecorder(tracer, reg, f"{work}/{name}_flight.json")
+        tracer.add_observer(rec.observe)
+        return tracer, rec, LiveTelemetryServer(tracer, reg, port=0,
+                                                flight=rec).start()
+
+    span_tracer = Tracer(registry=MetricsRegistry())
+    idle = live_arm("idle")
+    scraped = live_arm("scraped")
+    latency = {"/progress": [], "/metrics": []}
+
+    def scraper(stop, url):
+        while not stop.wait(1.0 / SCRAPE_HZ):
+            for ep in latency:
+                t0 = time.perf_counter()
+                code, _ = http_get(url + ep)
+                latency[ep].append(1e3 * (time.perf_counter() - t0))
+                if code != 200:
+                    raise AssertionError(f"overhead scraper: {ep} {code}")
+
+    def run(tracer, url=None):
+        stop = threading.Event()
+        th = threading.Thread(target=scraper, args=(stop, url)) if url \
+            else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if th is not None:
+            th.start()
+        create_image_analogy(*sr, cfg, progress=tracer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if th is not None:
+            stop.set()
+            th.join()
+        return wall
+
+    arms = {"off": lambda: run(None), "spans": lambda: run(span_tracer),
+            "live_idle": lambda: run(idle[0]),
+            "live_scraped": lambda: run(scraped[0], scraped[2].url)}
+    walls = {name: [] for name in arms}
+    try:
+        for fn in arms.values():
+            fn()  # warm
+        for _ in range(OVERHEAD_REPS):
+            for name, fn in arms.items():
+                walls[name].append(fn())
+    finally:
+        for tracer, rec, srv in (idle, scraped):
+            srv.stop()
+            tracer.remove_observer(rec.observe)
+    reg = MetricsRegistry()
+    span_frac = min_paired_delta(walls["off"], walls["spans"])
+    live_frac = min_paired_delta(walls["spans"], walls["live_scraped"])
+    reg.gauge("ia_telemetry_overhead_frac").set(round(span_frac, 4))
+    reg.gauge("ia_live_telemetry_overhead_frac").set(round(live_frac, 4))
+    graded = check_telemetry_overhead(reg.to_dict())
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    return {
+        "walls_s": walls, "medians_s": med,
+        "telemetry_overhead_frac": span_frac,
+        "live_telemetry_overhead_frac": live_frac,
+        "live_idle_overhead_frac": min_paired_delta(walls["spans"],
+                                                    walls["live_idle"]),
+        "median_delta_frac": {
+            "spans_vs_off": med["spans"] / med["off"] - 1.0,
+            "live_idle_vs_spans": med["live_idle"] / med["spans"] - 1.0,
+            "live_scraped_vs_spans": med["live_scraped"] / med["spans"]
+            - 1.0},
+        "scrapes": {ep: len(v) for ep, v in latency.items()},
+        "scrape_ms_median": {ep: statistics.median(v) if v else None
+                             for ep, v in latency.items()},
+        "check": graded,
+    }
+
+
+def phase_telemetry(dev, smi, l2_rate, size=1024):
+    """The run sentinel, live exporter, merged report and K1 bench on the
+    card.  The headline through `synth` in a fresh process with
+    --trace-dir D --profile D --progress --health --metrics-port 0, its
+    exporter scraped while it runs; its health.json (not violated, the
+    candidate ledger exact, 48 K1 launches and the fetches counted apart),
+    `health` and `report` on D, both records through
+    tools/check_report.py, K1 under `tlm_match` in the trace; the
+    compressed arm (int8 + prune 16:8 + stream) with its three ledgers
+    exact; the telemetry layers' overhead on the headline in this
+    process; the K1 bench (events, CUDA graph, trace) with
+    `check_instrument_drift`.  `size` is the headline's; a smaller one
+    rehearses the phase on the CPU."""
+    import os
+    import shutil
+
+    from image_analogies_tpu_torch.config import SynthConfig
+    from image_analogies_tpu_torch.utils import kernelbench, torch_trace
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "telemetry_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    device = dev.type
+    rec = {"phase": "telemetry", "nvidia_smi": smi, "size": size}
+    # The headline's assets, as `examples` writes them.
+    from image_analogies_tpu_torch.utils.examples import super_resolution
+    from image_analogies_tpu_torch.utils.io import save_image
+
+    for tag, img in zip(("A", "Ap", "B"), super_resolution(size)):
+        save_image(f"{work}/super_resolution_{tag}.png", img)
+    cfg = SynthConfig(levels=5, matcher="patchmatch", em_iters=2,
+                      pm_iters=6, device=device)
+    n_k1, _ = expected_launches(size, cfg)
+
+    # The traced headline, scraped while it runs.
+    td = f"{work}/td"
+    wall, scrapes, refused = run_traced_cli(synth_args(
+        work, "super_resolution", f"{work}/headline.png", *CLI_HEADLINE,
+        "--device", device, "--trace-dir", td, "--profile", td,
+        "--progress", f"{work}/headline.jsonl", "--health",
+        "--metrics-port", "0"), td)
+    live = check_scrapes(scrapes, "traced headline")
+    with open(f"{td}/health.json") as f:
+        health = json.load(f)
+    if health["verdict"] == "violated":
+        raise AssertionError(f"traced headline: health {health}")
+    check_named(health, ["candidate_dma_model"], "traced headline")
+    with open(f"{td}/metrics.json") as f:
+        metrics = json.load(f)
+    launches = metrics["ia_kernel_launches_total"]["values"][
+        '{kernel="tile_sweep"}']
+    fetches = sum(metrics["ia_candidate_dma_fetches_total"][
+        "values"].values())
+    ledger = metrics["ia_candidate_dma_bytes_total"]["values"]
+    if launches != n_k1 or fetches != expected_fetches(size, cfg):
+        raise AssertionError(f"traced headline: {launches} K1 launches "
+                             f"(want {n_k1}), {fetches} fetches (want "
+                             f"{expected_fetches(size, cfg)})")
+    # `health` offline on the same directory gives the epilogue's verdict.
+    _, out = run_cli(["health", "--trace-dir", td, "--format", "json"])
+    with open(f"{td}/health.json") as f:
+        offline = json.load(f)
+    statuses = [(c["name"], c["status"]) for c in health["checks"]]
+    if offline["verdict"] != health["verdict"] or statuses != [
+            (c["name"], c["status"]) for c in offline["checks"]]:
+        raise AssertionError(f"health offline {offline} != epilogue "
+                             f"{health}")
+    run_cli(["report", "--trace-dir", td])
+    for rec_file in ("report.json", "health.json"):
+        res = subprocess.run([sys.executable, "tools/check_report.py",
+                              f"{td}/{rec_file}"], cwd=root,
+                             capture_output=True, text=True, timeout=120)
+        if res.returncode != 0:
+            raise AssertionError(f"check_report {rec_file}: {res.stdout}"
+                                 f"{res.stderr}")
+    with open(f"{td}/report.json") as f:
+        report = json.load(f)
+    level_dev = [lv["device_busy_ms"] for lv in report["levels"]]
+    total = report["device"]["total_busy_ms"]
+    if device == "cuda" and (None in level_dev or total is None
+                             or sum(level_dev) > total):
+        raise AssertionError(f"report: levels {level_dev}, total {total}")
+    summary = torch_trace.summarize(torch_trace.load_events(
+        torch_trace.find_trace(td)))
+    k1_keys = {k: ms for k, ms in summary["scoped_ops"].items()
+               if "tile_sweep_kernel" in k}
+    if device == "cuda" and (not k1_keys or any(
+            "tlm_match" not in k.split("/")[:-1] for k in k1_keys)):
+        raise AssertionError(f"report: K1 outside tlm_match {k1_keys}")
+    unscoped = sum(ms for k, ms in summary["scoped_ops"].items()
+                   if not k.startswith("tlm_"))
+    rec["headline"] = {
+        "process_wall_s": wall, "cli_wall_s": cli_done_wall(
+            f"{work}/headline.jsonl"),
+        "live": live, "refused_after_stop": refused,
+        "health_verdict": health["verdict"],
+        "health_counts": health["counts"],
+        "k1_launches": launches, "k1_fetches": fetches,
+        "candidate_ledger_bytes": ledger,
+        "report_levels": [{k: lv[k] for k in ("level", "wall_ms",
+                                              "device_busy_ms")}
+                          for lv in report["levels"]],
+        "report_prologue": report["prologue"],
+        "report_phases": report["phases"],
+        "device_total_busy_ms": total,
+        "k1_device_ms": sum(k1_keys.values()),
+        "k1_scopes": sorted({"/".join(k.split("/")[:-1]) for k in k1_keys}),
+        "device_ms_outside_ranges": unscoped,
+        "top_ops": report["device"]["top_ops"][:8],
+        "trace_bytes": os.path.getsize(torch_trace.find_trace(td)),
+    }
+    emit({"phase": "telemetry", "part": "headline", **rec["headline"]})
+
+    # The compressed arm: all three ledgers exact.
+    tdc = f"{work}/tdc"
+    wall, scrapes, refused = run_traced_cli(synth_args(
+        work, "super_resolution", f"{work}/compressed.png", *CLI_HEADLINE,
+        "--device", device, "--trace-dir", tdc, "--progress",
+        f"{work}/compressed.jsonl", "--health", "--metrics-port", "0"),
+        tdc, env=TELEMETRY_COMPRESSED_ENV)
+    check_scrapes(scrapes, "compressed arm")
+    with open(f"{tdc}/health.json") as f:
+        health_c = json.load(f)
+    if health_c["verdict"] == "violated":
+        raise AssertionError(f"compressed arm: health {health_c}")
+    check_named(health_c, ["candidate_dma_model", "polish_dma_model",
+                           "coarse_dma_model"], "compressed arm")
+    with open(f"{tdc}/metrics.json") as f:
+        metrics_c = json.load(f)
+    by = {c["name"]: c for c in health_c["checks"]}
+    if "int8" not in by["candidate_dma_model"]["observed"] or sum(
+            metrics_c["ia_candidate_dma_fetches_total"]["values"].values()
+    ) != expected_fetches(size, cfg, budget=8):
+        raise AssertionError(f"compressed arm: candidate ledger "
+                             f"{by['candidate_dma_model']}")
+    rec["compressed"] = {
+        "process_wall_s": wall, "refused_after_stop": refused,
+        "cli_wall_s": cli_done_wall(
+            f"{work}/compressed.jsonl"),
+        "health_verdict": health_c["verdict"],
+        "health_counts": health_c["counts"],
+        "ledgers": {name: by[name]["observed"] for name in (
+            "candidate_dma_model", "polish_dma_model", "coarse_dma_model")},
+        "polish_rows": metrics_c["ia_polish_dma_rows_total"]["values"],
+        "coarse_rows": metrics_c["ia_coarse_dma_rows_total"]["values"],
+    }
+    emit({"phase": "telemetry", "part": "compressed", **rec["compressed"]})
+
+    # The telemetry layers' cost on the headline, in this process.
+    rec["overhead"] = telemetry_overhead(
+        assets(work, "super_resolution"), cfg, work)
+    emit({"phase": "telemetry", "part": "overhead", **rec["overhead"]})
+
+    # The K1 bench at the headline's level-0 geometry, in a fresh process:
+    # a profiler session in this one, after the earlier phases' sessions,
+    # records only part of the launches, or none.
+    if device == "cuda":
+        _, out = run_cli_module(
+            "image_analogies_tpu_torch.utils.kernelbench",
+            ["--size", str(size)])
+        bench = json.loads(out.strip().splitlines()[-1])
+        if bench["instrument_drift"]["status"] != "ok":
+            raise AssertionError(f"kernelbench: {bench}")
+        # The same sweep launched alone on an idle queue, as `cuda_ms`
+        # times the kernel rows: the events then also span the wrapper's
+        # host time before the launch.  And the host cost of one launch's
+        # ledger booking, into a scratch registry.
+        from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+        from image_analogies_tpu_torch.telemetry import metrics as tm
+
+        one_iter, s0, meta = kernelbench.sweep_setup(cfg, size)
+        bench["kernel_sweep_ms_single_idle_queue"] = cuda_ms(
+            lambda: one_iter(*s0))
+        _, flops, nbytes = k1_flops_bytes(meta["args"], meta["kw"], 4)
+        bench.update(
+            bound_ms=bound_ms(flops, nbytes), flops=flops, bytes=nbytes,
+            bound_by="operations" if flops / PEAK_FP32_FLOPS
+            >= nbytes / PEAK_BYTES else "bytes",
+            l2_floor_ms=1e3 * meta["window_bytes"] / l2_rate,
+            l2_read_bytes_per_s=l2_rate)
+        prev = tm.set_registry(tm.MetricsRegistry())
+        try:
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                pt.book_launch(1, 4, 16, 2, "bf16")
+            bench["k1_booking_us_per_launch"] = (time.perf_counter()
+                                                 - t0) * 1e3
+        finally:
+            tm.set_registry(prev)
+        rec["kernelbench"] = bench
+        emit({"phase": "telemetry", "part": "kernelbench", **bench})
+    shutil.rmtree(work, ignore_errors=True)
+    rec["phase_wall_s"] = time.perf_counter() - t_phase
+    emit({"phase": "telemetry", "part": "done",
+          "phase_wall_s": rec["phase_wall_s"]})
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2085,7 +2559,7 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(0)
     case = real = l2_rate = None
-    if phases & {"k1", "k1i8", "cli"}:
+    if phases & {"k1", "k1i8", "cli", "telemetry"}:
         l2_rate = kernels.l2_read_rate(dev)
         emit({"phase": "l2", "nvidia_smi": smi,
               "l2_read_bytes_per_s": l2_rate})
@@ -2115,6 +2589,8 @@ def main(argv=None) -> int:
     if "video" in phases:
         phase_video(dev, smi)
     cli = phase_cli(dev, smi, l2_rate) if "cli" in phases else {}
+    if "telemetry" in phases:
+        phase_telemetry(dev, smi, l2_rate)
 
     kernels_line = []
     if k1:

@@ -5,6 +5,9 @@ Subcommands:
   batch     A + A' + a directory of frames -> stylized frames
   video     A + A' + a frame sequence -> stylized frames, warm-started
   examples  write the procedural example assets
+  health    the run sentinel over a traced run's directory -> health.json
+  report    a traced run's host spans joined with its device trace ->
+            report.json
 
 The flags are the reference CLI's (`image_analogies_tpu/cli.py`), with
 `--device {cuda,cpu}` (default cuda; a run without a card raises unless
@@ -15,14 +18,19 @@ the reference's compilation cache.
 Flags of parts not ported yet keep the reference's parser, so a bad
 value still fails at parse time, and then stop the run with a message
 naming the ROADMAP step that ports them: `--spatial`, `--sharded-a`,
-`--bands`, `--n-devices` (step 14, multi-device) and `--health`,
-`--metrics-port` (step 12, the run sentinel and live exporter).
+`--bands`, `--n-devices` (step 14, multi-device).
 
 `--trace-dir DIR` writes the telemetry artifacts (host_spans.json,
 metrics.json, metrics.prom, flight.json) and costs one device sync a
 level; `--profile DIR` writes a `torch.profiler` trace of the run
 (`torch_trace.json`) and adds no sync of its own.  The two are
-independent: a run may take both.
+independent: a run may take both, and `report` joins them when they
+name the same directory.  `--health` grades the finished run with the
+run sentinel (health.json beside the artifacts; a violated verdict
+flushes the flight recorder); `--metrics-port PORT` serves /metrics,
+/metrics.json, /healthz and /progress while the run runs (0: an
+ephemeral port, announced in `<trace-dir>/live.json`).  Both imply the
+instrumented run (one device sync a level).
 """
 
 from __future__ import annotations
@@ -158,12 +166,20 @@ def _add_synth_flags(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--health", action="store_true",
-        help="run sentinel (not ported yet: ROADMAP Queue 1 step 12)",
+        help="evaluate the run sentinel at the end of the run "
+        "(expected-vs-observed byte-ledger checks + span/energy "
+        "invariants, telemetry/sentinel.py), print the verdict, and write "
+        "health.json beside the other --trace-dir artifacts.  Implies "
+        "instrumentation (one device sync a level)",
     )
     p.add_argument(
         "--metrics-port", type=int, default=None, metavar="PORT",
-        help="live telemetry endpoint (not ported yet: ROADMAP Queue 1 "
-        "step 12)",
+        help="serve live telemetry mid-run on 127.0.0.1:PORT (0 = "
+        "ephemeral port): /metrics (Prometheus exposition), /metrics.json, "
+        "/healthz (incremental sentinel verdict; HTTP 503 when violated), "
+        "/progress (open span stack + model-calibrated ETA).  The bound "
+        "endpoint is announced in <trace-dir>/live.json when --trace-dir "
+        "is set.  Implies instrumentation (one device sync a level)",
     )
 
 
@@ -173,8 +189,6 @@ _UNPORTED = (
     ("sharded_a", "--sharded-a", "step 14 (multi-device runners)"),
     ("bands", "--bands", "step 14 (multi-device runners)"),
     ("n_devices", "--n-devices", "step 14 (multi-device runners)"),
-    ("health", "--health", "step 12 (the run sentinel)"),
-    ("metrics_port", "--metrics-port", "step 12 (the live exporter)"),
 )
 
 
@@ -222,6 +236,36 @@ def _config_from(args):
     )
 
 
+def _emit_health(tracer, trace_dir, context: str) -> None:
+    """The `--health` epilogue of synth, batch and video: the sentinel
+    over the finished run's tracer and registry, health.json beside the
+    other artifacts when a telemetry directory exists, and the verdict
+    printed.  A violated verdict flushes the flight recorder, reached
+    through the handle the session left on the tracer (the session has
+    torn down by now: the outputs are saved first)."""
+    from .telemetry.sentinel import (
+        HEALTH_FILE,
+        evaluate_health,
+        render_health,
+        write_health,
+    )
+
+    health = evaluate_health(
+        spans=tracer.to_dict() if tracer.enabled else None,
+        metrics=(
+            tracer.registry.to_dict()
+            if tracer.registry is not None else None
+        ),
+        context=context,
+    )
+    if trace_dir:
+        write_health(health, os.path.join(trace_dir, HEALTH_FILE))
+    recorder = getattr(tracer, "flight_recorder", None)
+    if recorder is not None and health["verdict"] == "violated":
+        recorder.flush("violation")
+    print(render_health(health))
+
+
 def _apply_cand_compression(args) -> None:
     """Install --cand-dtype / --pca-prune process-wide (module switches,
     not config fields); a malformed prune spec fails before the images
@@ -239,13 +283,16 @@ def _apply_cand_compression(args) -> None:
 def _start(args):
     """What every synthesis command does first: refuse unported flags,
     install the compression modes, configure, and decide whether the run
-    is instrumented (a progress stream, a telemetry directory or the
-    supervisor; `--profile` alone is not).  Returns (cfg, ckpt_dir,
-    ckpt_ephemeral, instrument)."""
+    is instrumented (a progress stream, a telemetry directory, the
+    sentinel, the live exporter or the supervisor; `--profile` alone is
+    not).  Returns (cfg, ckpt_dir, ckpt_ephemeral, instrument)."""
     _refuse_unported(args)
     _apply_cand_compression(args)
     cfg = _config_from(args)
-    instrument = bool(args.progress or args.trace_dir or args.supervise)
+    instrument = bool(
+        args.progress or args.trace_dir or args.health
+        or args.metrics_port is not None or args.supervise
+    )
     cfg, ckpt_dir, ephemeral = _force_ckpt_dir(args, cfg)
     return cfg, ckpt_dir, ephemeral, instrument
 
@@ -256,6 +303,7 @@ def _session(args, progress, instrument, cfg):
     return telemetry_session(
         args.profile, sink=progress, enabled=instrument,
         artifact_dir=args.trace_dir, cuda=cfg.device == "cuda",
+        metrics_port=args.metrics_port,
     )
 
 
@@ -299,6 +347,10 @@ def cmd_synth(args) -> int:
         events.emit("done", wall_s=round(time.perf_counter() - t0, 3))
     save_image(args.out, bp)
     print(f"wrote {args.out} ({time.perf_counter() - t0:.2f}s)")
+    # After the output is saved: a verdict or its IO never discards a
+    # finished synthesis.
+    if args.health:
+        _emit_health(tracer, args.trace_dir, "synth")
     return 0
 
 
@@ -407,7 +459,7 @@ def _run_frames(args, cfg, ckpt_dir, ckpt_ephemeral, instrument, progress,
                 run):
     """batch and video: the session around `run(frames, tracer,
     resume_from, strict)`, supervised or not; returns (outputs on the
-    host, names, failures, t0)."""
+    host, names, failures, t0, the session's tracer)."""
     from .models.analogy import ResumeError
     from .parallel.batch import ingest_frame_dir
     from .utils.io import load_image
@@ -437,7 +489,7 @@ def _run_frames(args, cfg, ckpt_dir, ckpt_ephemeral, instrument, progress,
             except ResumeError as e:
                 raise SystemExit(str(e))
         bps = bps.cpu()
-    return bps, names, failures, t0
+    return bps, names, failures, t0, tracer
 
 
 def _write_frames(args, names, bps, failures, progress) -> None:
@@ -472,11 +524,13 @@ def cmd_batch(args) -> int:
             resume_from=resume_from, resume_strict=strict, progress=prog,
         )
 
-    bps, names, failures, t0 = _run_frames(
+    bps, names, failures, t0, tracer = _run_frames(
         args, cfg, ckpt_dir, ckpt_ephemeral, instrument, progress, run)
     _write_frames(args, names, bps, failures, progress)
     print(f"wrote {len(names)} frames to {args.out} "
           f"({time.perf_counter() - t0:.2f}s)")
+    if args.health:
+        _emit_health(tracer, args.trace_dir, "batch")
     return 0
 
 
@@ -498,11 +552,13 @@ def cmd_video(args) -> int:
             resume_strict=strict, progress=prog,
         )
 
-    bps, names, failures, t0 = _run_frames(
+    bps, names, failures, t0, tracer = _run_frames(
         args, cfg, ckpt_dir, ckpt_ephemeral, instrument, progress, run)
     _write_frames(args, names, bps, failures, progress)
     print(f"wrote {len(names)} frames to {args.out} "
           f"({time.perf_counter() - t0:.2f}s, warm={args.warm or 'on'})")
+    if args.health:
+        _emit_health(tracer, args.trace_dir, "video")
     return 0
 
 
@@ -527,6 +583,62 @@ def cmd_examples(args) -> int:
         save_image(os.path.join(args.out, f"npr_frame_{i}.png"), f)
     print(f"wrote example assets to {args.out}")
     return 0
+
+
+def cmd_report(args) -> int:
+    """Merge a traced run's host spans with its device trace into
+    report.json and a table (telemetry/report.py)."""
+    import json
+
+    from .telemetry.report import (
+        REPORT_FILE,
+        build_report,
+        render_table,
+        write_report,
+    )
+
+    try:
+        report = build_report(
+            trace_dir=args.trace_dir, progress_path=args.progress
+        )
+    except (FileNotFoundError, ValueError) as e:
+        raise SystemExit(f"report: {e}")
+    out = args.out or os.path.join(args.trace_dir, REPORT_FILE)
+    write_report(report, out)
+    if args.format == "json":
+        print(json.dumps(report, indent=1))
+    else:
+        print(render_table(report))
+    print(f"wrote {out}")
+    return 0
+
+
+def cmd_health(args) -> int:
+    """Offline run sentinel: evaluate a traced run's telemetry directory
+    (host_spans.json + metrics.json), write health.json beside them, and
+    exit 1 on a violated verdict (telemetry/sentinel.py)."""
+    import json
+
+    from .telemetry.sentinel import (
+        HEALTH_FILE,
+        health_from_trace_dir,
+        render_health,
+        write_health,
+    )
+
+    try:
+        health = health_from_trace_dir(args.trace_dir)
+    except (FileNotFoundError, ValueError) as e:
+        # ValueError: a corrupt metrics.json (unparseable label keys).
+        raise SystemExit(f"health: {e}")
+    out = args.out or os.path.join(args.trace_dir, HEALTH_FILE)
+    write_health(health, out)
+    if args.format == "json":
+        print(json.dumps(health, indent=1))
+    else:
+        print(render_health(health))
+    print(f"wrote {out}")
+    return 1 if health["verdict"] == "violated" else 0
 
 
 def _add_frames_flags(p: argparse.ArgumentParser) -> None:
@@ -597,6 +709,49 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="examples")
     p.add_argument("--size", type=int, default=256)
     p.set_defaults(fn=cmd_examples)
+
+    p = sub.add_parser(
+        "report",
+        help="merge a traced run's host spans + device trace into "
+        "report.json (input: a synth/batch/video directory given as both "
+        "--trace-dir and --profile)",
+    )
+    _add_common_flags(p)
+    p.add_argument(
+        "--trace-dir", required=True, metavar="DIR",
+        help="telemetry directory a traced run wrote "
+        "(host_spans.json / metrics.json / torch_trace.json)",
+    )
+    p.add_argument(
+        "--progress", default=None, metavar="JSONL",
+        help="progress stream to reconstruct host spans from when the "
+        "trace dir has no host_spans.json",
+    )
+    p.add_argument(
+        "--out", default=None,
+        help="report path (default: <trace-dir>/report.json)",
+    )
+    p.add_argument("--format", default="table", choices=["table", "json"])
+    p.set_defaults(fn=cmd_report)
+
+    p = sub.add_parser(
+        "health",
+        help="run sentinel over a traced run's telemetry directory: "
+        "expected-vs-observed model checks + run invariants -> "
+        "health.json (exit 1 on a violated verdict)",
+    )
+    _add_common_flags(p)
+    p.add_argument(
+        "--trace-dir", required=True, metavar="DIR",
+        help="telemetry directory a traced run wrote "
+        "(host_spans.json / metrics.json)",
+    )
+    p.add_argument(
+        "--out", default=None,
+        help="health path (default: <trace-dir>/health.json)",
+    )
+    p.add_argument("--format", default="table", choices=["table", "json"])
+    p.set_defaults(fn=cmd_health)
 
     args = parser.parse_args(argv)
     from .utils.progress import configure_logging

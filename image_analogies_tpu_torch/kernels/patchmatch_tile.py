@@ -48,7 +48,11 @@ overrides and setters, resolved once per matcher call):
     slots with batched window gathers);
   - `tile_sweep`: the dispatch by device;
   - `unexplained_offsets`: where two sweeps' offsets differ other than
-    at ties, for holding the kernel against a reference.
+    at ties, for holding the kernel against a reference;
+  - `candidate_window_bytes_per_fetch`, `coarse_dma_bytes_per_row`: the
+    byte models of K1's A windows and of the prune's row gather, which
+    price the telemetry ledgers the kernel wrapper and the prune book
+    on CUDA tensors (telemetry/metrics.py, telemetry/sentinel.py).
 """
 
 from __future__ import annotations
@@ -63,7 +67,14 @@ import torch
 import torch.nn.functional as F
 
 from ..config import SynthConfig
-from ..telemetry.metrics import count_kernel_launch
+from ..telemetry.metrics import (
+    count_candidate_dma_bytes,
+    count_candidate_dma_fetches,
+    count_coarse_dma_bytes,
+    count_coarse_dma_rows,
+    count_kernel_launch,
+    get_registry,
+)
 from . import LaunchCounter, check, library, on_cuda, require, stream_ptr
 
 LANE = 128
@@ -502,10 +513,20 @@ def prune_candidates(cand_y, cand_x, cand_valid, proj_b_tiles, qy, qx,
     top `m_keep` valid ones; returns the new int32 `cand_valid`.  Invalid
     candidates rank at +inf and are never resurrected; the stable double
     argsort keeps earlier slots on ties, as the reference's does.
-    `proj_b_tiles` is (n_ty, n_tx, S, k), `proj_a_flat` (ha * wa, k)."""
+    `proj_b_tiles` is (n_ty, n_tx, S, k), `proj_a_flat` (ha * wa, k).
+    On CUDA tensors the gather's rows and bytes are booked
+    (`coarse_dma_bytes_per_row`)."""
     k = proj_a_flat.shape[-1]
     py = (qy[..., None, :] + cand_y[..., :, None].long()).clamp(0, ha - 1)
     px = (qx[..., None, :] + cand_x[..., :, None].long()).clamp(0, wa - 1)
+    if on_cuda(proj_a_flat):
+        itemsize = proj_a_flat.element_size()
+        n_rows = py.numel()
+        moved, useful = coarse_dma_bytes_per_row(k, itemsize)
+        with get_registry().unit():
+            count_coarse_dma_bytes(useful=n_rows * useful,
+                                   padded=n_rows * (moved - useful))
+            count_coarse_dma_rows(n_rows, k, itemsize)
     rows = proj_a_flat.index_select(0, (py * wa + px).reshape(-1))
     diff = rows.reshape(*py.shape, k).float() \
         - proj_b_tiles[..., None, :, :].float()
@@ -753,20 +774,70 @@ def kernel_fits(specs) -> bool:
     return 1 <= halo <= MAX_HALO and sweep_plan(len(specs), halo) is not None
 
 
+def candidate_window_bytes_per_fetch(n_chan: int, rows: int, halo: int,
+                                     cand_dtype: Optional[str] = None):
+    """(moved, useful) bytes of one candidate fetch of K1, a fetch being
+    one valid slot of one strip of `rows` output rows: the A window
+    `csrc/tile_sweep.cu` pulls from L2 through L1 into registers, C
+    planes x (rows + 2 * halo) rows x 128 columns at the plane itemsize
+    (4 for float32 planes, 1 under "int8").  Every element loaded enters
+    a squared channel difference, and the kernel loads nothing beyond the
+    window, so `useful` equals `moved`: no padded bytes (the reference's
+    TPU fetches padded sublanes; the card has no such layout).  What the
+    model leaves out is the memory system's granule: a window row starts
+    at any column, so it touches one 32-byte sector more than its bytes
+    need unless its start is sector-aligned.  The one model the
+    candidate-DMA ledger, the sentinel and `window_bytes` (the L2 floor)
+    price with."""
+    item = 1 if resolve_cand_dtype(cand_dtype) == "int8" else 4
+    moved = n_chan * (rows + 2 * halo) * LANE * item
+    return moved, moved
+
+
+def coarse_dma_bytes_per_row(k: int, itemsize: int = 4):
+    """(moved, useful) bytes of one row of the coarse pre-prune's
+    `index_select` over the (Na, k) projected table: the row in whole
+    32-byte sectors, and its k dims.  Exact for rows whose bytes are a
+    multiple of 32 (k = 16 float32 dims: 64 bytes, sector-aligned); a
+    narrower row that straddles a sector boundary moves one sector
+    more."""
+    if not 0 < k <= LANE:
+        raise ValueError(f"coarse dims {k} outside (0, {LANE}]")
+    useful = k * itemsize
+    return -(-useful // 32) * 32, useful
+
+
 def window_bytes(cand_valid, specs, geom: TileGeometry,
                  itemsize: int) -> int:
-    """The A-window bytes one launch pulls from L2: per valid slot and
-    strip, C x (rows + 2 * halo) x 128 elements."""
+    """The A-window bytes one launch pulls from L2 for the slots it
+    evaluates: valid slots x strips x `candidate_window_bytes_per_fetch`
+    (`itemsize` 1: int8 planes, else float32).  Reads `cand_valid` back,
+    so it is for measurement, never for the launch path."""
     rows = sweep_plan(len(specs), geom.halo)
-    strips = geom.tile_h // rows
-    return int((cand_valid > 0).sum()) * strips * len(specs) \
-        * (rows + 2 * geom.halo) * LANE * itemsize
+    moved, _ = candidate_window_bytes_per_fetch(
+        len(specs), rows, geom.halo, "int8" if itemsize == 1 else "bf16")
+    return int((cand_valid > 0).sum()) * (geom.tile_h // rows) * moved
+
+
+def book_launch(n_fetch: int, n_chan: int, rows: int, halo: int,
+                dtype: str) -> None:
+    """Book one K1 launch, its `n_fetch` candidate-window fetches and
+    their bytes (`candidate_window_bytes_per_fetch`) as one unit."""
+    moved, useful = candidate_window_bytes_per_fetch(n_chan, rows, halo,
+                                                     dtype)
+    with get_registry().unit():
+        count_kernel_launch("tile_sweep")
+        count_candidate_dma_bytes(useful=n_fetch * useful,
+                                  padded=n_fetch * (moved - useful),
+                                  dtype=dtype)
+        count_candidate_dma_fetches(n_fetch, n_chan, rows, halo, dtype)
 
 
 def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
                       off_y, off_x, dist, *, specs, geom: TileGeometry,
                       ha: int, wa: int, coh_factor: float,
-                      general: bool = False):
+                      general: bool = False,
+                      cand_budget: Optional[int] = None):
     """The CUDA kernel on CUDA tensors; same contract as
     `tile_sweep_plain`, for float32 or int8 A planes (the int8 mode
     dequantizes in the kernel and counts in `launches_int8`).  `general`
@@ -774,7 +845,13 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
     take the compile-time instantiation.  A leading frame axis F on the
     B side is the grid's z dimension: one launch sweeps every frame,
     each block's work is the single-frame launch's, and the launch
-    counts once.  Launches on the current stream."""
+    counts once.  Launches on the current stream.
+
+    Each launch books its candidate-window ledger beside its launch
+    count: F x tiles x `cand_budget` (the prune's M; default all
+    K_TOTAL slots) x strips fetches, each priced by
+    `candidate_window_bytes_per_fetch`.  That is the launch's static
+    bound: reading `cand_valid` back would cost a host sync a sweep."""
     n_f = _check_shapes(a_planes, b_planes, cand_y, off_y, specs, geom,
                         ha, wa)
     if n_f is None:
@@ -782,7 +859,7 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
             a_planes, b_planes[None], cand_y[None], cand_x[None],
             cand_valid[None], off_y[None], off_x[None], dist[None],
             specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=coh_factor,
-            general=general,
+            general=general, cand_budget=cand_budget,
         )
         return tuple(t[0] for t in out)
     if not kernel_fits(specs):
@@ -828,19 +905,22 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
     )
     check(err, "ia_tile_sweep")
     (launches_int8 if int8 else launches).add()
-    count_kernel_launch("tile_sweep")
+    book_launch(n_f * n_ty * n_tx * (cand_budget or K_TOTAL) * (th // rows),
+                c, rows, p, "int8" if int8 else "bf16")
     return oy_o, ox_o, d_o
 
 
 def tile_sweep(a_planes, b_planes, cand_y, cand_x, cand_valid, off_y,
                off_x, dist, *, specs, geom, ha, wa, coh_factor,
-               plain: bool = False, cand_dtype: Optional[str] = None):
+               plain: bool = False, cand_dtype: Optional[str] = None,
+               cand_budget: Optional[int] = None):
     """One sweep: the kernel for CUDA tensors, the plain version for CPU
     tensors, or the plain version on either device when `plain` (the
     explicit `pallas_mode="interpret"`).  The B side may carry a leading
     frame axis (one launch for all frames).  Raises when the A planes'
     dtype does not match the resolved `cand_dtype` (int8 planes for
-    "int8", float32 for "bf16")."""
+    "int8", float32 for "bf16").  `cand_budget`, the prune's M, prices
+    the kernel's candidate-window ledger (`tile_sweep_kernel`)."""
     mode = resolve_cand_dtype(cand_dtype)
     want = torch.int8 if mode == "int8" else torch.float32
     if a_planes.dtype != want:
@@ -849,11 +929,13 @@ def tile_sweep(a_planes, b_planes, cand_y, cand_x, cand_valid, off_y,
             f"{mode!r} (expected {want}): prepare_a_planes and the sweep "
             "must resolve the same compression mode"
         )
-    fn = (
-        tile_sweep_kernel if on_cuda(a_planes) and not plain
-        else tile_sweep_plain
-    )
-    return fn(
+    if on_cuda(a_planes) and not plain:
+        return tile_sweep_kernel(
+            a_planes, b_planes, cand_y, cand_x, cand_valid, off_y, off_x,
+            dist, specs=specs, geom=geom, ha=ha, wa=wa,
+            coh_factor=coh_factor, cand_budget=cand_budget,
+        )
+    return tile_sweep_plain(
         a_planes, b_planes, cand_y, cand_x, cand_valid, off_y, off_x, dist,
         specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=coh_factor,
     )

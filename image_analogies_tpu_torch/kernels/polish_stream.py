@@ -15,17 +15,23 @@ path: rows wider than the B side are sliced back before the float32 math
   - `gather_rows`: the dispatch by device, plus `plain` for
     `pallas_mode="interpret"`.
 
-The reference books telemetry counters of the fetched bytes and rows in
-`gather_rows`; the port has no telemetry yet.
+The kernel path books the fetched rows and their bytes
+(`polish_dma_bytes_per_fetch`, the row K3 copies) in the telemetry
+ledger the run sentinel prices; the plain path books nothing.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..telemetry.metrics import (
+    count_polish_dma_bytes,
+    count_polish_dma_rows,
+    get_registry,
+)
 from . import LaunchCounter, check, library, on_cuda, require, stream_ptr
 
 LANE = 128
@@ -51,7 +57,10 @@ def polish_dma_bytes_per_fetch(d_useful: int, itemsize: int = 2,
                                cand_dtype: str = "bf16") -> Tuple[int, int]:
     """(moved, useful) bytes of one candidate-row fetch: the LANE-padded
     row (next 128-lane multiple past LANE) and the unpadded width, both
-    plus the float32 scale under "int8"."""
+    plus the float32 scale under "int8".  For a width up to LANE, `moved`
+    is what `csrc/row_gather.cu` copies a row: the whole (Na, LANE) row of
+    `prepare_polish_table`, LANE x itemsize bytes in 16-byte chunks (256
+    bytes bf16, 128 int8)."""
     if d_useful <= 0:
         raise ValueError(f"d_useful {d_useful} must be positive")
     scale = _SCALE_BYTES if cand_dtype == "int8" else 0
@@ -92,10 +101,27 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, flat)
 
 
-def gather_rows_kernel(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def book_polish_rows(m: int, d_useful: int, itemsize: int,
+                     cand_dtype: str) -> None:
+    """Book `m` polish row fetches, their bytes and rows as one unit."""
+    moved, useful = polish_dma_bytes_per_fetch(d_useful, itemsize,
+                                               cand_dtype)
+    with get_registry().unit():
+        count_polish_dma_bytes(useful=m * useful, padded=m * (moved - useful),
+                               dtype=cand_dtype)
+        count_polish_dma_rows(m, d_useful, itemsize, cand_dtype)
+
+
+def gather_rows_kernel(table: torch.Tensor, idx: torch.Tensor, *,
+                       useful_width: Optional[int] = None,
+                       cand_dtype: str = "bf16") -> torch.Tensor:
     """The CUDA kernel on a contiguous (Na, LANE) CUDA table of any
     1-, 2- or 4-byte dtype and CUDA indices; same contract as
-    `gather_rows_plain`.  Launches on the current stream."""
+    `gather_rows_plain`.  Launches on the current stream, and books the
+    launch's rows in the polish ledger (`book_polish_rows`), priced at
+    `useful_width` (the unpadded feature width; default LANE) and
+    `cand_dtype` ("int8": the caller gathers the per-row scales beside
+    these rows, so the pricing adds them)."""
     _check_table(table)
     require(table, table.dtype, table.shape, "gather_rows table")
     flat = idx.reshape(-1).long().contiguous()
@@ -113,14 +139,19 @@ def gather_rows_kernel(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     )
     check(err, "ia_gather_rows")
     launches.add()
+    book_polish_rows(m, useful_width or LANE, table.element_size(),
+                     cand_dtype)
     return out
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor, *,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False, useful_width: Optional[int] = None,
+                cand_dtype: str = "bf16") -> torch.Tensor:
     """Row gather: the kernel for CUDA tensors, the plain version for CPU
     tensors, or the plain version on either device when `plain` (the
-    explicit `pallas_mode="interpret"`)."""
+    explicit `pallas_mode="interpret"`).  `useful_width` and
+    `cand_dtype` price the kernel's ledger (`gather_rows_kernel`)."""
     if on_cuda(table) and not plain:
-        return gather_rows_kernel(table, idx)
+        return gather_rows_kernel(table, idx, useful_width=useful_width,
+                                  cand_dtype=cand_dtype)
     return gather_rows_plain(table, idx)

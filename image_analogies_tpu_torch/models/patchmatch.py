@@ -331,11 +331,14 @@ _JUMP_STEPS = (8, 4, 2, 1)
 def _stream_gather_fn(f_a_tab: torch.Tensor, plain: bool):
     """`gather_fn` of the streamed polish: kernel K3 over a LANE-padded
     copy of the table, built once per polish call.  `candidate_dist`
-    slices the rows back to the feature width, dropping only zero pad."""
+    slices the rows back to the feature width, dropping only zero pad;
+    that width prices K3's ledger."""
     from ..kernels.polish_stream import gather_rows, prepare_polish_table
 
+    d_useful = f_a_tab.shape[1]
     f_a_pad = prepare_polish_table(f_a_tab)
-    return lambda _tab, ix: gather_rows(f_a_pad, ix, plain=plain)
+    return lambda _tab, ix: gather_rows(f_a_pad, ix, plain=plain,
+                                        useful_width=d_useful)
 
 
 def _polish_gather_fn(f_a_tab: torch.Tensor, plain: bool, cand_dtype: str,
@@ -346,8 +349,16 @@ def _polish_gather_fn(f_a_tab: torch.Tensor, plain: bool, cand_dtype: str,
     dequantized q * scale next to the distance math; under "stream"
     through kernel K3, else by `index_select`, the scales by
     `index_select` beside them either way.  The jump engine keeps its
-    exact tables and never calls this, as in the reference."""
+    exact tables and never calls this, as in the reference.
+
+    Both int8 engines book the polish ledger at the table's feature
+    width: K3 where it launches, the
+    `index_select` engine here on CUDA tensors, priced as the reference
+    prices its take path, by `polish_dma_bytes_per_fetch` (a LANE-wide
+    row plus the scale).  What `index_select` reads on the card for a
+    68-byte int8 row is 3-4 sectors of 32 bytes, and one for the scale."""
     from ..kernels.polish_stream import (
+        book_polish_rows,
         gather_rows,
         prepare_polish_table,
         quantize_rows,
@@ -356,18 +367,26 @@ def _polish_gather_fn(f_a_tab: torch.Tensor, plain: bool, cand_dtype: str,
     stream = polish_mode == "stream"
     if cand_dtype != "int8":
         return _stream_gather_fn(f_a_tab, plain) if stream else None
+    d_useful = f_a_tab.shape[1]
     q_tab, scales = quantize_rows(f_a_tab)
     if stream:
         q_pad = prepare_polish_table(q_tab)
 
         def gf(_tab, ix):
-            rows = gather_rows(q_pad, ix, plain=plain)
+            rows = gather_rows(q_pad, ix, plain=plain, useful_width=d_useful,
+                               cand_dtype="int8")
             return rows.float() * scales.index_select(0, ix.reshape(-1))
 
         return gf
 
+    from ..kernels import on_cuda
+
+    book = on_cuda(q_tab)
+
     def gf(_tab, ix):
         flat = ix.reshape(-1)
+        if book:
+            book_polish_rows(flat.numel(), d_useful, 1, "int8")
         return q_tab.index_select(0, flat).float() \
             * scales.index_select(0, flat)
 
@@ -676,6 +695,7 @@ def tile_patchmatch_lean(
             raw.a_planes, b_planes, cand_y, cand_x, cand_valid, oy, ox, d,
             specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=coh,
             plain=plain, cand_dtype=cand_dtype,
+            cand_budget=prune[1] if prune else None,
         )
     ky = (qy + oy[:, :h, :w].long()).clamp(0, ha - 1)
     kx = (qx + ox[:, :h, :w].long()).clamp(0, wa - 1)

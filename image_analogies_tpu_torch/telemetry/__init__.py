@@ -5,10 +5,18 @@
 - `metrics` — counters, gauges and histograms with JSON and Prometheus
   text exposition (`MetricsRegistry`, `get_registry`);
 - `flight`  — the bounded flight recorder flushed to flight.json on
-  SIGTERM / SIGINT / exit / watchdog / give-up.
+  SIGTERM / SIGINT / exit / watchdog / give-up / violation;
+- `sentinel` — the run sentinel: expected-vs-observed verdicts
+  (health.json), its byte ledgers priced by the port's kernels;
+- `slo`     — the serving SLO engine the sentinel's `check_slo` grades
+  with;
+- `live`    — the in-process HTTP exporter (/metrics, /metrics.json,
+  /healthz, /progress);
+- `report`  — host spans joined with the `torch.profiler` trace
+  (report.json; the trace reader is `utils/torch_trace.py`).
 
-Still to port (ROADMAP Queue 1): the run sentinel, the live exporter,
-the report joiner and the device-trace reader.
+Still to port, with the serving slice (ROADMAP Queue 1 step 13): the
+anomaly watches, the time-series ring and the telemetry archive.
 """
 
 from .flight import FLIGHT_FILE, FlightRecorder

@@ -7,18 +7,20 @@ update a registry; `to_dict()` feeds `metrics.json` and
 only and thread-safe (one lock per metric; host-side bookkeeping, never
 on a device path).  A copy of the reference's registry.
 
-The reference counts kernel launches at trace time (a counter bumped
-inside a jitted function counts compilations, not executions).  The
-port runs eagerly, so `count_kernel_launch` here counts real launches,
-one per kernel the wrapper starts.  Left out until their slices: the
-TPU DMA byte and row ledgers of the reference's candidate, polish and
-coarse fetches (priced by its TPU kernels' byte models; they return with
-the sentinel, priced by the port's kernels) and the collective-site
-counters of the multi-device runners.
+The reference counts kernel launches and DMA bytes at trace time (a
+counter bumped inside a jitted function counts compilations, not
+executions).  The port runs eagerly, so its counters book real launches
+and the bytes of each launch, where the wrapper starts its kernel.  A
+byte series and its structural twin (`ia_candidate_dma_bytes_total` and
+`ia_candidate_dma_fetches_total`, the polish and coarse pairs alike) are
+booked as one unit (`MetricsRegistry.unit`), which the expositions wait
+on: a live scrape never reads one without the other.  Left out until
+the multi-device slice: the collective-site counters.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, List, Optional, Tuple
 
@@ -367,6 +369,16 @@ class MetricsRegistry:
     def __init__(self):
         self._metrics: Dict[str, object] = {}
         self._lock = threading.Lock()
+        # Held across the increments of one booking unit and by every
+        # exposition, so a reader sees all of a unit or none of it.
+        self._unit_lock = threading.RLock()
+
+    @contextlib.contextmanager
+    def unit(self):
+        """Book several series as one unit: `to_dict` and
+        `to_prometheus` wait until the block has ended."""
+        with self._unit_lock:
+            yield self
 
     def _get(self, cls, name: str, help: str, **kw):
         with self._lock:
@@ -393,6 +405,10 @@ class MetricsRegistry:
 
     def to_dict(self) -> Dict[str, Dict]:
         """JSON exposition: {name: {kind, help, values}}."""
+        with self._unit_lock:
+            return self._to_dict()
+
+    def _to_dict(self) -> Dict[str, Dict]:
         return {
             name: {"kind": m.kind, "help": m.help, "values": m.to_dict()}
             for name, m in sorted(self._metrics.items())
@@ -405,6 +421,10 @@ class MetricsRegistry:
         `# TYPE` line, followed by every labeled child series — a
         histogram's `_bucket`/`_sum`/`_count` children all sit under
         the single family TYPE line."""
+        with self._unit_lock:
+            return self._to_prometheus()
+
+    def _to_prometheus(self) -> str:
         lines: List[str] = []
         for name, m in sorted(self._metrics.items()):
             if m.help:
@@ -471,6 +491,115 @@ def reset_registry() -> None:
     """Clear the default registry (test isolation)."""
     _global_registry.reset()
 
+
+def count_candidate_dma_bytes(useful: float, padded: float,
+                              dtype: str = "bf16") -> None:
+    """Book one K1 launch's candidate-window bytes: what the launch pulls
+    from L2 through L1 into registers for its A windows, split into the
+    bytes its distance consumes (`kind="useful"`) and those it loads
+    beside them (`kind="padded"`).  The per-fetch math is
+    `kernels.patchmatch_tile.candidate_window_bytes_per_fetch`, the model
+    `chip_smoke.py`'s L2 floor uses too; `dtype` is the candidate-table
+    mode ("bf16": float32 planes; "int8").  Booked by
+    `kernels/patchmatch_tile.tile_sweep_kernel` where it launches, with
+    `count_candidate_dma_fetches` in one `MetricsRegistry.unit`: a static
+    bound per launch (every slot, or the prune's M, of every tile and
+    strip), since the valid slots are never read back to the host."""
+    c = get_registry().counter(
+        "ia_candidate_dma_bytes_total",
+        "candidate-window bytes K1 launches pull from L2, split useful vs "
+        "padded, by candidate-table dtype (static bound per launch)",
+    )
+    c.inc(useful, labels={"kind": "useful", "dtype": dtype})
+    c.inc(padded, labels={"kind": "padded", "dtype": dtype})
+
+
+def count_polish_dma_bytes(useful: float, padded: float,
+                           dtype: str = "bf16") -> None:
+    """Book one polish row fetch's bytes read from device memory: the
+    whole LANE-wide row K3 (`kernels/polish_stream.gather_rows`) copies,
+    or `index_select` fetches on the int8 sequential polish, split into
+    the feature width the distance consumes (`kind="useful"`) and the
+    zero lanes beside it (`kind="padded"`); under "int8" both sides add
+    the per-row float32 scale.  The per-row math is
+    `kernels.polish_stream.polish_dma_bytes_per_fetch`; booked with
+    `count_polish_dma_rows` in one `MetricsRegistry.unit`, one booking
+    per gather call, on CUDA tensors only."""
+    c = get_registry().counter(
+        "ia_polish_dma_bytes_total",
+        "polish candidate-row bytes read per gather call, split useful vs "
+        "padded, by row-table dtype",
+    )
+    c.inc(useful, labels={"kind": "useful", "dtype": dtype})
+    c.inc(padded, labels={"kind": "padded", "dtype": dtype})
+
+
+def count_candidate_dma_fetches(
+    n_fetch: int, n_chan: int, rows: int, halo: int, dtype: str = "bf16",
+) -> None:
+    """Book one K1 launch's candidate-window FETCH count, a fetch being
+    one slot of one strip, with the {chan, rows, halo, dtype} labels that
+    price it: the structural twin of `count_candidate_dma_bytes`, from
+    which the run sentinel (telemetry/sentinel.py) recomputes the
+    expected bytes by `candidate_window_bytes_per_fetch`."""
+    get_registry().counter(
+        "ia_candidate_dma_fetches_total",
+        "candidate-window fetches per K1 launch (one slot of one strip), "
+        "labeled by the {chan, rows, halo, dtype} geometry that prices one "
+        "fetch (sentinel joins this against "
+        "candidate_window_bytes_per_fetch)",
+    ).inc(n_fetch, labels={
+        "chan": str(n_chan), "rows": str(rows), "halo": str(halo),
+        "dtype": dtype,
+    })
+
+
+def count_polish_dma_rows(
+    n_rows: int, d_useful: int, itemsize: int, dtype: str = "bf16"
+) -> None:
+    """Book one polish gather's ROW count with the {d_useful, itemsize,
+    dtype} labels that price a row: the structural twin of
+    `count_polish_dma_bytes` (the sentinel prices it by
+    `polish_dma_bytes_per_fetch`)."""
+    get_registry().counter(
+        "ia_polish_dma_rows_total",
+        "candidate rows fetched per polish gather call, labeled by the "
+        "{d_useful, itemsize, dtype} row pricing (sentinel joins this "
+        "against polish_dma_bytes_per_fetch)",
+    ).inc(n_rows, labels={
+        "d_useful": str(d_useful), "itemsize": str(itemsize),
+        "dtype": dtype,
+    })
+
+
+def count_coarse_dma_bytes(useful: float, padded: float) -> None:
+    """Book one coarse pre-prune's projected-row gather bytes
+    (`kernels.patchmatch_tile.prune_candidates`, an `index_select` of
+    (Na, k) rows): each row moves in whole 32-byte sectors, the k dims
+    the ranking consumes are `kind="useful"` and the rest of the last
+    sector `kind="padded"`.  The per-row math is
+    `kernels.patchmatch_tile.coarse_dma_bytes_per_row`; booked with
+    `count_coarse_dma_rows` in one `MetricsRegistry.unit`, once per
+    prune on CUDA tensors."""
+    c = get_registry().counter(
+        "ia_coarse_dma_bytes_total",
+        "PCA coarse pre-prune projected-row gather bytes, split useful vs "
+        "padded (32-byte sectors)",
+    )
+    c.inc(useful, labels={"kind": "useful"})
+    c.inc(padded, labels={"kind": "padded"})
+
+
+def count_coarse_dma_rows(n_rows: int, k: int, itemsize: int) -> None:
+    """Structural twin of `count_coarse_dma_bytes`: the coarse row count
+    with its {k, itemsize} pricing, which the sentinel prices by
+    `coarse_dma_bytes_per_row`."""
+    get_registry().counter(
+        "ia_coarse_dma_rows_total",
+        "PCA coarse pre-prune rows gathered, labeled by the {k, itemsize} "
+        "row pricing (sentinel joins this against "
+        "coarse_dma_bytes_per_row)",
+    ).inc(n_rows, labels={"k": str(k), "itemsize": str(itemsize)})
 
 
 def count_kernel_launch(kernel: str) -> None:

@@ -10,9 +10,11 @@ opens the `record_function` ranges that carry the reference's
 profiler it returns a shared no-op context after one falsy check.
 
 `telemetry_session` is the CLI's wrapper: the device trace, a span
-tracer with a fresh metrics registry, the flight recorder, and the
-end-of-run artifacts (host_spans.json, metrics.json, metrics.prom,
-flight.json) in one directory.
+tracer with a fresh metrics registry, the flight recorder, the live
+exporter (`--metrics-port`), and the end-of-run artifacts
+(host_spans.json, metrics.json, metrics.prom, flight.json) in one
+directory.  `utils/torch_trace.py` reads the trace back and
+`telemetry/report.py` joins it with the host spans.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Iterator, Optional
 
 import torch
 
-TRACE_FILE = "torch_trace.json"
+from .torch_trace import TRACE_FILE
 
 
 class _NullScope:
@@ -73,17 +75,22 @@ def device_trace(trace_dir: Optional[str],
 def telemetry_session(trace_dir: Optional[str], sink=None,
                       enabled: bool = True,
                       artifact_dir: Optional[str] = None,
-                      cuda: bool = False):
+                      cuda: bool = False,
+                      metrics_port: Optional[int] = None):
     """Device trace + span tracer + telemetry artifacts, as the
-    reference's session (its live exporter is not ported yet).
+    reference's session.
 
     Yields a `telemetry.Tracer`, disabled when `enabled` is False (the
     run then pays nothing).  An enabled session owns a fresh metrics
     registry, installed as the process default for its duration, so
     `metrics.json` counts this run (the kernel wrappers book their
-    launches through `get_registry()`).  With an `artifact_dir` it also
-    installs a flight recorder dumping to `<artifact_dir>/flight.json`
-    (IA_FLIGHT_RING events, 512 by default).
+    launches and byte ledgers through `get_registry()`).  With an
+    `artifact_dir` it also installs a flight recorder dumping to
+    `<artifact_dir>/flight.json` (IA_FLIGHT_RING events, 512 by default).
+    `metrics_port` (the CLI's `--metrics-port`; 0 = ephemeral) serves
+    /metrics, /metrics.json, /healthz and /progress from the live
+    exporter (telemetry/live.py) for the session, announced in
+    `<artifact_dir>/live.json`.
 
     `trace_dir` takes the `torch.profiler` trace (`device_trace`); the
     CLI passes `--profile` there, so `--trace-dir` alone never takes
@@ -98,7 +105,7 @@ def telemetry_session(trace_dir: Optional[str], sink=None,
     from ..telemetry import NULL_TRACER, MetricsRegistry, Tracer
     from ..telemetry.metrics import set_registry
 
-    flight = None
+    flight = live = None
     if enabled:
         reg = MetricsRegistry()
         tracer = Tracer(sink=sink, registry=reg)
@@ -106,17 +113,29 @@ def telemetry_session(trace_dir: Optional[str], sink=None,
     else:
         tracer = NULL_TRACER
         reg = prev_reg = None
+    # The flight and live setup sit inside the try: a failed bind (a
+    # fixed --metrics-port in use) unwinds the registry swap and the
+    # recorder's handlers through the same finally as the run.
     try:
         if enabled and artifact_dir:
             from ..telemetry.flight import install_for_session
 
             flight = install_for_session(tracer, reg, artifact_dir)
             # The supervisor's handle for its watchdog and give-up
-            # flushes.
+            # flushes, and the health epilogue's after teardown.
             tracer.flight_recorder = flight
+        if enabled and metrics_port is not None:
+            from ..telemetry.live import LiveTelemetryServer
+
+            live = LiveTelemetryServer(tracer, reg, port=metrics_port,
+                                       flight=flight).start()
+            if artifact_dir:
+                live.announce(artifact_dir)
         with device_trace(trace_dir, cuda=cuda):
             yield tracer
     finally:
+        if live is not None:
+            live.stop()
         if flight is not None:
             flight.uninstall()  # final flush, reason "session-end"
         if enabled:

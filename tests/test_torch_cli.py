@@ -6,8 +6,10 @@ the brute PNG against the JAX CLI's on the same assets (uint8 arrays
 equal except at rounding boundaries), the PatchMatch PNG against the
 port's library call bit for bit, `video` writing one frame per input
 and naming each in its progress stream, the telemetry directory, a
-supervised run healing a fault, and the flags of unported parts
-stopping the run with their ROADMAP step."""
+supervised run healing a fault, the flags of unported parts
+stopping the run with their ROADMAP step, and the step-12 flags
+(`--health`, `--metrics-port`) running, the health epilogue on every
+runner."""
 
 import json
 import os
@@ -228,8 +230,6 @@ def test_supervised_synth_heals_an_injected_fault(assets, tmp_path):
     (["--sharded-a"], "step 14"),
     (["--bands", "2"], "step 14"),
     (["--n-devices", "2"], "step 14"),
-    (["--health"], "step 12"),
-    (["--metrics-port", "0"], "step 12"),
 ])
 def test_unported_flags_stop_with_their_step(assets, tmp_path, flags, step):
     with pytest.raises(SystemExit) as exc:
@@ -238,6 +238,46 @@ def test_unported_flags_stop_with_their_step(assets, tmp_path, flags, step):
     assert "not ported" in str(exc.value.code)
     assert step in str(exc.value.code)
     assert not os.path.exists(tmp_path / "o.png")
+
+
+@pytest.mark.parametrize("flags,artifact", [
+    (["--health"], "health.json"),
+    (["--metrics-port", "0"], "live.json"),
+])
+def test_step12_flags_now_run(assets, tmp_path, capsys, flags, artifact):
+    """The run sentinel and the live exporter (ROADMAP Queue 1 step 12)
+    run: the synthesis writes its output and the flag its artifact."""
+    td = tmp_path / "td"
+    assert _run(_synth(assets) + [
+        "--out", str(tmp_path / "o.png"), "--levels", "1", "--em-iters",
+        "1", "--trace-dir", str(td)] + flags) == 0
+    assert os.path.exists(tmp_path / "o.png")
+    assert (td / artifact).exists()
+    if artifact == "health.json":
+        assert "health: OK" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("cmd", ["synth", "batch", "video"])
+def test_health_epilogue_on_every_runner(assets, tmp_path, capsys, cmd):
+    """`--health` grades synth, batch and video runs; without a trace
+    directory it prints the verdict and writes nothing."""
+    if cmd == "synth":
+        argv = _synth(assets) + ["--out", str(tmp_path / "o.png")]
+    else:
+        frames = tmp_path / "frames"
+        frames.mkdir()
+        b = load_image(os.path.join(assets, "texture_by_numbers_B.png"))
+        for i in range(2):
+            Image.fromarray(to_uint8(b)).save(frames / f"t{i:02d}.png")
+        argv = [cmd, "--a", os.path.join(assets, "texture_by_numbers_A.png"),
+                "--ap", os.path.join(assets, "texture_by_numbers_Ap.png"),
+                "--frames", str(frames), "--out", str(tmp_path / "out"),
+                "--device", "cpu"]
+    assert _run(argv + ["--levels", "1", "--em-iters", "1", "--health"]) == 0
+    out = capsys.readouterr().out
+    assert "health: OK" in out
+    assert "span_tree" in out
+    assert not os.path.exists(tmp_path / "health.json")
 
 
 def test_module_entry_point_runs_without_cuda(assets, tmp_path):

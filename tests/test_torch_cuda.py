@@ -534,3 +534,70 @@ def test_ann_matcher_on_the_card_equals_the_cpu(dev):
         outs[d] = (nnf.cpu(), dist.cpu())
     assert torch.equal(outs["cpu"][0], outs["cuda"][0])
     assert torch.equal(outs["cpu"][1], outs["cuda"][1])
+
+
+def test_k1_ledger_books_the_launch_bound_on_the_card(dev):
+    """Each K1 launch books fetches x window bytes as one unit, at its
+    static bound (every slot, or the prune's M), and the sentinel prices
+    it exactly."""
+    from image_analogies_tpu_torch.telemetry import metrics as tm
+    from image_analogies_tpu_torch.telemetry.sentinel import (
+        check_candidate_dma,
+    )
+    from image_analogies_tpu_torch.utils.kernelbench import sweep_setup
+
+    reg = tm.MetricsRegistry()
+    prev = tm.set_registry(reg)
+    try:
+        one_iter, s0, meta = sweep_setup(SynthConfig(), 256)
+        one_iter(*s0)
+        torch.cuda.synchronize()
+    finally:
+        tm.set_registry(prev)
+    geom = meta["geom"]
+    want = geom.n_ty * geom.n_tx * pt.K_TOTAL * (64 // meta["strip_rows"])
+    m = reg.to_dict()
+    assert sum(m["ia_candidate_dma_fetches_total"]["values"].values()) \
+        == want
+    res = check_candidate_dma(m)
+    assert res["status"] == "ok" and res["expected"] == res["observed"]
+
+
+def test_kernelbench_instruments_agree_on_the_card(dev, tmp_path):
+    from image_analogies_tpu_torch.telemetry.sentinel import (
+        check_instrument_drift,
+    )
+    from image_analogies_tpu_torch.utils import kernelbench
+
+    cfg = SynthConfig()
+    events, meta = kernelbench.sweep_time_ms(cfg, 256, iters=8)
+    loop, _ = kernelbench.sweep_time_device_loop_ms(cfg, 256, iters=8,
+                                                    reps=3)
+    trace = kernelbench.sweep_time_trace_ms(cfg, 256, iters=8,
+                                            trace_dir=str(tmp_path))
+    assert trace is not None and events > 0 and loop > 0
+    assert check_instrument_drift({"kernel_sweep_ms_loop": loop,
+                                   "kernel_sweep_ms_trace": trace[0]})[
+        "status"] == "ok"
+
+
+def test_profiled_k1_launches_sit_under_their_ranges(dev, tmp_path):
+    """A profiled tile-path run: every K1 kernel in the trace is
+    attributed to a tlm_L*/tlm_em*/tlm_match path by its launch."""
+    from image_analogies_tpu_torch import create_image_analogy
+    from image_analogies_tpu_torch.telemetry import Tracer
+    from image_analogies_tpu_torch.utils import torch_trace as tt
+    from image_analogies_tpu_torch.utils.examples import super_resolution
+    from image_analogies_tpu_torch.utils.profiling import device_trace
+
+    a, ap, b = (torch.as_tensor(x) for x in super_resolution(256))
+    cfg = SynthConfig(levels=2, em_iters=1, pm_iters=2)
+    create_image_analogy(a, ap, b, cfg)
+    with device_trace(str(tmp_path), cuda=True):
+        create_image_analogy(a, ap, b, cfg, progress=Tracer())
+        torch.cuda.synchronize()
+    scoped = tt.summarize(tt.load_events(tt.find_trace(str(tmp_path))))[
+        "scoped_ops"]
+    k1 = [k for k in scoped if "tile_sweep_kernel" in k]
+    assert k1 and all(k.startswith("tlm_L") and "/tlm_match/" in k
+                      for k in k1)

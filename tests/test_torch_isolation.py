@@ -42,6 +42,12 @@ def test_imports_without_jax():
         "image_analogies_tpu_torch.telemetry.metrics, "
         "image_analogies_tpu_torch.telemetry.spans, "
         "image_analogies_tpu_torch.telemetry.flight, "
+        "image_analogies_tpu_torch.telemetry.sentinel, "
+        "image_analogies_tpu_torch.telemetry.slo, "
+        "image_analogies_tpu_torch.telemetry.live, "
+        "image_analogies_tpu_torch.telemetry.report, "
+        "image_analogies_tpu_torch.utils.torch_trace, "
+        "image_analogies_tpu_torch.utils.kernelbench, "
         "image_analogies_tpu_torch.runtime.faults, "
         "image_analogies_tpu_torch.runtime.supervisor, "
         "image_analogies_tpu_torch.cli; "
@@ -81,6 +87,18 @@ def test_cli_telemetry_runtime_and_ann_modules_are_checked(rel):
     loader, the profiling and progress utilities and the ann matcher are
     among the files held to no JAX import below."""
     assert (PORT / rel) in set(PORT.rglob("*.py"))
+
+
+@pytest.mark.parametrize("rel", [
+    "telemetry/sentinel.py", "telemetry/slo.py", "telemetry/live.py",
+    "telemetry/report.py", "utils/torch_trace.py", "utils/kernelbench.py",
+])
+def test_sentinel_live_report_and_bench_modules_are_checked(rel):
+    """The run sentinel, the SLO engine, the live exporter, the report
+    joiner, the trace reader and the K1 bench are among the files held to
+    no JAX import below, and none names the repository's tools."""
+    assert (PORT / rel) in set(PORT.rglob("*.py"))
+    assert "tools" not in set(_imported_roots(PORT / rel))
 
 
 def test_native_library_builds_apart_from_the_reference():
