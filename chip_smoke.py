@@ -12,6 +12,8 @@
 
     python3 chip_smoke.py --phases telemetry   # sentinel, live, report, bench
 
+    python3 chip_smoke.py --phases serve   # serve + trace, takeover
+
 Builds the port's CUDA kernels from `image_analogies_tpu_torch/kernels/
 csrc/`, holds each kernel against its plain PyTorch version at the main
 path's shapes (K1 in float32 and int8 mode, on a seeded case and on the
@@ -37,12 +39,17 @@ and `--supervise` under injected faults, beside BASELINE configs 2 and
 telemetry layer: the headline through `synth` with `--health` and
 `--metrics-port`, its live exporter scraped while it runs, `health` and
 `report` on its directory, the compressed arm's three byte ledgers, the
-telemetry layers' overhead and the K1 bench), checks the
+telemetry layers' overhead and the K1 bench; and the serving daemon:
+`serve` processes on config 5's frames at 1024^2, grain 4, swept at 1,
+4 and 8 clients and past their depth limit, every answer bit-equal to
+the library's grain-4 dispatch, a session against `VideoStream`,
+`trace`, and a SIGKILL and takeover at 256^2), checks the
 outputs and their PSNR against the brute oracle, and the batch and
 video runners' isolation and gates, and prints one JSON line per
-phase.  The line before the
-last is the `kernels` summary; the last is `{"ok": true, "device":
-{...}}`.  Any
+phase, each with its `seconds` (also appended to
+`chiprun_out/chip_smoke.jsonl`, with the serve phase's SERVE record in
+`chiprun_out/serve_record.json`).  The line before the last is the
+`kernels` summary; the last is `{"ok": true, "device": {...}}`.  Any
 failed phase raises, so the script exits non-zero and prints no result
 line; so does a machine without a CUDA device.
 
@@ -74,7 +81,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 PHASES = ("k1", "k2", "k3", "k1i8", "headline", "compressed", "config1",
-          "quality", "profile", "lean", "batch", "video", "cli", "telemetry")
+          "quality", "profile", "lean", "batch", "video", "cli", "telemetry",
+          "serve")
 HEADLINE = dict(levels=5, matcher="patchmatch", em_iters=2, pm_iters=6,
                 pm_polish_iters=1, device="cuda")
 
@@ -118,12 +126,42 @@ def k2_exactness(f_b, f_a, idx, chunk=4096):
     return beyond_rtol, beyond_rule
 
 
+# When the running phase started (main sets it): every phase line gets
+# its `seconds` since then.
+PHASE_T0 = [time.perf_counter()]
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line on stdout, and appended to chiprun_out/chip_smoke.jsonl
+    beside this script (the whole record, where stdout may be cut)."""
+    import os
+
+    if "phase" in obj and "seconds" not in obj:
+        obj = {**obj, "seconds": time.perf_counter() - PHASE_T0[0]}
+    line = json.dumps(obj)
+    print(line, flush=True)
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "chip_smoke.jsonl"), "a") as f:
+        f.write(line + "\n")
+
+
+# Cycles of `torch.cuda._sleep` queued ahead of a start event: about a
+# millisecond at the H100's clocks, longer than a wrapper's host time
+# before its launch, so the start event lands while the queue is busy
+# and the reading spans the device work alone.
+BUSY_CYCLES = 2_000_000
+
+
+def busy_queue() -> None:
+    torch.cuda._sleep(BUSY_CYCLES)
 
 
 def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
-    """Median milliseconds of `fn` over `reps` runs, by CUDA events."""
+    """Median milliseconds of `fn` over `reps` runs, by CUDA events, each
+    start event recorded behind `busy_queue` (a start event on an idle
+    queue would add the wrapper's host time before the launch)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -131,6 +169,7 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        busy_queue()
         start.record()
         fn()
         end.record()
@@ -707,10 +746,15 @@ def phase_profile(dev):
 def profile_call(fn, arm):
     """One call of `fn` (after a warm one) under torch.profiler: device
     time by kernel, the device's idle share of the wall, and the host
-    ops with the most self CPU time."""
+    ops with the most self CPU time.  A session late in a long process
+    can drop device events, so the trace must hold every K1 launch the
+    launch counters booked during the call, or this raises."""
     from torch.profiler import ProfilerActivity, profile
 
+    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+
     fn()  # warm
+    booked0 = pt.launches.count + pt.launches_int8.count
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -718,6 +762,7 @@ def profile_call(fn, arm):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    booked = pt.launches.count + pt.launches_int8.count - booked0
     rows, host = [], []
     for ev in prof.key_averages():
         # Device-side events (kernels, memcpy, memset) apart: the CPU ops
@@ -735,9 +780,15 @@ def profile_call(fn, arm):
             rows.append((t, ev.key, ev.count))
     rows.sort(reverse=True)
     host.sort(reverse=True)
+    traced = sum(n for _, k, n in rows if "tile_sweep_kernel" in k)
+    if traced != booked:
+        raise AssertionError(
+            f"profile {arm}: the trace holds {traced} K1 launches, the "
+            f"launch counters booked {booked}")
     busy_ms = sum(t for t, _, _ in rows) / 1e3
     rec = {
         "phase": "profile", "arm": arm, "wall_s": wall,
+        "k1_launches_traced": traced, "k1_launches_booked": booked,
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / (wall * 1e3)),
         "device_events": sum(n for _, _, n in rows),
@@ -1014,10 +1065,12 @@ def lean_k1_row(args, kw, hw, what):
 
 
 def timed_once(fn):
-    """(result, milliseconds) of one call of `fn`, by CUDA events."""
+    """(result, milliseconds) of one call of `fn`, by CUDA events, the
+    start event behind `busy_queue` as in `cuda_ms`."""
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    busy_queue()
     start.record()
     out = fn()
     end.record()
@@ -1699,7 +1752,6 @@ CONFIG4 = dict(levels=5, matcher="patchmatch", em_iters=3, steerable=True,
 CONFIG2_MIN_PSNR, CONFIG4_MIN_PSNR, SYNTH_GATE_DB = 30.66, 33.0, 33.0
 # Config 1's inputs for the ann matcher, against its brute B'.
 CONFIG1 = dict(levels=3, matcher="brute", em_iters=2)
-ANN_MIN_PSNR = 30.0  # tests/test_ann.py's bar for ann against brute
 CHAOS_PLANS = ("level:1:raise", "kernel:0:raise")
 
 
@@ -1935,12 +1987,12 @@ def phase_cli(dev, smi, l2_rate, sizes=(1024, 512, 256)):
     emit({"phase": "cli", "part": "configs", "config2": rec["config2"],
           "config4": rec["config4"], "k1_steerable": row})
 
-    # ann on config 1's inputs: eps 0 against the brute oracle, and
-    # eps 0.5 with 12 PCA dims against brute with 12.  On the brute run's
-    # first coarsest-level tables (the same inputs for both matchers) the
-    # tree's picks are exact and differ from K2's only at ties (the K2
-    # tie rule); end to end the EM steps carry such a tie on, so the B'
-    # is held by PSNR.
+    # ann on config 1's inputs: on the brute run's first coarsest-level
+    # tables (the same inputs for both matchers) the eps-0 tree's picks
+    # are exact and differ from K2's only at ties (the K2 tie rule); end
+    # to end, eps 0.5 with 12 PCA dims against brute with 12.  (The eps-0
+    # run end to end, 30 s of host tree queries, is cut to keep the
+    # script inside its time limit; tests/test_torch_ann.py holds it.)
     from image_analogies_tpu_torch.models import brute as brute_mod
     from image_analogies_tpu_torch.models.ann import _host_ann_query
 
@@ -1950,8 +2002,7 @@ def phase_cli(dev, smi, l2_rate, sizes=(1024, 512, 256)):
     n_coarse = (small // 4) ** 2
     with capture_first(brute_mod, "nn_argmin",
                        lambda f_b, *a, **k: f_b.shape[0] == n_coarse) as seen:
-        brute = create_image_analogy(
-            *tbn, SynthConfig(**CONFIG1, device=device), return_aux=True)
+        create_image_analogy(*tbn, SynthConfig(**CONFIG1, device=device))
     (f_b, f_a), k2_idx = seen[0][0][:2], seen[0][2]
     tree_idx, _ = _host_ann_query(f_b.float().cpu().numpy(),
                                   f_a.float().cpu().numpy(), 0.0)
@@ -1964,21 +2015,8 @@ def phase_cli(dev, smi, l2_rate, sizes=(1024, 512, 256)):
     coarsest = {"rows": n_coarse,
                 "picks_differing": int((tree_idx != k2_idx).sum()),
                 "tree_beyond_rtol": tree_off[0], "k2_beyond_rtol": k2_off[0]}
-    ckpt, prog0 = f"{work}/ann_ckpt", f"{work}/ann0.jsonl"
     ann_args = ["--levels", "3", "--em-iters", "2", "--matcher", "ann",
                 "--device", device]
-    run_cli(synth_args(dirs[small], "texture_by_numbers", f"{work}/ann0.png",
-                       *ann_args, "--ann-eps", "0", "--progress", prog0,
-                       "--save-level-artifacts", ckpt))
-    differing = {}
-    for lv in range(3):
-        with np.load(f"{ckpt}/level_{lv}.npz") as z:
-            differing[lv] = int(np.any(
-                z["nnf"] != brute["nnf"][lv].cpu().numpy(), -1).sum())
-    ann0 = load_image(f"{work}/ann0.png")
-    p0 = psnr(ann0, to_uint8(brute["bp"]) / 255.0)
-    if not p0 >= ANN_MIN_PSNR:
-        raise AssertionError(f"ann eps 0 vs brute: {p0} dB")
     prog1 = f"{work}/ann1.jsonl"
     run_cli(synth_args(dirs[small], "texture_by_numbers", f"{work}/ann1.png",
                        *ann_args, "--ann-eps", "0.5", "--pca-dims", "12",
@@ -1987,11 +2025,6 @@ def phase_cli(dev, smi, l2_rate, sizes=(1024, 512, 256)):
         **CONFIG1, pca_dims=12, device=device))
     rec["ann"] = {
         "eps0_coarsest_tables_vs_k2": coarsest,
-        "eps0_wall_s": cli_done_wall(prog0),
-        "eps0_pixels_differing_from_brute_by_level": differing,
-        "eps0_psnr_vs_brute_db": p0,
-        "eps0_values_differing_from_brute_png": float(
-            (png(f"{work}/ann0.png") != to_uint8(brute["bp"])).mean()),
         "eps05_pca12_wall_s": cli_done_wall(prog1),
         "eps05_pca12_psnr_vs_brute_pca12_db": psnr(
             load_image(f"{work}/ann1.png"), to_uint8(brute12) / 255.0),
@@ -2488,15 +2521,15 @@ def phase_telemetry(dev, smi, l2_rate, size=1024):
         bench = json.loads(out.strip().splitlines()[-1])
         if bench["instrument_drift"]["status"] != "ok":
             raise AssertionError(f"kernelbench: {bench}")
-        # The same sweep launched alone on an idle queue, as `cuda_ms`
-        # times the kernel rows: the events then also span the wrapper's
-        # host time before the launch.  And the host cost of one launch's
-        # ledger booking, into a scratch registry.
+        # The same sweep launched alone under `cuda_ms`, as the kernel
+        # rows are timed (a busy queue ahead of its start event): it
+        # should agree with the trace.  And the host cost of one
+        # launch's ledger booking, into a scratch registry.
         from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
         from image_analogies_tpu_torch.telemetry import metrics as tm
 
         one_iter, s0, meta = kernelbench.sweep_setup(cfg, size)
-        bench["kernel_sweep_ms_single_idle_queue"] = cuda_ms(
+        bench["kernel_sweep_ms_single_cuda_ms"] = cuda_ms(
             lambda: one_iter(*s0))
         _, flops, nbytes = k1_flops_bytes(meta["args"], meta["kw"], 4)
         bench.update(
@@ -2523,6 +2556,550 @@ def phase_telemetry(dev, smi, l2_rate, size=1024):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The serving daemon (`serve`, `trace`) on BASELINE config 5's frames.
+
+SERVE_SIZE, SERVE_GRAIN, SERVE_COLD_SIZE = 1024, 4, 768
+SERVE_KNOBS = ["--levels", "5", "--matcher", "patchmatch", "--em-iters", "2",
+               "--kappa", "2"]
+# (clients, requests a client): the steady points, then the overload
+# point, whose 24 single requests exceed --max-queue-depth 8.
+SERVE_SWEEP = ((1, 4), (4, 2), (8, 2))
+SERVE_OVERLOAD = (24, 1)
+SERVE_QUEUE_DEPTH = 8
+TAKEOVER_SIZE, TAKEOVER_BURST = 256, 8
+TRACE_GAP_PCT_MAX = 5.0
+
+
+def serve_up(work, tag, args, env=None, timeout=300):
+    """A `serve` process from the repository root, its output in files
+    under `work`: (process, url, seconds to its live.json)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    td = os.path.join(work, f"{tag}_trace")
+    out = open(os.path.join(work, f"{tag}.out"), "w")
+    err = open(os.path.join(work, f"{tag}.err"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "image_analogies_tpu_torch.cli", "serve",
+         *args, "--port", "0", "--trace-dir", td],
+        cwd=root, stdout=out, stderr=err,
+        env={**os.environ, **(env or {})})
+    live = os.path.join(td, "live.json")
+    while not os.path.exists(live):
+        if proc.poll() is not None or time.perf_counter() - t0 > timeout:
+            proc.kill()
+            proc.wait()
+            err.flush()
+            raise AssertionError(
+                f"serve {tag} never announced (exit {proc.returncode}): "
+                + open(err.name).read()[-3000:])
+        time.sleep(0.05)
+    with open(live) as f:
+        url = json.load(f)["url"]
+    return proc, url, time.perf_counter() - t0
+
+
+def serve_body(frame_u8, session=None) -> bytes:
+    """The JSON body of one uint8 request."""
+    import base64
+
+    doc = {"image_b64": base64.b64encode(frame_u8.tobytes()).decode(),
+           "shape": list(frame_u8.shape), "dtype": "uint8"}
+    if session is not None:
+        doc["session_id"] = session
+    return json.dumps(doc).encode()
+
+
+def serve_post(url, frame_u8, rid=None, session=None, path="/synthesize",
+               timeout=600):
+    """(status, body, headers, client ms) of one uint8 request;
+    `frame_u8` may be its encoded body already."""
+    import urllib.error
+    import urllib.request
+
+    data = frame_u8 if isinstance(frame_u8, bytes) else serve_body(
+        frame_u8, session)
+    headers = {"Content-Type": "application/json"}
+    if rid is not None:
+        headers["X-Request-Id"] = rid
+    req = urllib.request.Request(url + path, data=data, method="POST",
+                                 headers=headers)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, body, hdrs = r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        code, body, hdrs = e.code, e.read(), dict(e.headers)
+    return code, json.loads(body), hdrs, (time.perf_counter() - t0) * 1e3
+
+
+def served_image(body):
+    import base64
+
+    return np.frombuffer(base64.b64decode(body["image_b64"]),
+                         np.float32).reshape(body["shape"])
+
+
+def served_reference(a, ap, frame_u8, cfg, grain=SERVE_GRAIN):
+    """What the daemon must answer for `frame_u8`: the library's
+    `synthesize_batch` on the frame padded to the grain, every frame
+    keyed as frame 0, under the frame's luma-bucket statistics."""
+    from image_analogies_tpu_torch import synthesize_batch
+    from image_analogies_tpu_torch.serving.daemon import _luma_bucket
+
+    f = frame_u8.astype(np.float32) / 255.0
+    out = synthesize_batch(a, ap, np.stack([f] * grain), cfg,
+                           frame_indices=[0] * grain,
+                           _b_stats=_luma_bucket(f))
+    return out[0].cpu().numpy()
+
+
+def serve_point(url, clients, per_client, bodies, refs, tag):
+    """One sweep point: `clients` threads released together, each
+    posting `per_client` of the pre-encoded frame bodies back to back;
+    every 200 answer bit-equal to its frame's reference.  Returns the
+    point's record."""
+    import threading
+
+    results, lock = [], threading.Lock()
+    go = threading.Barrier(clients)
+
+    def client(c):
+        go.wait()
+        for k in range(per_client):
+            i = (c * per_client + k) % len(bodies)
+            rid = f"{tag}-{c}-{k}"
+            code, body, hdrs, ms = serve_post(url, bodies[i], rid)
+            with lock:
+                results.append((i, rid, code, body, hdrs, ms))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    ok = [r for r in results if r[2] == 200]
+    shed = [r for r in results if r[2] == 429]
+    for i, rid, code, body, hdrs, _ in results:
+        if code == 200 and not np.array_equal(served_image(body), refs[i]):
+            raise AssertionError(f"serve {rid}: frame {i} differs from the "
+                                 "library's grain-4 dispatch")
+        if code == 429 and int(hdrs.get("Retry-After", 0)) < 1:
+            raise AssertionError(f"serve {rid}: 429 without Retry-After")
+        if code not in (200, 429):
+            raise AssertionError(f"serve {rid}: {code} {body.get('error')}")
+    walls = sorted(r[5] for r in ok)
+    server = [r[3]["wall_ms"] for r in ok]
+    return {
+        "clients": clients, "requests": len(results), "completed": len(ok),
+        "shed": len(shed), "failed": len(results) - len(ok) - len(shed),
+        "hit_ratio": (sum(r[3]["cache"] == "hit" for r in ok) / len(ok)
+                      if ok else 0.0),
+        "p50_ms": float(np.percentile(walls, 50)) if walls else None,
+        "p99_ms": float(np.percentile(walls, 99)) if walls else None,
+        "frames_per_s": len(ok) / wall, "wall_s": wall,
+        "server_wall_ms_median": (statistics.median(server)
+                                  if server else None),
+        "batch_sizes": sorted(r[3]["batch_size"] for r in ok),
+        "rids": [r[1] for r in ok],
+    }
+
+
+def trace_both(url, td, rid):
+    """`trace --url` and `trace --trace-dir` on one request: each exits 0
+    (within the 5 % bound) and reports the same phases."""
+    docs = []
+    for where in (["--url", url], ["--trace-dir", td]):
+        _, out = run_cli(["trace", rid, *where, "--format", "json"])
+        rec = json.loads(out)["access"]
+        phases = sum(rec[k] for k in ("queue_ms", "compile_ms",
+                                      "execute_ms", "demux_ms"))
+        gap = 100.0 * (rec["total_ms"] - phases) / rec["total_ms"]
+        if abs(gap) > TRACE_GAP_PCT_MAX:
+            raise AssertionError(f"trace {rid} {where[0]}: gap {gap} %")
+        docs.append({"total_ms": rec["total_ms"], "gap_pct": gap})
+    return docs
+
+
+def k1_serve_row(dev, smi, a, ap, frame_u8, cfg, work):
+    """In this process: a cuda daemon at grain 4 warmed at 1024^2; K1's
+    launches over one grain-4 dispatch, counted from 0, against
+    `batch_k1_launches` for 4 frames, the launch captured and held
+    against its plain version (`k1_frames_row`); then the excache's
+    demoted key: a forced epoch eviction, the next use (an honest miss)
+    and the one after (a hit), with the answers bit-equal."""
+    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+    from image_analogies_tpu_torch.serving.daemon import SynthDaemon
+    from image_analogies_tpu_torch.telemetry.metrics import (
+        MetricsRegistry,
+        set_registry,
+    )
+
+    import os
+
+    os.makedirs(f"{work}/inproc", exist_ok=True)
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
+    d = SynthDaemon(a, ap, cfg, registry=reg, max_batch=SERVE_GRAIN,
+                    max_wait_ms=5.0, obs_interval_s=0, observability=False,
+                    work_dir=f"{work}/inproc").start()
+    try:
+        d.warmup([{"height": SERVE_SIZE, "width": SERVE_SIZE,
+                   "channels": 3}])
+        with capture_first(pt, "tile_sweep", lambda *a_, **k: (
+                a_[1].ndim == 4 and a_[1].shape[0] == SERVE_GRAIN
+                and k["ha"] == SERVE_SIZE)) as seen:
+            pt.launches.reset()
+            code, hit, _, hit_ms = serve_post(d.url, frame_u8, "inproc-hit")
+            launches = pt.launches.count
+        want = batch_k1_launches(cfg, SERVE_SIZE, SERVE_GRAIN, SERVE_GRAIN)
+        if code != 200 or hit["cache"] != "hit" or launches != want:
+            raise AssertionError(f"in-process grain-4 dispatch: {code} "
+                                 f"{hit.get('cache')}, K1 {launches} "
+                                 f"launches, not {want}")
+        demoted = d.cache.force_epoch_eviction()
+        _, miss, _, miss_ms = serve_post(d.url, frame_u8, "inproc-demoted")
+        _, again, _, again_ms = serve_post(d.url, frame_u8, "inproc-again")
+        if (miss["cache"], again["cache"]) != ("miss", "hit"):
+            raise AssertionError(f"demoted key: {miss['cache']}, "
+                                 f"{again['cache']}")
+        if not (np.array_equal(served_image(miss), served_image(hit))
+                and np.array_equal(served_image(again), served_image(hit))):
+            raise AssertionError("demoted key: the answer changed")
+    finally:
+        d.stop()
+        set_registry(prev)
+    args, kw, _ = seen[0]
+    kw = {k: kw[k] for k in ("specs", "geom", "ha", "wa", "coh_factor")}
+    return {
+        "k1_launches_one_dispatch": launches,
+        "k1_launches_want": want,
+        "demoted_entries": demoted,
+        "hit_ms": hit_ms, "demoted_next_use_ms": miss_ms,
+        "after_demoted_hit_ms": again_ms,
+        "k1_frames": k1_frames_row(args, kw),
+    }
+
+
+def phase_serve(dev, smi, script_t0):
+    """The serving daemon on the card, in its own processes: `serve` on
+    config 5's frames (1024^2, 5 levels, PatchMatch, em 2, kappa 2) at
+    grain 4 with a warmup manifest and a state dir; a cold shape (768^2)
+    and its repeat; sweeps at 1, 4 and 8 clients and an overload point
+    past --max-queue-depth; every 200 answer bit-equal to the library's
+    grain-4 dispatch; a session of three frames against `VideoStream`;
+    /healthz 200 throughout, the serving and recovery checks `ok`;
+    `trace --url` and `trace --trace-dir` within 5 %; the record through
+    tools/check_serve.py.  Then the takeover at 256^2: 8 requests queued
+    behind a hung dispatch, SIGKILL, `serve --takeover`, zero acked loss
+    and bit-identical replays, `POST /drain` -> exit 0 and 503s."""
+    import os
+    import shutil
+    import signal
+    import threading
+
+    from image_analogies_tpu_torch.config import SynthConfig
+    from image_analogies_tpu_torch.serving.daemon import _luma_bucket
+    from image_analogies_tpu_torch.utils.examples import npr_frames
+    from image_analogies_tpu_torch.utils.io import (
+        load_image,
+        save_image,
+        to_uint8,
+    )
+    from image_analogies_tpu_torch.video.sequence import VideoStream
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "serve_smoke")
+    out_dir = os.path.join(root, "chiprun_out")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    os.makedirs(out_dir, exist_ok=True)
+    rec = {"phase": "serve", "nvidia_smi": smi, "size": SERVE_SIZE,
+           "grain": SERVE_GRAIN}
+    a0, ap0, frames = npr_frames(n_frames=8, size=SERVE_SIZE)
+    save_image(f"{work}/A.png", a0)
+    save_image(f"{work}/Ap.png", ap0)
+    a, ap = load_image(f"{work}/A.png"), load_image(f"{work}/Ap.png")
+    frames_u8 = [to_uint8(f) for f in frames]
+    cold_u8 = np.ascontiguousarray(
+        frames_u8[0][:SERVE_COLD_SIZE, :SERVE_COLD_SIZE])
+    cfg = SynthConfig(levels=5, matcher="patchmatch", em_iters=2, kappa=2.0,
+                      device=dev.type)
+    with open(f"{work}/warmup.json", "w") as f:
+        json.dump({"schema_version": 1, "kind": "serve_warmup", "entries": [
+            {"height": SERVE_SIZE, "width": SERVE_SIZE}]}, f)
+    rec["buckets"] = [_luma_bucket(f.astype(np.float32) / 255.0)
+                      for f in frames_u8]
+
+    # 1. Daemon up, after its warmup.
+    td, sd = f"{work}/d1_trace", f"{work}/d1_state"
+    proc, url, rec["startup_s"] = serve_up(work, "d1", [
+        "--a", f"{work}/A.png", "--ap", f"{work}/Ap.png",
+        "--device", dev.type,
+        "--max-batch", str(SERVE_GRAIN), "--max-wait-ms", "25",
+        "--max-queue-depth", str(SERVE_QUEUE_DEPTH), "--state-dir", sd,
+        "--warmup", f"{work}/warmup.json", *SERVE_KNOBS])
+    health_codes, stop_poll = [], threading.Event()
+    try:
+        serving = json.loads(http_get(url + "/serving")[1])
+        (entry,) = serving["cache"]["entries"]
+        rec["warmup_first_use_ms"] = entry["compile_ms"]
+
+        def poll_health():
+            while not stop_poll.wait(0.5):
+                health_codes.append(http_get(url + "/healthz", 30)[0])
+
+        poller = threading.Thread(target=poll_health, daemon=True)
+        poller.start()
+
+        # 2. A shape the manifest does not hold, then its repeat: the
+        # first use of a shape in a warm process against its hit.
+        cold_ref = served_reference(a, ap, cold_u8, cfg)
+        code_c, cold, _, cold_ms = serve_post(url, cold_u8, "cold-768")
+        code_w, warm, _, warm_ms = serve_post(url, cold_u8, "warm-768")
+        if (code_c, code_w, cold["cache"], warm["cache"]) != (
+                200, 200, "miss", "hit"):
+            raise AssertionError(f"cold/warm: {code_c} {cold.get('cache')}"
+                                 f" / {code_w} {warm.get('cache')}")
+        for body in (cold, warm):
+            if not np.array_equal(served_image(body), cold_ref):
+                raise AssertionError("768^2 answer differs from the library")
+        emit({"phase": "serve", "part": "up", "startup_s": rec["startup_s"],
+              "warmup_first_use_ms": rec["warmup_first_use_ms"],
+              "new_shape_miss_ms": cold_ms, "new_shape_hit_ms": warm_ms,
+              "new_shape_server_ms": [cold["wall_ms"], warm["wall_ms"]]})
+
+        # 3. The sweep and the overload point.
+        from image_analogies_tpu_torch.serving.accesslog import (
+            read_entries,
+        )
+
+        refs = [served_reference(a, ap, f, cfg) for f in frames_u8]
+        bodies = [serve_body(f) for f in frames_u8]
+        sweep = []
+        for clients, per in SERVE_SWEEP + (SERVE_OVERLOAD,):
+            point = serve_point(url, clients, per, bodies, refs,
+                                f"c{clients}")
+            access = {e["request_id"]: e
+                      for e in read_entries(f"{td}/access.jsonl")}
+            logged = [access[r] for r in point.pop("rids") if r in access]
+            point["access_mean_ms"] = {
+                k: statistics.fmean(e[k] for e in logged) if logged else None
+                for k in ("queue_ms", "compile_ms", "execute_ms",
+                          "demux_ms")}
+            emit({"phase": "serve", "part": "sweep", **point})
+            sweep.append(point)
+        if sweep[-1]["shed"] < 1:
+            raise AssertionError("the overload point shed nothing")
+
+        # 5. A session of three frames against VideoStream.
+        stream = VideoStream(a, ap, cfg=cfg, b_stats=_luma_bucket(
+            frames_u8[0].astype(np.float32) / 255.0))
+        session = []
+        for i in range(3):
+            code, body, _, ms = serve_post(url, frames_u8[i], f"clip-{i}",
+                                           session="clip-a")
+            want = stream.step(frames_u8[i].astype(np.float32) / 255.0)
+            if code != 200 or not np.array_equal(served_image(body),
+                                                 want.cpu().numpy()):
+                raise AssertionError(f"session frame {i} differs from "
+                                     "VideoStream")
+            session.append(ms)
+        rec["session_ms"] = session
+
+        # 6. Health and the two traces.
+        stop_poll.set()
+        poller.join()
+        health = json.loads(http_get(url + "/healthz", 30)[1])
+        checks = {c["name"]: c["status"] for c in health["checks"]}
+        if checks["serving"] != "ok" or checks["serving_recovery"] != "ok":
+            raise AssertionError(f"serving checks {checks}")
+        if set(health_codes) != {200}:
+            raise AssertionError(f"/healthz answered {health_codes}")
+        rec["traces"] = trace_both(url, td, "c4-0-0")
+        metrics = json.loads(http_get(url + "/metrics.json", 30)[1])
+    finally:
+        stop_poll.set()
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(120)
+    if rc != 0:
+        raise AssertionError(f"serve d1 exited {rc} after SIGTERM")
+
+    def total(name, **labels):
+        vals = metrics.get(name, {}).get("values", {})
+        return sum(v for k, v in vals.items()
+                   if all(f'{lk}="{lv}"' in k for lk, lv in labels.items()))
+
+    record = {
+        "schema_version": 1, "kind": "serve", "proxy_size": SERVE_SIZE,
+        "nvidia_smi": smi,
+        "config": {"levels": 5, "matcher": "patchmatch", "em_iters": 2,
+                   "kappa": 2.0, "max_batch": SERVE_GRAIN,
+                   "max_wait_ms": 25.0,
+                   "max_queue_depth": SERVE_QUEUE_DEPTH},
+        # The reference's cold request is its process's first dispatch
+        # of a shape, which pays the compile; the port's counterpart is
+        # this process's first dispatch (the warmup), which pays the
+        # first-use costs, against a hit of the same shape (the median
+        # of the one-client point's, both by the daemon's clock).  The
+        # new shape in the warm process and its repeat stand beside.
+        "cache": {"cold_ms": rec["warmup_first_use_ms"],
+                  "warm_ms": sweep[0]["server_wall_ms_median"],
+                  "latency_delta_ms": rec["warmup_first_use_ms"]
+                  - sweep[0]["server_wall_ms_median"],
+                  "new_shape_miss_ms": cold_ms, "new_shape_hit_ms": warm_ms,
+                  "new_shape": SERVE_COLD_SIZE,
+                  "hits": total("ia_serve_excache_hits_total",
+                                kind="client"),
+                  "misses": total("ia_serve_excache_misses_total",
+                                  kind="client"),
+                  },
+        "sweep": sweep,
+        "ledger": {k: total(f"ia_serve_{k}_total") for k in (
+            "requests", "admitted", "shed", "completed", "failed")},
+        "serving_check": checks["serving"],
+        "k1_launches": int(total("ia_kernel_launches_total",
+                                 kernel="tile_sweep")),
+    }
+    path = os.path.join(out_dir, "serve_record.json")
+    with open(path, "w") as f:
+        json.dump(record, f, indent=1)
+    res = subprocess.run([sys.executable, os.path.join(root, "tools",
+                                                       "check_serve.py"),
+                          path], capture_output=True, text=True, timeout=60)
+    if res.returncode != 0:
+        raise AssertionError(f"check_serve: {res.stdout[-2000:]}")
+    rec.update(record=record, check_serve=res.stdout.strip())
+
+    # The miss against the hit in this process, and K1 on the path.
+    rec["inproc"] = k1_serve_row(dev, smi, a, ap, frames_u8[0], cfg, work)
+
+    # 7. The takeover at 256^2.
+    rec["takeover"] = serve_takeover(work, a0, ap0, frames_u8, dev)
+    emit(rec)
+    shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+def serve_takeover(work, a0, ap0, frames_u8, dev):
+    """The takeover arm at 256^2 (crops of the same frames): each frame's
+    live answer, then 8 requests journaled behind a dispatch hung by
+    `serve_hang`, SIGKILL, `serve --takeover`: the successor's ledger
+    balances with nothing pending and each replay's sha256 equals the
+    live answer's; `POST /drain` exits 0 and new work gets 503."""
+    import hashlib
+    import signal
+    import threading
+
+    from image_analogies_tpu_torch.utils.io import save_image
+
+    n = TAKEOVER_SIZE
+    save_image(f"{work}/A{n}.png", a0[:n, :n])
+    save_image(f"{work}/Ap{n}.png", ap0[:n, :n])
+    small = [np.ascontiguousarray(f[:n, :n]) for f in frames_u8]
+    sd = f"{work}/d2_state"
+    args = ["--a", f"{work}/A{n}.png", "--ap", f"{work}/Ap{n}.png",
+            "--device", dev.type,
+            "--max-batch", str(SERVE_GRAIN), "--max-wait-ms", "25",
+            *SERVE_KNOBS]
+    rec = {"size": n, "burst": TAKEOVER_BURST}
+    # Client dispatches 0..7 are the live answers, one a request; the
+    # burst's first dispatch (ordinal 8) hangs until the kill.
+    proc, url, _ = serve_up(work, "d2", args + ["--state-dir", sd], env={
+        "IA_FAULT_PLAN": f"serve_hang:{len(small)}:hang:600"})
+    try:
+        live = {}
+        for i, f in enumerate(small):
+            code, body, _, _ = serve_post(url, f, f"live-{i}")
+            if code != 200:
+                raise AssertionError(f"takeover live {i}: {code}")
+            live[i] = hashlib.sha256(
+                np.ascontiguousarray(served_image(body)).tobytes()
+            ).hexdigest()
+
+        def burst(i):
+            try:
+                serve_post(url, small[i], f"burst-{i}", timeout=900)
+            except Exception:  # noqa: BLE001 - the daemon is killed
+                pass
+
+        threads = [threading.Thread(target=burst, args=(i,), daemon=True)
+                   for i in range(TAKEOVER_BURST)]
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        while True:
+            ledger = json.loads(http_get(url + "/journal", 30)[1])["ledger"]
+            if ledger["appended"] == len(small) + TAKEOVER_BURST:
+                break
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError(f"burst never journaled: {ledger}")
+            time.sleep(0.02)
+        rec["before_kill"] = ledger
+        if ledger["pending"] < 1:
+            raise AssertionError(f"nothing pending at the kill: {ledger}")
+    finally:
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(60)
+    for t in threads:
+        t.join(30)
+
+    proc, url, rec["takeover_startup_s"] = serve_up(
+        work, "d3", args + ["--takeover", sd])
+    try:
+        t0 = time.perf_counter()
+        while True:
+            snap = json.loads(http_get(url + "/journal", 30)[1])
+            if snap["ledger"]["pending"] == 0:
+                break
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError(f"replay stalled: {snap['ledger']}")
+            time.sleep(0.05)
+        rec["replay_s"] = time.perf_counter() - t0
+        ledger = snap["ledger"]
+        rec["after_takeover"] = ledger
+        if ledger["appended"] != (ledger["done"] + ledger["replayed"]
+                                  + ledger["cancelled"]):
+            raise AssertionError(f"acknowledged loss: {ledger}")
+        # Every burst request was journaled and none answered: all of
+        # them replay.
+        want = {f"burst-{i}": live[i] for i in range(TAKEOVER_BURST)}
+        got = {rid: r["sha256"] for rid, r in snap["replayed"].items()}
+        if set(got) != set(want):
+            raise AssertionError(f"replayed {sorted(got)}")
+        for rid, sha in got.items():
+            if sha != want[rid]:
+                raise AssertionError(f"replay {rid}: sha256 differs from "
+                                     "the live answer")
+        rec["replayed"] = len(got)
+        health = json.loads(http_get(url + "/healthz", 30)[1])
+        checks = {c["name"]: c["status"] for c in health["checks"]}
+        if checks["serving_recovery"] != "ok":
+            raise AssertionError(f"serving_recovery {checks}")
+        rec["serving_recovery"] = checks["serving_recovery"]
+        code, _, _, _ = serve_post(url, small[0], path="/drain")
+        if code != 202:
+            raise AssertionError(f"POST /drain answered {code}")
+        code, body, hdrs, _ = serve_post(url, small[0], "after-drain")
+        if code != 503 or "Retry-After" not in hdrs:
+            raise AssertionError(f"work after drain: {code}")
+    finally:
+        if proc.poll() is None:
+            rc = proc.wait(120)
+        else:
+            rc = proc.returncode
+    if rc != 0:
+        raise AssertionError(f"drained takeover exited {rc}")
+    rec["drain_exit"] = rc
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2535,6 +3112,13 @@ def main(argv=None) -> int:
         return 1
     import image_analogies_tpu_torch  # noqa: F401  (fails outside the repo)
     from image_analogies_tpu_torch import kernels
+
+    import os
+
+    record = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "chiprun_out", "chip_smoke.jsonl")
+    if os.path.exists(record):
+        os.remove(record)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2559,38 +3143,55 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(0)
     case = real = l2_rate = None
+    seconds = {}
+
+    def run(name, fn, *a):
+        """One phase, its `seconds` on every line it emits."""
+        PHASE_T0[0] = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - PHASE_T0[0]
+        return out
+
     if phases & {"k1", "k1i8", "cli", "telemetry"}:
-        l2_rate = kernels.l2_read_rate(dev)
+        l2_rate = run("l2", kernels.l2_read_rate, dev)
         emit({"phase": "l2", "nvidia_smi": smi,
               "l2_read_bytes_per_s": l2_rate})
     if phases & {"k1", "k1i8"}:
-        case = k1_case(dev, rng)
-        real = capture_real_case(dev)
-    k1 = phase_k1(dev, case, real, l2_rate) if "k1" in phases else {}
-    k2 = phase_k2(dev, rng) if "k2" in phases else {}
-    k3 = phase_k3(dev, rng) if "k3" in phases else {}
-    k1i8 = phase_k1i8(dev, case, real, l2_rate) if "k1i8" in phases else {}
+        case = run("k1_case", k1_case, dev, rng)
+        real = run("k1_real_case", capture_real_case, dev)
+    k1 = run("k1", phase_k1, dev, case, real, l2_rate) \
+        if "k1" in phases else {}
+    k2 = run("k2", phase_k2, dev, rng) if "k2" in phases else {}
+    k3 = run("k3", phase_k3, dev, rng) if "k3" in phases else {}
+    k1i8 = run("k1i8", phase_k1i8, dev, case, real, l2_rate) \
+        if "k1i8" in phases else {}
     # Launch counts come from the main-path phases; null when not run.
     k1_launches = k2_launches = k1i8_launches = k3_launches = None
     if "headline" in phases:
-        _, k1_launches = phase_headline(dev)
+        _, k1_launches = run("headline", phase_headline, dev)
     if "compressed" in phases:
-        comp = phase_compressed(dev)
+        comp = run("compressed", phase_compressed, dev)
         k1i8_launches = comp["k1_int8_launches_per_run"]
         k3_launches = comp["k3_launches_per_run"]
     if "config1" in phases:
-        _, k2_launches = phase_config1(dev)
+        _, k2_launches = run("config1", phase_config1, dev)
     if "quality" in phases:
-        phase_quality(dev, k2.get("achieved_tflops", 1.0))
+        run("quality", phase_quality, dev, k2.get("achieved_tflops", 1.0))
     if "profile" in phases:
-        phase_profile(dev)
-    lean = phase_lean(dev, smi, script_t0) if "lean" in phases else {}
-    batch = phase_batch(dev, smi) if "batch" in phases else {}
+        run("profile", phase_profile, dev)
+    lean = run("lean", phase_lean, dev, smi, script_t0) \
+        if "lean" in phases else {}
+    batch = run("batch", phase_batch, dev, smi) if "batch" in phases else {}
     if "video" in phases:
-        phase_video(dev, smi)
-    cli = phase_cli(dev, smi, l2_rate) if "cli" in phases else {}
+        run("video", phase_video, dev, smi)
+    cli = run("cli", phase_cli, dev, smi, l2_rate) if "cli" in phases else {}
     if "telemetry" in phases:
-        phase_telemetry(dev, smi, l2_rate)
+        run("telemetry", phase_telemetry, dev, smi, l2_rate)
+    serve = run("serve", phase_serve, dev, smi, script_t0) \
+        if "serve" in phases else {}
+    PHASE_T0[0] = script_t0
+    emit({"phase": "timing", "seconds_by_phase": seconds,
+          "build_s": build_s})
 
     kernels_line = []
     if k1:
@@ -2688,6 +3289,21 @@ def main(argv=None) -> int:
             "source": "image_analogies_tpu_torch/kernels/csrc/tile_sweep.cu",
             "replaces": "image_analogies_tpu/kernels/patchmatch_tile.py:888",
             "launches": cli["config4"]["k1_launches_per_run"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+        })
+    if serve:
+        # K1 with the frame axis on the serving path: the in-process
+        # daemon's grain-4 dispatch, captured and held against the plain
+        # version, beside the launches the `serve` process booked over
+        # its traffic (warmup, cold shape, sweep, session).
+        row = serve["inproc"]["k1_frames"]
+        kernels_line.append({
+            "name": "tile_sweep_frames_serve", "route": "cuda",
+            "source": "image_analogies_tpu_torch/kernels/csrc/tile_sweep.cu",
+            "replaces": "image_analogies_tpu/kernels/patchmatch_tile.py:888",
+            "launches": serve["record"]["k1_launches"],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,

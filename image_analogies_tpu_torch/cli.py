@@ -8,6 +8,11 @@ Subcommands:
   health    the run sentinel over a traced run's directory -> health.json
   report    a traced run's host spans joined with its device trace ->
             report.json
+  serve     the synthesis daemon: POST /synthesize over HTTP, with a
+            request queue, continuous batching, admission control, a
+            journal with drain and takeover, and video sessions
+  trace     one served request's critical path, from a live daemon
+            (--url) or its artifacts (--trace-dir)
 
 The flags are the reference CLI's (`image_analogies_tpu/cli.py`), with
 `--device {cuda,cpu}` (default cuda; a run without a card raises unless
@@ -18,7 +23,9 @@ the reference's compilation cache.
 Flags of parts not ported yet keep the reference's parser, so a bad
 value still fails at parse time, and then stop the run with a message
 naming the ROADMAP step that ports them: `--spatial`, `--sharded-a`,
-`--bands`, `--n-devices` (step 14, multi-device).
+`--bands`, `--n-devices` (step 14, multi-device); serve's `--lattice`,
+`--warm-dir`, `--archive-dir`, `--archive-interval-s` and trace's
+`--fleet` (step 13b, the fleet).
 
 `--trace-dir DIR` writes the telemetry artifacts (host_spans.json,
 metrics.json, metrics.prom, flight.json) and costs one device sync a
@@ -192,12 +199,26 @@ _UNPORTED = (
 )
 
 
-def _refuse_unported(args) -> None:
+# serve's and trace's: (attribute, flag, the ROADMAP step, its off value).
+_STEP_13B = "step 13b (the serving fleet)"
+_SERVE_UNPORTED = (
+    ("n_devices", "--n-devices", "step 14 (multi-device runners)", None),
+    ("lattice", "--lattice", _STEP_13B, "off"),
+    ("warm_dir", "--warm-dir", _STEP_13B, None),
+    ("archive_dir", "--archive-dir", _STEP_13B, None),
+    ("archive_interval_s", "--archive-interval-s", _STEP_13B, None),
+    ("fleet", "--fleet", _STEP_13B, None),
+)
+
+
+def _refuse_unported(args, table=None) -> None:
     """Stop before any image loads when a flag of an unported part was
     given: it is never ignored."""
-    for attr, flag, step in _UNPORTED:
+    if table is None:
+        table = tuple(row + (None,) for row in _UNPORTED)
+    for attr, flag, step, off in table:
         value = getattr(args, attr, None)
-        if value is not None and value is not False:
+        if value is not None and value is not False and value != off:
             raise SystemExit(
                 f"{flag} is not ported to the PyTorch package yet: "
                 f"ROADMAP Queue 1 {step}"
@@ -562,6 +583,271 @@ def cmd_video(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """Synthesis as a service (serving/): a long-lived daemon over one
+    style pair, serving POST /synthesize with executable-cache
+    accounting, continuous batching and admission control, on the same
+    HTTP server and telemetry surface (/metrics, /healthz, live.json)
+    every traced run uses.  On `--device` (default cuda: a machine
+    without a card stops here, it never falls back to the CPU)."""
+    _refuse_unported(args, _SERVE_UNPORTED)
+    _apply_cand_compression(args)
+    import dataclasses
+    import signal
+
+    from .models.analogy import resolve_device
+    from .serving.daemon import SynthDaemon
+    from .serving.excache import load_warmup_manifest
+    from .utils.io import load_image
+    from .utils.profiling import telemetry_session
+
+    cfg = _config_from(args)
+    try:
+        resolve_device(cfg)
+    except RuntimeError as e:
+        raise SystemExit(f"serve: {e}")
+    if cfg.save_level_artifacts:
+        # The daemon owns per-dispatch checkpoint dirs (retry-with-
+        # resume inside one dispatch); a shared user path would make
+        # concurrent dispatches clobber each other's state.
+        print(
+            "serve: ignoring --save-level-artifacts (checkpoints are "
+            "per-dispatch-managed)", file=sys.stderr,
+        )
+        cfg = dataclasses.replace(cfg, save_level_artifacts=None)
+    warm_entries = None
+    if args.warmup:
+        try:
+            warm_entries = load_warmup_manifest(args.warmup)
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"serve: --warmup: {e}")
+    a = load_image(args.a)
+    ap = load_image(args.ap)
+    # --takeover DIR is --state-dir DIR made explicit: both restart
+    # paths restore sessions, merge observed warmup, and replay the
+    # journal's pending entries.
+    state_dir = args.takeover or args.state_dir
+    anomaly_config = None
+    if args.baseline:
+        from .telemetry.anomaly import AnomalyConfig, baseline_from_record
+
+        baseline_p99 = baseline_from_record(args.baseline)
+        if baseline_p99 is None:
+            print(
+                f"serve: --baseline {args.baseline}: no "
+                "pipeline.p99_warm_ms — latency watch will report "
+                "no_data", file=sys.stderr,
+            )
+        anomaly_config = AnomalyConfig(baseline_p99_ms=baseline_p99)
+    # Daemon-lifetime telemetry session: no device trace over an
+    # unbounded lifetime; artifacts and the flight recorder go to
+    # --trace-dir.  SIGTERM is re-bound to a drain below.
+    with telemetry_session(
+        None, enabled=True, artifact_dir=args.trace_dir,
+        cuda=cfg.device == "cuda", flight_capacity=args.flight_ring,
+    ) as tracer:
+        daemon = SynthDaemon(
+            a, ap, cfg,
+            registry=tracer.registry,
+            tracer=tracer,
+            host=args.host,
+            port=args.port,
+            max_batch=args.max_batch,
+            max_wait_ms=args.max_wait_ms,
+            max_queue_depth=args.max_queue_depth,
+            cache_capacity=args.cache_capacity,
+            max_retries=args.max_retries,
+            max_sessions=args.max_sessions,
+            flight=getattr(tracer, "flight_recorder", None),
+            # The access log beside the other trace artifacts, where
+            # `trace --trace-dir` looks.
+            access_log_path=(
+                os.path.join(args.trace_dir, "access.jsonl")
+                if args.trace_dir else None
+            ),
+            state_dir=state_dir,
+            drain_deadline_s=args.drain_deadline_s,
+            dispatch_deadline_s=args.dispatch_deadline_s,
+            pipeline_window=args.pipeline_window,
+            warmup_workers=args.warmup_workers,
+            obs_interval_s=args.obs_interval_s,
+            obs_capacity=args.obs_capacity,
+            anomaly_config=anomaly_config,
+        )
+        try:
+            daemon.start()
+        except RuntimeError as e:
+            # The double-takeover guard: the state dir's lockfile
+            # names a pid that is still alive.
+            raise SystemExit(f"serve: {e}")
+        # Graceful drain on SIGTERM: in-flight requests and their
+        # response writes complete, the hand-off state lands in the
+        # state dir, the flight dump says reason=drain, and the loop
+        # below exits 0.
+        signal.signal(
+            signal.SIGTERM,
+            lambda signum, frame: daemon.begin_drain(reason="sigterm"),
+        )
+        try:
+            restored = daemon.restore_sessions() if state_dir else 0
+            if restored:
+                print(f"takeover: restored {restored} session(s)")
+            for rec in daemon.warmup(warm_entries or []):
+                print(
+                    f"warmup: {rec['key']} first use in "
+                    f"{rec['wall_ms']:.0f} ms"
+                )
+            replayed = daemon.replay_journal() if state_dir else 0
+            if replayed:
+                print(
+                    f"takeover: replaying {replayed} journaled "
+                    "request(s)"
+                )
+            # Rendezvous AFTER warmup: a live.json reader may assume
+            # the manifest's shapes are already warm.
+            if args.trace_dir:
+                daemon.live.announce(args.trace_dir)
+            print(
+                f"serving on {daemon.url} (POST /synthesize /drain; "
+                "GET /serving /slo /journal /obs/window /request "
+                "/metrics /metrics.json /healthz /progress)",
+                flush=True,
+            )
+            while not daemon.drained.wait(1.0):
+                pass
+            print("serve: drained, exiting", flush=True)
+        except KeyboardInterrupt:
+            print("serve: interrupted, draining")
+        finally:
+            daemon.stop()
+    return 0
+
+
+# The reconstruction bound `trace` checks: the phases of a dispatched
+# request explain its end-to-end latency to within this share.
+TRACE_GAP_PCT_MAX = 5.0
+
+
+def cmd_trace(args) -> int:
+    """Reconstruct one served request's critical path: the access log
+    is the source of truth for phase attribution (queue/compile/
+    execute/demux ms the daemon booked at response time), joined, when
+    the artifacts exist, with the request's `serve_request` span tree
+    from flight.json.  `--url` asks a live daemon instead (GET
+    /request?id=).  Prints a phase-attributed waterfall; exits nonzero
+    when the id is unknown, and 1 when a dispatched request's phases
+    leave more than TRACE_GAP_PCT_MAX percent of its latency
+    unexplained."""
+    import json
+
+    from .serving.accesslog import phase_fields
+
+    _refuse_unported(args, _SERVE_UNPORTED)
+    if bool(args.url) == bool(args.trace_dir):
+        raise SystemExit(
+            "trace: exactly one of --url (live daemon) or --trace-dir "
+            "(post-mortem artifacts) is required"
+        )
+    if args.url:
+        import urllib.error
+        import urllib.parse
+        import urllib.request
+
+        base = args.url.rstrip("/")
+        if not base.startswith(("http://", "https://")):
+            base = "http://" + base
+        url = (base + "/request?id="
+               + urllib.parse.quote(args.request_id, safe=""))
+        try:
+            with urllib.request.urlopen(url, timeout=10.0) as resp:
+                doc = json.loads(resp.read().decode("utf-8"))
+        except urllib.error.HTTPError as e:
+            try:
+                detail = json.loads(e.read().decode("utf-8")).get(
+                    "error", ""
+                )
+            except (ValueError, OSError):
+                detail = ""
+            raise SystemExit(
+                f"trace: request {args.request_id!r}: daemon answered "
+                f"{e.code}" + (f" ({detail})" if detail else "")
+            )
+        except (urllib.error.URLError, OSError) as e:
+            raise SystemExit(f"trace: cannot reach {args.url}: {e}")
+        rec = doc.get("request") or {}
+        flight_evs = doc.get("flight_events") or []
+    else:
+        from .serving.accesslog import find_request
+
+        log_path = args.access_log or os.path.join(
+            args.trace_dir, "access.jsonl"
+        )
+        rec = find_request(log_path, args.request_id)
+        if rec is None:
+            raise SystemExit(
+                f"trace: request {args.request_id!r} not found in "
+                f"{log_path} (or its rotations)"
+            )
+        # Optional flight-side join: the daemon replays each settled
+        # request's span tree through the flight recorder, so a request
+        # still inside the ring's window has events here too.
+        flight_evs = []
+        flight_path = os.path.join(args.trace_dir, "flight.json")
+        if os.path.exists(flight_path):
+            from .telemetry.flight import read_flight, request_events
+
+            try:
+                flight_evs = request_events(
+                    read_flight(flight_path), args.request_id
+                )
+            except (OSError, ValueError):
+                flight_evs = []
+    total_ms = float(rec.get("total_ms") or 0.0)
+    phases = phase_fields(rec)
+    attributed = sum(ms for _, ms in phases)
+    gap = total_ms - attributed
+    gap_pct = 100.0 * gap / total_ms if total_ms > 0 else 0.0
+    # Only a request that reached `executed` carries the whole split.
+    over = "execute_ms" in rec and abs(gap_pct) > TRACE_GAP_PCT_MAX
+    if args.format == "json":
+        print(json.dumps(
+            {"access": rec, "flight_events": flight_evs}, indent=1
+        ))
+        return 1 if over else 0
+    print(
+        f"request {rec.get('request_id')}  outcome={rec.get('outcome')}"
+        f"  http={rec.get('http_status')}  cache={rec.get('cache', '-')}"
+        f"  session={rec.get('session_id') or '-'}"
+    )
+    if rec.get("exec_key"):
+        print(f"  exec_key {rec['exec_key']}")
+    if rec.get("ts"):
+        print(f"  ts {rec['ts']}  bytes_in {rec.get('bytes_in', 0)}"
+              f"  bytes_out {rec.get('bytes_out', 0)}")
+    width = 32
+    for name, ms in phases:
+        frac = ms / total_ms if total_ms > 0 else 0.0
+        bar = "#" * max(1, int(round(frac * width))) if ms > 0 else ""
+        print(f"  {name:8s} {ms:10.3f} ms  {100.0 * frac:5.1f}%  {bar}")
+    print(
+        f"  {'phases':8s} {attributed:10.3f} ms  vs total "
+        f"{total_ms:.3f} ms (gap {gap:.3f} ms, {gap_pct:.2f}%)"
+        + (f"  OVER the {TRACE_GAP_PCT_MAX:g}% bound" if over else "")
+    )
+    if flight_evs:
+        closes = [ev for ev in flight_evs if ev.get("kind") == "close"]
+        root = next(
+            (ev for ev in closes if ev.get("name") == "serve_request"),
+            None,
+        )
+        extra = (
+            f"; serve_request wall {root['wall_ms']:.3f} ms"
+            if root and root.get("wall_ms") is not None else ""
+        )
+        print(f"  flight: {len(flight_evs)} span events{extra}")
+    return 1 if over else 0
+
+
 def cmd_examples(args) -> int:
     from .utils import examples as ex
     from .utils.io import save_image
@@ -703,6 +989,189 @@ def main(argv=None) -> int:
     )
     _add_synth_flags(p)
     p.set_defaults(fn=cmd_video)
+
+    p = sub.add_parser(
+        "serve",
+        help="synthesis-as-a-service daemon: request queue + "
+        "executable-cache accounting + continuous batching + admission "
+        "control over HTTP (serving/)",
+    )
+    p.add_argument("--a", required=True)
+    p.add_argument("--ap", required=True)
+    p.add_argument(
+        "--port", type=int, default=0,
+        help="bind port (0 = ephemeral; the bound endpoint prints on "
+        "stdout and announces in <trace-dir>/live.json)",
+    )
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="not ported yet (ROADMAP Queue 1 step 14)")
+    p.add_argument(
+        "--max-batch", type=int, default=None, metavar="N",
+        help="continuous-batching dispatch grain (default 1, the "
+        "device count).  Every dispatch pads to exactly this many "
+        "frames so repeat request shapes share one cache entry",
+    )
+    p.add_argument(
+        "--max-wait-ms", type=float, default=25.0, metavar="MS",
+        help="longest the queue head waits for co-batchable requests "
+        "before a partial batch flushes (default 25)",
+    )
+    p.add_argument(
+        "--max-queue-depth", type=int, default=32, metavar="N",
+        help="admission limit: requests beyond this backlog "
+        "(admitted and not yet answered) are shed with 429 + "
+        "Retry-After; the "
+        "limit halves while the backend's straggler/degradation "
+        "gauges read degraded (default 32)",
+    )
+    p.add_argument(
+        "--cache-capacity", type=int, default=8, metavar="N",
+        help="executable-cache residency (default 8).  Eviction is "
+        "epoch-grained (serving/excache.py): size this so eviction is "
+        "rare",
+    )
+    p.add_argument(
+        "--warmup", default=None, metavar="MANIFEST",
+        help="serve_warmup JSON manifest of expected request shapes, "
+        "dispatched through the real path before the endpoint "
+        "announces: the first client request of each listed shape "
+        "is then a cache hit",
+    )
+    p.add_argument(
+        "--max-sessions", type=int, default=16, metavar="N",
+        help="video session-affinity streams held live (LRU).  A "
+        "/synthesize request carrying session_id pins to a "
+        "per-session warm-start stream; the least-recently-used "
+        "stream beyond this count is dropped and its next frame runs "
+        "cold (default 16)",
+    )
+    p.add_argument(
+        "--state-dir", default=None, metavar="DIR",
+        help="crash-resilience state dir: every admitted "
+        "request journals to DIR/journal.jsonl before its ack, drain "
+        "snapshots hand-off state there, and a restart replays the "
+        "journal's unfinished entries (bit-identical by the isolation "
+        "contract).  DIR/daemon.lock refuses a second live daemon",
+    )
+    p.add_argument(
+        "--warm-dir", default=None, metavar="DIR",
+        help="fleet-shared warm tier: not ported yet (ROADMAP Queue 1 "
+        "step 13b)",
+    )
+    p.add_argument(
+        "--takeover", default=None, metavar="DIR",
+        help="take over a dead/drained daemon's state dir: restore "
+        "its snapshotted sessions, merge its runtime-observed warmup "
+        "shapes, and replay its journaled unfinished requests "
+        "(equivalent to --state-dir DIR; refused while the previous "
+        "holder's pid is alive)",
+    )
+    p.add_argument(
+        "--drain-deadline-s", type=float, default=30.0, metavar="S",
+        help="graceful-drain budget (SIGTERM or POST /drain): new "
+        "requests 503 immediately; queued + in-flight work and their "
+        "response writes get this long to finish before the hand-off "
+        "snapshot is cut and the daemon exits 0 (default 30)",
+    )
+    p.add_argument(
+        "--dispatch-deadline-s", type=float, default=None, metavar="S",
+        help="bound one batch dispatch: past this wall the "
+        "dispatcher's abort token fires and the wedged attempt "
+        "unwinds as a failed (500) batch instead of freezing the "
+        "daemon (default: unbounded)",
+    )
+    p.add_argument(
+        "--pipeline-window", type=int, default=2, metavar="N",
+        help="pipelined-dispatch in-flight window: up to N "
+        "dispatched batches may be unsettled at once, so host-side "
+        "demux/response work of batch t overlaps device execution of "
+        "batch t+1.  1 = the serial loop (default 2)",
+    )
+    p.add_argument(
+        "--warmup-workers", type=int, default=4, metavar="N",
+        help="threads warming distinct warmup shapes concurrently "
+        "before the endpoint announces (default 4, 1 = sequential)",
+    )
+    p.add_argument(
+        "--obs-interval-s", type=float, default=5.0, metavar="S",
+        help="time-series ring sampling interval: every S "
+        "seconds the registry snapshots into the windowed-rate ring "
+        "GET /obs/window serves, and the anomaly watches re-grade.  "
+        "<= 0 disables the observatory plane (default 5)",
+    )
+    p.add_argument(
+        "--obs-capacity", type=int, default=120, metavar="N",
+        help="time-series ring length in snapshots (default 120 = a "
+        "10-minute window at the default interval; memory is N "
+        "serialized registry snapshots)",
+    )
+    p.add_argument(
+        "--baseline", default=None, metavar="RECORD",
+        help="SERVE-record JSON measured on this card whose "
+        "pipeline.p99_warm_ms anchors the anomaly detector's latency "
+        "envelope; omitted = the latency watch reports no_data",
+    )
+    p.add_argument(
+        "--archive-dir", default=None, metavar="DIR",
+        help="durable telemetry archive + black box: not ported yet "
+        "(ROADMAP Queue 1 step 13b)",
+    )
+    p.add_argument(
+        "--archive-interval-s", type=float, default=None, metavar="S",
+        help="archive snapshot cadence: not ported yet (ROADMAP Queue 1 "
+        "step 13b)",
+    )
+    p.add_argument(
+        "--flight-ring", type=int, default=None, metavar="N",
+        help="flight-recorder event-ring capacity (default: "
+        "IA_FLIGHT_RING env or 512; memory scales linearly, "
+        "~200-500 bytes per event)",
+    )
+    p.add_argument(
+        "--lattice", default=None, metavar="SPEC",
+        help="shape-lattice admission: not ported yet (ROADMAP Queue 1 "
+        "step 13b); 'off' is accepted",
+    )
+    _add_synth_flags(p)
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser(
+        "trace",
+        help="reconstruct one serving request's critical path from the "
+        "daemon's access log (+ flight.json span join): phase-"
+        "attributed waterfall for a request id (exit 1 if not found or "
+        "over the 5%% reconstruction bound)",
+    )
+    _add_common_flags(p)
+    p.add_argument(
+        "request_id",
+        help="the request id to reconstruct (echoed in every "
+        "/synthesize response and error body)",
+    )
+    p.add_argument(
+        "--trace-dir", default=None, metavar="DIR",
+        help="the serve daemon's --trace-dir (access.jsonl + "
+        "flight.json live here); exactly one of --trace-dir/--url",
+    )
+    p.add_argument(
+        "--url", default=None, metavar="URL",
+        help="ask a LIVE daemon over HTTP instead of reading "
+        "artifacts (GET /request?id=); exactly one of "
+        "--trace-dir/--url",
+    )
+    p.add_argument(
+        "--fleet", default=None, metavar="DISCOVERY",
+        help="cross-process fleet waterfall: not ported yet (ROADMAP "
+        "Queue 1 step 13b)",
+    )
+    p.add_argument(
+        "--access-log", default=None, metavar="JSONL",
+        help="explicit access-log path (default: "
+        "<trace-dir>/access.jsonl)",
+    )
+    p.add_argument("--format", default="table", choices=["table", "json"])
+    p.set_defaults(fn=cmd_trace)
 
     p = sub.add_parser("examples", help="generate procedural example assets")
     _add_common_flags(p)

@@ -107,8 +107,8 @@ launches_int8 = LaunchCounter("tile_sweep_int8")
 # ---------------------------------------------------------------------------
 # Mode selection.  The reference's setters also drop its compiled level
 # graphs, which resolved the modes at trace time; the port compiles no
-# graphs, so its setters only validate and assign
-# (`clear_compiled_level_caches` has no counterpart here).
+# graphs, so its setters only validate and assign (the per-shape caches
+# the serving tier drops are `clear_first_use_caches`'s).
 
 # "bf16" is the uncompressed representation (float32 sweep planes, bf16
 # polish rows); "int8" quantizes both candidate tables.
@@ -738,6 +738,17 @@ def _device_weights(specs, device: torch.device) -> torch.Tensor:
     """`window_weights(specs)` on `device`, copied there once per specs
     rather than once per launch."""
     return torch.as_tensor(window_weights(specs)[0]).to(device)
+
+
+def clear_first_use_caches() -> None:
+    """Drop what the port keeps per dispatch shape, so the next use of
+    any shape pays its first use again: the device weights above and
+    the caching allocator's free blocks.  The serving executable
+    cache's epoch eviction calls it (`serving/excache.py`), as the
+    reference's calls `clear_compiled_level_caches`."""
+    _device_weights.cache_clear()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
 
 
 def kernel_smem_bytes(n_chan: int, halo: int, rows: int = STRIP_ROWS) -> int:

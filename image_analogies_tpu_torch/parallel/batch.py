@@ -20,12 +20,14 @@ Dropped from the reference, as TPU or not-yet-ported mechanics:
   - the device mesh, `NamedSharding` and the padding of the frame count
     to the mesh's grain (one device pads nothing; multi-device runs are
     ROADMAP Queue 1 step 14), so there is no `mesh` argument;
-  - the serving tier's executable persist hook (`_PersistWrap`, step 13);
+  - the serving tier's executable persist hook (`_PersistWrap`): its
+    disk tier is ROADMAP Queue 1 step 13b;
   - `fa_external`, `fuse`, `_SAFE_EXEC_DIST_ELEMS` and the forcing of
     brute runs to one frame per step: TPU execution-size rules, dropped
     as the single-image runner drops them (outputs do not depend on the
     chunking, so no result changes);
-  - the per-shard completion walls of the level spans (one device).
+  - the per-shard completion walls of the level spans (one device); a
+    lean tracer skips the level's energy readback, as the reference's.
 The reference's telemetry and faults are kept: `progress` gets the
 `prologue` span, the `run_plan` mark and one `level` span a level with
 its `em_iter` children (one device sync a level when enabled), and the
@@ -226,9 +228,12 @@ def synthesize_batch(
         nnf, dist, bp = run_level(cfg, level, levels, pyr, nnf, bp, plan,
                                   frame_idx)
         if tracer.enabled:
+            # A lean tracer (the serving daemon's per-request one) keeps
+            # the level span and skips the energy readback, a sync.
             h, w = pyr[2][level].shape[1:3]
-            record_level_span(tracer, cfg, level_t0, level, h, w,
-                              level_energy(dist))
+            record_level_span(
+                tracer, cfg, level_t0, level, h, w,
+                None if tracer.lean else level_energy(dist))
         if cfg.save_level_artifacts:
             _save_level(cfg.save_level_artifacts, level, nnf, dist, bp, cfg,
                         fp_shape)

@@ -14,6 +14,21 @@ a fault class the supervisor claims to survive:
     xfer     the host-to-device input transfer (key = ordinal, 0 for a
              run's first)
 
+plus the serving-plane points (serving/daemon.py and
+serving/journal.py), whose `fail` action is returned to the caller,
+which performs the simulated failure, rather than raised:
+
+    serve_crash     between journal-append and the response write
+                    (key = journal write ordinal): the daemon hard-exits,
+                    a SIGKILL with an acked request on disk
+    serve_hang      the dispatcher, before a batch executes (key =
+                    dispatch ordinal): interruptible hang, bounded by
+                    the daemon's dispatch deadline
+    serve_evict     the dispatcher (key = dispatch ordinal): a forced
+                    executable-cache epoch eviction before lookup
+    serve_diskfull  the journal write syscall (key = write ordinal):
+                    OSError counted on journal.errors, never raised
+
 armed by a fault plan (`IA_FAULT_PLAN` or `set_fault_plan`): comma or
 semicolon separated entries
 
@@ -37,8 +52,8 @@ attempt runs on a worker thread with a thread-local abort token
 `fire("level", ...)` on that thread (or an interrupted `hang`) raises
 `LevelAborted`, so an abandoned attempt unwinds at its next level
 boundary.  Unsupervised runs carry no token and pay one falsy check.
-The reference's module, copied; its serving-plane points wait for the
-serving slice.
+The reference's module, copied; its `archive_crash` point waits for
+the telemetry archive (ROADMAP Queue 1 step 13b).
 """
 
 from __future__ import annotations
@@ -49,8 +64,20 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
-POINTS = ("level", "kernel", "ckpt", "xfer")
+POINTS = ("level", "kernel", "ckpt", "xfer", "serve_crash", "serve_hang",
+          "serve_evict", "serve_diskfull")
 ACTIONS = ("raise", "hang", "truncate", "fail")
+
+# Serving-plane points: "fail" returns to the caller instead of
+# raising, and only the actions below are grammatical per point.
+SERVE_POINTS = ("serve_crash", "serve_hang", "serve_evict",
+                "serve_diskfull")
+_SERVE_ACTIONS = {
+    "serve_crash": ("fail",),
+    "serve_hang": ("hang",),
+    "serve_evict": ("fail",),
+    "serve_diskfull": ("fail",),
+}
 
 class InjectedFault(RuntimeError):
     """A planned `raise` injection fired."""
@@ -118,6 +145,12 @@ class FaultPlan:
                 raise ValueError(
                     f"fault-plan action {action!r} names none of "
                     f"{ACTIONS}"
+                )
+            if point in _SERVE_ACTIONS and \
+                    action not in _SERVE_ACTIONS[point]:
+                raise ValueError(
+                    f"fault-plan entry {raw!r}: point {point!r} only "
+                    f"supports {_SERVE_ACTIONS[point]}"
                 )
             if action == "truncate" and point != "ckpt":
                 raise ValueError(
@@ -255,6 +288,11 @@ def fire(point: str, key: int) -> Optional[str]:
     if entry.action == "hang":
         _hang(entry.arg, token, point, key)
         return None
+    if point in SERVE_POINTS:
+        # Caller-interpreted: the daemon / journal glue performs the
+        # simulated failure (hard exit, counted OSError, forced
+        # eviction), and `check_serving_recovery` grades the aftermath.
+        return entry.action
     if entry.action == "raise":
         raise InjectedFault(f"injected fault at {point}:{key}")
     if entry.action == "fail":

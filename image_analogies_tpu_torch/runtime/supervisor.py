@@ -39,8 +39,7 @@ so a breached one is abandoned; its abort token makes the injected hang
 and the next level boundary raise `LevelAborted`, and the supervisor
 waits up to `abort_grace_s` for it to unwind.  A retry first waits for
 the device work already queued (`_settle_device`).  The reference's
-module, copied; its serving-dispatch deadline waits for the serving
-slice.
+module, copied, with the serving daemon's `DispatchDeadline`.
 """
 
 from __future__ import annotations
@@ -85,6 +84,50 @@ class AbortToken:
 
     def is_set(self) -> bool:
         return self._event.is_set()
+
+
+class DispatchDeadline:
+    """Armed wall-clock bound on ONE dispatch (the serving daemon's
+    anti-wedge guard): a timer that sets an AbortToken after
+    `seconds`, so a hung batch — a `serve_hang` injection, a wedged
+    collective — unwinds at its next `fire("level", ...)` / hang-slice
+    check instead of wedging the dispatcher thread forever.  Use as a
+    context manager around the dispatch; `cancel()` (or exit) disarms
+    the timer, and `expired` says whether the bound fired.
+
+    This is deliberately the same token type the supervisor's watchdog
+    sets: one abort channel through runtime/faults, two setters."""
+
+    def __init__(self, seconds: float, token: Optional[AbortToken]
+                 = None):
+        self.seconds = float(seconds)
+        self.token = token if token is not None else AbortToken()
+        self._timer: Optional[threading.Timer] = None
+
+    def arm(self) -> "DispatchDeadline":
+        self._timer = threading.Timer(
+            self.seconds,
+            lambda: self.token.set("dispatch-deadline"),
+        )
+        self._timer.daemon = True
+        self._timer.start()
+        return self
+
+    def __enter__(self) -> "DispatchDeadline":
+        return self.arm()
+
+    def __exit__(self, *exc) -> None:
+        self.cancel()
+
+    def cancel(self) -> None:
+        if self._timer is not None:
+            self._timer.cancel()
+            self._timer = None
+
+    @property
+    def expired(self) -> bool:
+        return self.token.is_set() \
+            and self.token.reason == "dispatch-deadline"
 
 
 @dataclass(frozen=True)

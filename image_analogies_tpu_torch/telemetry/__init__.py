@@ -15,8 +15,11 @@
 - `report`  — host spans joined with the `torch.profiler` trace
   (report.json; the trace reader is `utils/torch_trace.py`).
 
-Still to port, with the serving slice (ROADMAP Queue 1 step 13): the
-anomaly watches, the time-series ring and the telemetry archive.
+- `timeseries` — the windowed ring of registry snapshots the serving
+  daemon's `/obs/window` serves;
+- `anomaly` — the live watches over that ring (`ia_anomaly_status`).
+
+Still to port (ROADMAP Queue 1 step 13b): the telemetry archive.
 """
 
 from .flight import FLIGHT_FILE, FlightRecorder

@@ -17,8 +17,8 @@ and periodic registry snapshots, and flushes them to `flight.json` on
     instrumented run leaves the artifact.
 
 Every flush is a full atomic rewrite (a temporary file and a rename), so
-`flight.json` on disk always parses.  The reference's recorder, copied;
-its serving-request accessors wait for the serving slice.
+`flight.json` on disk always parses.  The reference's recorder, copied,
+with its serving-request accessors (`request_events`, `tree_events`).
 
 Schema (validated by tools/check_report.py `validate_flight`):
 
@@ -57,11 +57,13 @@ DEFAULT_RING_CAPACITY = 512
 RING_CAPACITY_ENV = "IA_FLIGHT_RING"
 
 
-def resolve_ring_capacity() -> int:
-    """Event-ring capacity: IA_FLIGHT_RING, else the 512 default.  A
-    malformed or non-positive value falls back to the default (an
-    observability knob must never be able to kill the run it
-    observes)."""
+def resolve_ring_capacity(cli_value: Optional[int] = None) -> int:
+    """Event-ring capacity, by precedence: an explicit CLI value (`serve
+    --flight-ring`) > IA_FLIGHT_RING > the 512 default.  A malformed or
+    non-positive env value falls back to the default (an observability
+    knob must never be able to kill the run it observes)."""
+    if cli_value is not None and int(cli_value) > 0:
+        return int(cli_value)
     raw = os.environ.get(RING_CAPACITY_ENV)
     if raw:
         try:
@@ -173,7 +175,12 @@ class FlightRecorder:
         from ..utils.io import atomic_write_json
 
         self._n_flushes += 1
-        if reason in ("sigterm", "sigint", "violation", "watchdog"):
+        if reason in ("sigterm", "sigint", "violation", "watchdog",
+                      "drain"):
+            # "drain" sticks too: after an orderly serving hand-off the
+            # atexit re-flush keeps saying drain, and a drain that began
+            # as SIGTERM relabels the dump (the daemon's drain flushes
+            # after the signal's).
             self._sticky_reason = reason
         elif self._sticky_reason is not None and reason in (
             "session-end", "atexit"
@@ -264,6 +271,63 @@ class FlightRecorder:
         except (ValueError, OSError):
             pass
         signal.raise_signal(signum)
+
+
+def stack_events(dump: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Convenience accessor for consumers/tests: the dump's event
+    window, oldest first (already the on-disk order)."""
+    return list(dump.get("events") or [])
+
+
+def request_events(dump: Dict[str, Any],
+                   request_id: str) -> List[Dict[str, Any]]:
+    """Events belonging to one serving request (round 15): the
+    `serve_request` roots carry `request_id` in their attrs, and the
+    daemon replays each request's tree through the observer hook at
+    settle, so a request that finished inside the ring's window shows
+    up here — the `ia-synth trace` CLI's flight-side join."""
+    return [
+        ev for ev in stack_events(dump)
+        if (ev.get("attrs") or {}).get("request_id") == request_id
+    ]
+
+
+def tree_events(dump: Dict[str, Any],
+                request_id: str) -> List[Dict[str, Any]]:
+    """Every event of every span TREE rooted at `request_id` — the
+    round-22 fleet-trace accessor.  `request_events` only matches
+    events whose own attrs carry the id; a request tree's lifecycle
+    children (enqueue/dispatch/... on a replica, or a grafted run
+    subtree) do not.  Attached trees are replayed depth-first through
+    the observer hook (spans.Tracer.attach_tree), so in the ring a
+    root's open..close bracket contains exactly its tree: track the
+    open/close depth from each matching root's open event and collect
+    until it returns to zero.  Events the ring already evicted are
+    simply absent — honest truncation, never reconstruction."""
+    out: List[Dict[str, Any]] = []
+    depth = 0
+    for ev in stack_events(dump):
+        kind = ev.get("kind")
+        if depth == 0:
+            if (kind == "open"
+                    and (ev.get("attrs") or {}).get("request_id")
+                    == request_id):
+                depth = 1
+                out.append(ev)
+            continue
+        out.append(ev)
+        if kind == "open":
+            depth += 1
+        elif kind == "close":
+            depth -= 1
+    return out
+
+
+def read_flight(path: str) -> Dict[str, Any]:
+    import json
+
+    with open(path) as f:
+        return json.load(f)
 
 
 def install_for_session(tracer, registry, artifact_dir: str,

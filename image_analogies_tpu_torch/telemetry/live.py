@@ -288,6 +288,13 @@ class _Handler(BaseHTTPRequestHandler):
                 pass
 
 
+class _Server(ThreadingHTTPServer):
+    # The listen backlog: the socketserver default of 5 drops the SYNs
+    # of a burst of simultaneous clients past it (the serving daemon's
+    # overload arrivals), which then reconnect a second later.
+    request_queue_size = 128
+
+
 class LiveTelemetryServer:
     """The exporter: bind, serve on a daemon thread, announce, stop.
 
@@ -343,9 +350,7 @@ class LiveTelemetryServer:
         return health
 
     def start(self) -> "LiveTelemetryServer":
-        self._httpd = ThreadingHTTPServer(
-            (self.host, self._requested_port), _Handler
-        )
+        self._httpd = _Server((self.host, self._requested_port), _Handler)
         self._httpd.live = self  # type: ignore[attr-defined]
         self._httpd.daemon_threads = True
         self.port = self._httpd.server_address[1]

@@ -8,9 +8,9 @@ request-duration histogram family — `ia_request_duration_ms
 at response time — not from the derived quantile gauges, so the same
 arithmetic works live (over a sliding window of registry snapshots,
 `SloEngine`) and offline (over a serialized metrics dict,
-`evaluate_slo`, which the sentinel's `check_slo` reuses).  Until the
-serving slice lands no run of the port observes the family, and every
-objective grades `no_data` (the sentinel: skipped).
+`evaluate_slo`, which the sentinel's `check_slo` reuses).  The serving
+daemon observes the family; a run outside it does not, and every
+objective grades `no_data` there (the sentinel: skipped).
 
 Error-budget semantics, uniform across objective kinds: every
 objective reduces to a BAD-EVENT FRACTION and an ALLOWED fraction

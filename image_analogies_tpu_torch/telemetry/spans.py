@@ -30,13 +30,14 @@ Schema (the reference's, version 1):
            "children": [span, ...]}
     tree: {"schema_version": 1, "t0": ISO-8601, "spans": [span, ...]}
 
-Left out until the serving slice: the reference's after-the-fact request
-trees (`attach_tree`, `span_at`, `new_span_id`).
+The serving daemon builds its request trees after the fact
+(`span_at`, `Tracer.attach_tree`, `new_span_id`), as the reference's.
 """
 
 from __future__ import annotations
 
 import time
+import uuid
 from typing import Any, Dict, List, Optional
 
 from ..utils.progress import _iso_now
@@ -135,13 +136,16 @@ class Tracer:
     `sink`: optional `utils.progress.ProgressWriter` (anything with
     `.emit(event, **fields)`) that receives the JSONL view.  `registry`:
     optional `telemetry.metrics.MetricsRegistry` the runners update
-    beside the spans.  (The reference's `lean` tracer, which skips the
-    per-level readback for the serving daemon's request traces, waits
-    for the serving slice.)
+    beside the spans.  `lean` asks the runners to skip optional device
+    readbacks (the batch runner's per-level energy mean) while keeping
+    the span tree: the serving daemon's per-request run tracer sets it,
+    so request tracing adds no device sync to the hot path.
     """
 
-    def __init__(self, sink=None, registry=None, enabled: bool = True):
+    def __init__(self, sink=None, registry=None, enabled: bool = True,
+                 lean: bool = False):
         self.enabled = enabled
+        self.lean = lean
         self.sink = sink
         self.registry = registry
         self._t0 = time.perf_counter()
@@ -241,6 +245,31 @@ class Tracer:
             self.sink.emit(event, **fields)
 
     # -- output -------------------------------------------------------
+    def attach_tree(self, root: Span) -> None:
+        """Adopt an already-closed span tree as a new root WITHOUT
+        touching the active stack — the serving daemon's per-request
+        trees are built after the fact (requests overlap arbitrarily,
+        so they can't live on the strictly-nested stack) and grafted
+        here so `to_dict`/`find`/the flight recorder see one forest.
+        Observers are replayed depth-first (open before children,
+        close after), so the flight recorder's event window records
+        the adopted tree like any live one; legacy sink events are NOT
+        re-fired (the tree's original tracer already emitted them)."""
+        if not self.enabled:
+            return
+        self.roots.append(root)
+        if not self._observers:
+            return
+
+        def replay(sp: Span) -> None:
+            self._notify("open", sp)
+            for c in sp.children:
+                replay(c)
+            self._notify("close", sp)
+
+        replay(root)
+
+    # -- output -------------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:
         return {
             "schema_version": SCHEMA_VERSION,
@@ -287,6 +316,34 @@ class Tracer:
 
         walk(self.roots)
         return out
+
+
+NULL_TRACER = Tracer(enabled=False)
+
+
+def span_at(name: str, t_start: float, t_end: float,
+            **attrs) -> Span:
+    """Build a DETACHED timed Span from explicit perf_counter readings
+    (`time.perf_counter()` values, the same process-wide clock every
+    live span samples) — the primitive the serving daemon uses to
+    reconstruct a request's lifecycle as real spans after the fact.
+    The span is closed (t_end set) but belongs to no tracer; compose
+    with `Span.children` + `Tracer.attach_tree`.  `ts` is backdated so
+    the schema's 'ts = start' promise holds."""
+    sp = Span(name, attrs, NULL_TRACER)
+    sp.t_start = float(t_start)
+    sp.t_end = max(float(t_start), float(t_end))
+    sp.ts = _iso_now(-(time.perf_counter() - sp.t_start) * 1000.0)
+    return sp
+
+
+def new_span_id() -> str:
+    """Fresh 12-hex id — the shared grammar for generated request ids
+    AND span ids (`^[A-Za-z0-9._-]{1,64}$` accepts it), so the round-15
+    replaced-never-rejected policy has one generator for both the
+    `X-Request-Id` and `X-Parent-Span` headers (serving/daemon.py,
+    serving/router.py)."""
+    return uuid.uuid4().hex[:12]
 
 
 NULL_TRACER = Tracer(enabled=False)

@@ -76,7 +76,8 @@ def telemetry_session(trace_dir: Optional[str], sink=None,
                       enabled: bool = True,
                       artifact_dir: Optional[str] = None,
                       cuda: bool = False,
-                      metrics_port: Optional[int] = None):
+                      metrics_port: Optional[int] = None,
+                      flight_capacity: Optional[int] = None):
     """Device trace + span tracer + telemetry artifacts, as the
     reference's session.
 
@@ -86,7 +87,8 @@ def telemetry_session(trace_dir: Optional[str], sink=None,
     `metrics.json` counts this run (the kernel wrappers book their
     launches and byte ledgers through `get_registry()`).  With an
     `artifact_dir` it also installs a flight recorder dumping to
-    `<artifact_dir>/flight.json` (IA_FLIGHT_RING events, 512 by default).
+    `<artifact_dir>/flight.json` (`flight_capacity` events, else
+    IA_FLIGHT_RING, else 512).
     `metrics_port` (the CLI's `--metrics-port`; 0 = ephemeral) serves
     /metrics, /metrics.json, /healthz and /progress from the live
     exporter (telemetry/live.py) for the session, announced in
@@ -118,9 +120,14 @@ def telemetry_session(trace_dir: Optional[str], sink=None,
     # recorder's handlers through the same finally as the run.
     try:
         if enabled and artifact_dir:
-            from ..telemetry.flight import install_for_session
+            from ..telemetry.flight import (
+                install_for_session,
+                resolve_ring_capacity,
+            )
 
-            flight = install_for_session(tracer, reg, artifact_dir)
+            flight = install_for_session(
+                tracer, reg, artifact_dir,
+                capacity=resolve_ring_capacity(flight_capacity))
             # The supervisor's handle for its watchdog and give-up
             # flushes, and the health epilogue's after teardown.
             tracer.flight_recorder = flight

@@ -32,8 +32,7 @@ gauge; the `xfer`, `level`, `kernel` and `ckpt` fault points fire where
 the reference's do.
 
 Dropped from the reference: the device mesh and its padding rows (one
-device; ROADMAP Queue 1 step 14), the per-shard level walls, and the
-serving request ids (step 13).
+device; ROADMAP Queue 1 step 14) and the per-shard level walls.
 """
 
 from __future__ import annotations
@@ -277,14 +276,20 @@ class VideoStream:
         self.warm_frames = 0
         self.run_units = 0.0      # modeled units of the schedules run
         self.cold_units = 0.0     # modeled units of the cold equivalent
+        # Serving request id per frame (None outside the daemon): which
+        # request produced stream frame t, for the trace join.
+        self.request_ids = []
 
     def step(self, frame, *, resume_root: Optional[str] = None,
-             resume_strict: bool = False):
+             resume_strict: bool = False,
+             request_id: Optional[str] = None):
         """Synthesize the next frame; returns the stylized (H, W[, 3])
         tensor.  `resume_root`: a prior run's checkpoint root; this frame
         resumes from its `frames_{t:05d}` subdirectory (the batch
         runner's layout, so warm-off and warm-on runs share cold frames'
-        checkpoints)."""
+        checkpoints).  `request_id`: the serving request driving this
+        frame, recorded on `self.request_ids`."""
+        self.request_ids.append(request_id)
         cfg = self.cfg
         t = self.t
         frame_np = _host(frame).astype(np.float32)

@@ -9,7 +9,10 @@ and naming each in its progress stream, the telemetry directory, a
 supervised run healing a fault, the flags of unported parts
 stopping the run with their ROADMAP step, and the step-12 flags
 (`--health`, `--metrics-port`) running, the health epilogue on every
-runner."""
+runner; `serve --device cpu` in its own process answering a request,
+draining on SIGTERM and exiting 0, `trace --trace-dir` reconstructing
+that request within 5 %, and serve's and trace's unported flags
+stopping at startup."""
 
 import json
 import os
@@ -278,6 +281,110 @@ def test_health_epilogue_on_every_runner(assets, tmp_path, capsys, cmd):
     assert "health: OK" in out
     assert "span_tree" in out
     assert not os.path.exists(tmp_path / "health.json")
+
+
+@pytest.mark.parametrize("flags,step", [
+    (["--lattice", "on"], "step 13b"),
+    (["--warm-dir", "w"], "step 13b"),
+    (["--archive-dir", "a"], "step 13b"),
+    (["--archive-interval-s", "5"], "step 13b"),
+    (["--n-devices", "2"], "step 14"),
+])
+def test_serve_unported_flags_stop_with_their_step(assets, flags, step):
+    with pytest.raises(SystemExit) as exc:
+        _run(["serve", "--a", os.path.join(assets, "npr_A.png"),
+              "--ap", os.path.join(assets, "npr_Ap.png"),
+              "--device", "cpu"] + flags)
+    assert "not ported" in str(exc.value.code)
+    assert step in str(exc.value.code)
+
+
+def test_trace_fleet_stops_with_its_step():
+    with pytest.raises(SystemExit, match="step 13b"):
+        _run(["trace", "r1", "--fleet", "discovery.json"])
+
+
+def test_serve_without_a_card_refuses(assets, monkeypatch):
+    """`serve` runs on cuda by default: without a card it stops at
+    startup, before binding, and never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        _run(["serve", "--a", os.path.join(assets, "npr_A.png"),
+              "--ap", os.path.join(assets, "npr_Ap.png")])
+
+
+def _serve_post(url, frame, rid):
+    import base64
+    import urllib.request
+
+    body = json.dumps({
+        "image_b64": base64.b64encode(frame.tobytes()).decode(),
+        "shape": list(frame.shape), "dtype": "uint8",
+    }).encode()
+    req = urllib.request.Request(url + "/synthesize", data=body,
+                                 method="POST",
+                                 headers={"X-Request-Id": rid})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def test_serve_subprocess_answers_drains_and_traces(assets, tmp_path):
+    """`serve --device cpu` in its own process on 48^2 frames: announce
+    after warmup, one uint8 request answered (a warmup hit), SIGTERM
+    drains and exits 0 with a drain flight dump; then `trace
+    --trace-dir` reconstructs the request within 5 %."""
+    import signal
+    import time
+
+    td, sd = tmp_path / "td", tmp_path / "sd"
+    warm = tmp_path / "warm.json"
+    warm.write_text(json.dumps({
+        "schema_version": 1, "kind": "serve_warmup",
+        "entries": [{"height": 48, "width": 48}]}))
+    frame = to_uint8(load_image(os.path.join(assets, "npr_frame_0.png")))
+    frame = np.ascontiguousarray(frame[:48, :48])
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "image_analogies_tpu_torch.cli", "serve",
+         "--a", os.path.join(assets, "npr_A.png"),
+         "--ap", os.path.join(assets, "npr_Ap.png"), "--device", "cpu",
+         "--levels", "2", "--em-iters", "1", "--pm-iters", "2",
+         "--port", "0", "--max-wait-ms", "5", "--warmup", str(warm),
+         "--trace-dir", str(td), "--state-dir", str(sd)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    try:
+        deadline = time.monotonic() + 120.0
+        while not (td / "live.json").exists():
+            assert proc.poll() is None, proc.communicate()
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        url = json.loads((td / "live.json").read_text())["url"]
+        code, resp = _serve_post(url, frame, "cli-req-1")
+        assert code == 200 and resp["cache"] == "hit"
+        assert resp["shape"] == [48, 48, 3]
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+    assert "drained, exiting" in out
+    flight = json.loads((td / "flight.json").read_text())
+    assert flight["flushed_on"] == "drain"
+    assert json.loads((sd / "warmup.observed.json").read_text())[
+        "entries"] == [{"height": 48, "width": 48, "channels": 3}]
+    res = subprocess.run(
+        [sys.executable, "-m", "image_analogies_tpu_torch.cli", "trace",
+         "cli-req-1", "--trace-dir", str(td), "--format", "json"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    rec = json.loads(res.stdout)["access"]
+    phases = sum(rec[k] for k in ("queue_ms", "compile_ms", "execute_ms",
+                                  "demux_ms"))
+    assert phases == pytest.approx(rec["total_ms"], rel=0.05)
 
 
 def test_module_entry_point_runs_without_cuda(assets, tmp_path):

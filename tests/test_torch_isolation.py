@@ -50,6 +50,10 @@ def test_imports_without_jax():
         "image_analogies_tpu_torch.utils.kernelbench, "
         "image_analogies_tpu_torch.runtime.faults, "
         "image_analogies_tpu_torch.runtime.supervisor, "
+        "image_analogies_tpu_torch.telemetry.timeseries, "
+        "image_analogies_tpu_torch.telemetry.anomaly, "
+        "image_analogies_tpu_torch.serving, "
+        "image_analogies_tpu_torch.serving.daemon, "
         "image_analogies_tpu_torch.cli; "
         "assert 'jax' not in {m.split('.')[0] for m in sys.modules "
         "if sys.modules[m] is not None}; print('ok')"
@@ -99,6 +103,41 @@ def test_sentinel_live_report_and_bench_modules_are_checked(rel):
     no JAX import below, and none names the repository's tools."""
     assert (PORT / rel) in set(PORT.rglob("*.py"))
     assert "tools" not in set(_imported_roots(PORT / rel))
+
+
+@pytest.mark.parametrize("rel", [
+    "serving/__init__.py", "serving/queueing.py", "serving/accesslog.py",
+    "serving/journal.py", "serving/excache.py", "serving/daemon.py",
+    "telemetry/timeseries.py", "telemetry/anomaly.py",
+])
+def test_serving_modules_are_checked(rel):
+    """The serving daemon's modules and the observatory's ring and
+    watches are among the files held to no JAX import below, and none
+    names the repository's tools."""
+    assert (PORT / rel) in set(PORT.rglob("*.py"))
+    assert "tools" not in set(_imported_roots(PORT / rel))
+
+
+def test_serving_imports_without_the_reference_package():
+    """The serving package in a fresh process with both the JAX package
+    and the tools directory unimportable."""
+    code = (
+        "import sys; sys.modules['jax'] = None; "
+        "sys.modules['image_analogies_tpu'] = None; "
+        "sys.modules['check_serve'] = None; "
+        "from image_analogies_tpu_torch.serving import SynthDaemon; "
+        "from image_analogies_tpu_torch.telemetry import anomaly, "
+        "timeseries; "
+        "assert not {m.split('.')[0] for m in sys.modules "
+        "if sys.modules[m] is not None} & {'jax', 'image_analogies_tpu'}; "
+        "print('ok')"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_native_library_builds_apart_from_the_reference():

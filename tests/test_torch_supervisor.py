@@ -87,7 +87,9 @@ class TestFaultPlan:
         "level:0:raise:0",         # count < 1
         "level:0:truncate",        # truncate off the ckpt point
         "level:0:hang:soon",       # non-numeric seconds
-        "serve_crash:0:fail",      # a serving point: not ported
+        "serve_crash:0:raise",     # a serving point's action is fail
+        "serve_hang:0:fail",       # ... or hang, for serve_hang
+        "archive_crash:0:fail",    # the archive's point: not ported
     ])
     def test_parse_rejects_malformed(self, bad):
         with pytest.raises(ValueError):
