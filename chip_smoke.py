@@ -12,7 +12,9 @@
 
     python3 chip_smoke.py --phases telemetry   # sentinel, live, report, bench
 
-    python3 chip_smoke.py --phases serve   # serve + trace, takeover
+    python3 chip_smoke.py --phases serve   # serve + trace
+
+    python3 chip_smoke.py --phases fleet   # route, obs, history, incident
 
 Builds the port's CUDA kernels from `image_analogies_tpu_torch/kernels/
 csrc/`, holds each kernel against its plain PyTorch version at the main
@@ -40,15 +42,21 @@ telemetry layer: the headline through `synth` with `--health` and
 `--metrics-port`, its live exporter scraped while it runs, `health` and
 `report` on its directory, the compressed arm's three byte ledgers, the
 telemetry layers' overhead and the K1 bench; and the serving daemon:
-`serve` processes on config 5's frames at 1024^2, grain 4, swept at 1,
-4 and 8 clients and past their depth limit, every answer bit-equal to
+`serve` processes on config 5's frames at 1024^2, grain 4, swept at 1
+and 8 clients and past their depth limit, every answer bit-equal to
 the library's grain-4 dispatch, a session against `VideoStream`,
-`trace`, and a SIGKILL and takeover at 256^2), checks the
-outputs and their PSNR against the brute oracle, and the batch and
-video runners' isolation and gates, and prints one JSON line per
-phase, each with its `seconds` (also appended to
+and `trace`; and the serving fleet:
+`serve` replicas on one warm dir and a shape lattice behind `route`,
+swept at 4 and 8 clients, never-seen shapes and a bypass, a replica
+joining warm, a session drained and adopted, `obs` and `trace --fleet`,
+and at 256^2 a replica SIGKILLed mid-burst, its takeover, the telemetry
+archive across restarts and a torn append, `history` and `incident`),
+checks the outputs and their PSNR against the brute oracle, and the
+batch and video runners' isolation and gates, and prints one JSON line
+per phase, each with its `seconds` (also appended to
 `chiprun_out/chip_smoke.jsonl`, with the serve phase's SERVE record in
-`chiprun_out/serve_record.json`).  The line before the last is the
+`chiprun_out/serve_record.json` and the fleet phase's records, each
+through its tools/check_*.py validator, in `chiprun_out/fleet_*.json`).  The line before the last is the
 `kernels` summary; the last is `{"ok": true, "device": {...}}`.  Any
 failed phase raises, so the script exits non-zero and prints no result
 line; so does a machine without a CUDA device.
@@ -64,6 +72,7 @@ launch pulls from L2 over the L2 read rate measured in the same run.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import math
@@ -82,7 +91,7 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 PHASES = ("k1", "k2", "k3", "k1i8", "headline", "compressed", "config1",
           "quality", "profile", "lean", "batch", "video", "cli", "telemetry",
-          "serve")
+          "serve", "fleet")
 HEADLINE = dict(levels=5, matcher="patchmatch", em_iters=2, pm_iters=6,
                 pm_polish_iters=1, device="cuda")
 
@@ -2564,41 +2573,66 @@ SERVE_KNOBS = ["--levels", "5", "--matcher", "patchmatch", "--em-iters", "2",
                "--kappa", "2"]
 # (clients, requests a client): the steady points, then the overload
 # point, whose 24 single requests exceed --max-queue-depth 8.
-SERVE_SWEEP = ((1, 4), (4, 2), (8, 2))
+# The 4-client point went to the fleet phase's routed sweep (PERF.md
+# section 4) to keep the script inside its limit.
+SERVE_SWEEP = ((1, 4), (8, 2))
 SERVE_OVERLOAD = (24, 1)
 SERVE_QUEUE_DEPTH = 8
-TAKEOVER_SIZE, TAKEOVER_BURST = 256, 8
 TRACE_GAP_PCT_MAX = 5.0
+# What the serve phase computed on config 5's frames, for the fleet
+# phase of the same call: each frame's library dispatch at the grain
+# ("refs") and the first three frames' VideoStream outputs ("session").
+SERVE_MEMO = {}
 
 
-def serve_up(work, tag, args, env=None, timeout=300):
-    """A `serve` process from the repository root, its output in files
-    under `work`: (process, url, seconds to its live.json)."""
+def cli_start(work, tag, args, env=None, code=None):
+    """A port CLI process from the repository root (`python -m
+    image_analogies_tpu_torch.cli ARGS`, or `python -c CODE ARGS`), its
+    output in files under `work` and its trace dir `work/<tag>_trace`
+    (passed as --trace-dir and --port 0 when `args` is `serve` or
+    `route`): (process, trace dir, start time, stderr path)."""
     import os
 
     root = os.path.dirname(os.path.abspath(__file__))
     td = os.path.join(work, f"{tag}_trace")
     out = open(os.path.join(work, f"{tag}.out"), "w")
     err = open(os.path.join(work, f"{tag}.err"), "w")
+    head = (["-c", code] if code else
+            ["-m", "image_analogies_tpu_torch.cli"])
+    extra = (["--port", "0", "--trace-dir", td]
+             if args[0] in ("serve", "route") else [])
     t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "image_analogies_tpu_torch.cli", "serve",
-         *args, "--port", "0", "--trace-dir", td],
-        cwd=root, stdout=out, stderr=err,
-        env={**os.environ, **(env or {})})
+    proc = subprocess.Popen([sys.executable, *head, *args, *extra],
+                            cwd=root, stdout=out, stderr=err,
+                            env={**os.environ, **(env or {})})
+    return proc, td, t0, err.name
+
+
+def cli_wait(started, tag, timeout=300):
+    """(url, seconds to its live.json) of a `cli_start` process."""
+    import os
+
+    proc, td, t0, err = started
     live = os.path.join(td, "live.json")
     while not os.path.exists(live):
         if proc.poll() is not None or time.perf_counter() - t0 > timeout:
             proc.kill()
             proc.wait()
-            err.flush()
             raise AssertionError(
-                f"serve {tag} never announced (exit {proc.returncode}): "
-                + open(err.name).read()[-3000:])
+                f"{tag} never announced (exit {proc.returncode}): "
+                + open(err).read()[-3000:])
         time.sleep(0.05)
     with open(live) as f:
         url = json.load(f)["url"]
-    return proc, url, time.perf_counter() - t0
+    return url, time.perf_counter() - t0
+
+
+def serve_up(work, tag, args, env=None, timeout=300):
+    """A `serve` process from the repository root, its output in files
+    under `work`: (process, url, seconds to its live.json)."""
+    started = cli_start(work, tag, ["serve", *args], env)
+    url, secs = cli_wait(started, f"serve {tag}", timeout)
+    return started[0], url, secs
 
 
 def serve_body(frame_u8, session=None) -> bytes:
@@ -2642,17 +2676,20 @@ def served_image(body):
                          np.float32).reshape(body["shape"])
 
 
-def served_reference(a, ap, frame_u8, cfg, grain=SERVE_GRAIN):
-    """What the daemon must answer for `frame_u8`: the library's
+def as_float(frame_u8):
+    return frame_u8.astype(np.float32) / 255.0
+
+
+def library_dispatch(a, ap, frame, cfg, grain=SERVE_GRAIN):
+    """What a daemon must answer for one float frame: the library's
     `synthesize_batch` on the frame padded to the grain, every frame
     keyed as frame 0, under the frame's luma-bucket statistics."""
     from image_analogies_tpu_torch import synthesize_batch
     from image_analogies_tpu_torch.serving.daemon import _luma_bucket
 
-    f = frame_u8.astype(np.float32) / 255.0
-    out = synthesize_batch(a, ap, np.stack([f] * grain), cfg,
+    out = synthesize_batch(a, ap, np.stack([frame] * grain), cfg,
                            frame_indices=[0] * grain,
-                           _b_stats=_luma_bucket(f))
+                           _b_stats=_luma_bucket(frame))
     return out[0].cpu().numpy()
 
 
@@ -2706,19 +2743,23 @@ def serve_point(url, clients, per_client, bodies, refs, tag):
         "server_wall_ms_median": (statistics.median(server)
                                   if server else None),
         "batch_sizes": sorted(r[3]["batch_size"] for r in ok),
-        "rids": [r[1] for r in ok],
+        # Behind a router: the replica that served each answer.
+        "routed_to": dict(collections.Counter(
+            r[4].get("X-Routed-To") for r in ok)),
+        "routes": {r[1]: r[4].get("X-Routed-To") for r in ok},
     }
 
 
 def trace_both(url, td, rid):
     """`trace --url` and `trace --trace-dir` on one request: each exits 0
     (within the 5 % bound) and reports the same phases."""
+    from image_analogies_tpu_torch.serving.accesslog import phase_fields
+
     docs = []
     for where in (["--url", url], ["--trace-dir", td]):
         _, out = run_cli(["trace", rid, *where, "--format", "json"])
         rec = json.loads(out)["access"]
-        phases = sum(rec[k] for k in ("queue_ms", "compile_ms",
-                                      "execute_ms", "demux_ms"))
+        phases = sum(ms for _, ms in phase_fields(rec))
         gap = 100.0 * (rec["total_ms"] - phases) / rec["total_ms"]
         if abs(gap) > TRACE_GAP_PCT_MAX:
             raise AssertionError(f"trace {rid} {where[0]}: gap {gap} %")
@@ -2790,14 +2831,13 @@ def phase_serve(dev, smi, script_t0):
     """The serving daemon on the card, in its own processes: `serve` on
     config 5's frames (1024^2, 5 levels, PatchMatch, em 2, kappa 2) at
     grain 4 with a warmup manifest and a state dir; a cold shape (768^2)
-    and its repeat; sweeps at 1, 4 and 8 clients and an overload point
+    and its repeat; sweeps at 1 and 8 clients and an overload point
     past --max-queue-depth; every 200 answer bit-equal to the library's
     grain-4 dispatch; a session of three frames against `VideoStream`;
     /healthz 200 throughout, the serving and recovery checks `ok`;
     `trace --url` and `trace --trace-dir` within 5 %; the record through
-    tools/check_serve.py.  Then the takeover at 256^2: 8 requests queued
-    behind a hung dispatch, SIGKILL, `serve --takeover`, zero acked loss
-    and bit-identical replays, `POST /drain` -> exit 0 and 503s."""
+    tools/check_serve.py.  (The takeover arm went to the fleet phase's
+    kill arm, which runs it behind the router.)"""
     import os
     import shutil
     import signal
@@ -2859,7 +2899,7 @@ def phase_serve(dev, smi, script_t0):
 
         # 2. A shape the manifest does not hold, then its repeat: the
         # first use of a shape in a warm process against its hit.
-        cold_ref = served_reference(a, ap, cold_u8, cfg)
+        cold_ref = library_dispatch(a, ap, as_float(cold_u8), cfg)
         code_c, cold, _, cold_ms = serve_post(url, cold_u8, "cold-768")
         code_w, warm, _, warm_ms = serve_post(url, cold_u8, "warm-768")
         if (code_c, code_w, cold["cache"], warm["cache"]) != (
@@ -2879,7 +2919,9 @@ def phase_serve(dev, smi, script_t0):
             read_entries,
         )
 
-        refs = [served_reference(a, ap, f, cfg) for f in frames_u8]
+        refs = [library_dispatch(a, ap, as_float(f), cfg)
+                for f in frames_u8]
+        SERVE_MEMO["refs"] = refs
         bodies = [serve_body(f) for f in frames_u8]
         sweep = []
         for clients, per in SERVE_SWEEP + (SERVE_OVERLOAD,):
@@ -2887,7 +2929,8 @@ def phase_serve(dev, smi, script_t0):
                                 f"c{clients}")
             access = {e["request_id"]: e
                       for e in read_entries(f"{td}/access.jsonl")}
-            logged = [access[r] for r in point.pop("rids") if r in access]
+            point.pop("routed_to")  # one daemon: no router
+            logged = [access[r] for r in point.pop("routes") if r in access]
             point["access_mean_ms"] = {
                 k: statistics.fmean(e[k] for e in logged) if logged else None
                 for k in ("queue_ms", "compile_ms", "execute_ms",
@@ -2905,6 +2948,7 @@ def phase_serve(dev, smi, script_t0):
             code, body, _, ms = serve_post(url, frames_u8[i], f"clip-{i}",
                                            session="clip-a")
             want = stream.step(frames_u8[i].astype(np.float32) / 255.0)
+            SERVE_MEMO.setdefault("session", []).append(want.cpu().numpy())
             if code != 200 or not np.array_equal(served_image(body),
                                                  want.cpu().numpy()):
                 raise AssertionError(f"session frame {i} differs from "
@@ -2921,7 +2965,7 @@ def phase_serve(dev, smi, script_t0):
             raise AssertionError(f"serving checks {checks}")
         if set(health_codes) != {200}:
             raise AssertionError(f"/healthz answered {health_codes}")
-        rec["traces"] = trace_both(url, td, "c4-0-0")
+        rec["traces"] = trace_both(url, td, "c8-0-0")
         metrics = json.loads(http_get(url + "/metrics.json", 30)[1])
     finally:
         stop_poll.set()
@@ -2980,123 +3024,997 @@ def phase_serve(dev, smi, script_t0):
     # The miss against the hit in this process, and K1 on the path.
     rec["inproc"] = k1_serve_row(dev, smi, a, ap, frames_u8[0], cfg, work)
 
-    # 7. The takeover at 256^2.
-    rec["takeover"] = serve_takeover(work, a0, ap0, frames_u8, dev)
     emit(rec)
     shutil.rmtree(work, ignore_errors=True)
     return rec
 
 
-def serve_takeover(work, a0, ap0, frames_u8, dev):
-    """The takeover arm at 256^2 (crops of the same frames): each frame's
-    live answer, then 8 requests journaled behind a dispatch hung by
-    `serve_hang`, SIGKILL, `serve --takeover`: the successor's ledger
-    balances with nothing pending and each replay's sha256 equals the
-    live answer's; `POST /drain` exits 0 and new work gets 503."""
+# ---------------------------------------------------------------------------
+# The serving fleet (`route`, `obs`, `history`, `incident`, `trace
+# --fleet`) on BASELINE config 5's frames: `serve` replicas sharing the
+# card behind one `route` process.
+
+FLEET_LATTICE = "768:1024"
+FLEET_SWEEP = ((4, 2), (8, 2))
+# Never-seen frames inside the lattice (the 1 x 1 floor and an on-bucket
+# 768^2 among them), sent to one replica one after another; the first
+# three are held against the library.
+FLEET_BURST = ((1000, 900), (1, 1), (768, 768), (512, 700), (1023, 769),
+               (800, 1000), (1024, 1000), (900, 512))
+FLEET_BYPASS = (1100, 1024)
+FLEET_OVERHEAD_PAIRS = 4
+KILL_SIZE, KILL_BURST = 256, 8
+# Validator gates that measure a mechanism the port does not have:
+# printed with their values, never asserted (PERF.md section 6).
+UNASSERTED_GATES = {
+    "check_router.py": ("scaling_factor",),
+    "check_serve_persist.py": ("10x",),
+}
+# Runs a tools/check_*.py validator on a machine without JAX: the ones
+# that pool records import the JAX package's jax-free modules (check_obs
+# its observatory), whose package __init__ imports jax, so the package
+# is entered as a bare namespace.
+_VALIDATOR_BOOT = (
+    "import os, runpy, sys, types; "
+    "pkg = types.ModuleType('image_analogies_tpu'); "
+    "pkg.__path__ = [os.path.join(os.getcwd(), 'image_analogies_tpu')]; "
+    "sys.modules['image_analogies_tpu'] = pkg; "
+    "tool = sys.argv[1]; sys.argv = sys.argv[1:]; "
+    "runpy.run_path(tool, run_name='__main__')"
+)
+# `route` in its own process, which must exit with CUDA uninitialised.
+_ROUTE_NO_CUDA = (
+    "import sys, torch; from image_analogies_tpu_torch import cli; "
+    "rc = cli.main(sys.argv[1:]); "
+    "assert not torch.cuda.is_initialized(), 'route initialised CUDA'; "
+    "sys.exit(rc)"
+)
+# The sections an incident bundle carries (tools/archive_drill.py's).
+BUNDLE_KEYS = ("id", "ts", "trigger", "flight", "access_tail", "obs_window",
+               "slo", "anomaly", "serving", "fingerprint")
+
+
+def run_validator(name, record, out_dir):
+    """Write `record` to chiprun_out/fleet_<kind>.json and run
+    tools/<name> on it: (violations of UNASSERTED_GATES, its last line).
+    Any other violation raises."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(out_dir, f"fleet_{record['kind']}.json")
+    with open(path, "w") as f:
+        json.dump(record, f, indent=1)
+    res = subprocess.run(
+        [sys.executable, "-c", _VALIDATOR_BOOT,
+         os.path.join(root, "tools", name), path],
+        cwd=root, capture_output=True, text=True, timeout=120)
+    lines = [ln.strip() for ln in res.stdout.splitlines() if ln.strip()]
+    found = [ln[2:] for ln in lines if ln.startswith("- ")]
+    gates = [v for v in found
+             if any(g in v for g in UNASSERTED_GATES.get(name, ()))]
+    if res.returncode != 0 and (not found or len(gates) < len(found)):
+        raise AssertionError(f"{name}: {res.stdout[-3000:]} "
+                             f"{res.stderr[-2000:]}")
+    return gates, (lines[-1] if lines else "")
+
+
+def post_doc(url, doc, timeout=600):
+    """(status, parsed body) of a JSON POST to `url`."""
+    code, body, _, _ = serve_post(url, json.dumps(doc).encode(), path="",
+                                  timeout=timeout)
+    return code, body
+
+
+def get_doc(url, timeout=30):
+    code, raw = http_get(url, timeout)
+    if code != 200:
+        raise AssertionError(f"GET {url}: {code} {raw[:300]!r}")
+    return json.loads(raw)
+
+
+def total_of(metrics, name, **labels):
+    vals = metrics.get(name, {}).get("values", {})
+    return sum(v for k, v in vals.items()
+               if all(f'{lk}="{lv}"' in k for lk, lv in labels.items()))
+
+
+def fleet_k1(urls):
+    """(K1 launches, client dispatches) the replicas at `urls` booked."""
+    ms = [get_doc(u + "/metrics.json") for u in urls]
+    return (sum(total_of(m, "ia_kernel_launches_total", kernel="tile_sweep")
+                for m in ms),
+            sum(total_of(m, "ia_serve_dispatches_total", kind="client")
+                for m in ms))
+
+
+def frame_of(frames_u8, i, h, w):
+    """An h x w frame cut from frame i (tiled past its edges)."""
+    f = frames_u8[i % len(frames_u8)]
+    reps = (-(-h // f.shape[0]), -(-w // f.shape[1]), 1)
+    return np.ascontiguousarray(np.tile(f, reps)[:h, :w])
+
+
+def sha(img):
     import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+
+def stop(proc, sig="SIGTERM", timeout=120):
+    """Signal a process (if alive) and wait: its exit code."""
     import signal
+
+    if proc.poll() is None:
+        proc.send_signal(getattr(signal, sig))
+    try:
+        return proc.wait(timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        return proc.wait(60)
+
+
+def drain_exit(url, proc, what, timeout=120):
+    """POST /drain and wait for the process: it must exit 0."""
+    code, _ = post_doc(url + "/drain", {})
+    rc = proc.wait(timeout)
+    if code != 202 or rc != 0:
+        raise AssertionError(f"{what}: /drain {code}, exit {rc}")
+    return rc
+
+
+def points_summary(points):
+    return [{k: p[k] for k in ("clients", "requests", "completed", "p50_ms",
+                               "p99_ms", "frames_per_s", "wall_s",
+                               "routed_to")} for p in points]
+
+
+def obs_overhead(a0, ap0, frames_u8, dev, pairs=5):
+    """The observatory's request-path overhead, the reference harness's
+    way: two in-process daemons at KILL_SIZE, ring sampled every 0.25 s
+    and off, requests in turns; min paired delta over the median base."""
+    from image_analogies_tpu_torch.config import SynthConfig
+    from image_analogies_tpu_torch.serving.daemon import SynthDaemon
+    from image_analogies_tpu_torch.telemetry.metrics import MetricsRegistry
+
+    n = KILL_SIZE
+    cfg = SynthConfig(levels=5, matcher="patchmatch", em_iters=2, kappa=2.0,
+                      device=dev.type)
+    body = serve_body(np.ascontiguousarray(frames_u8[0][:n, :n]))
+    ds = [SynthDaemon(a0[:n, :n], ap0[:n, :n], cfg,
+                      registry=MetricsRegistry(), max_batch=SERVE_GRAIN,
+                      max_wait_ms=1.0, obs_interval_s=interval).start()
+          for interval in (0, 0.25)]
+    try:
+        for d in ds:
+            serve_post(d.url, body)
+        bases, deltas = [], []
+        for _ in range(pairs):
+            base = serve_post(ds[0].url, body)[3]
+            deltas.append(serve_post(ds[1].url, body)[3] - base)
+            bases.append(base)
+    finally:
+        for d in ds:
+            d.stop()
+    return max(0.0, min(deltas)) / statistics.median(bases)
+
+
+def kill_arm(work, a0, ap0, frames_u8, dev, router_url, old_names):
+    """Arm 6 at KILL_SIZE^2 behind the same router (its earlier replicas
+    removed): replica k (a baseline no request can meet, its third
+    dispatch hung) captures one incident, renders it live, and is
+    SIGKILLed during a routed burst; `serve --takeover` on its state dir
+    and archive replays its journal and resumes its baseline.  Replica s
+    serves the live answers and the burst's retries, drains, and
+    restarts on its archive (boot 2).  Replica x dies mid-append by
+    `archive_crash` and restarts past the torn tail.  Returns the ARCHIVE
+    record and the arm's figures."""
+    import os
     import threading
 
     from image_analogies_tpu_torch.utils.io import save_image
 
-    n = TAKEOVER_SIZE
+    n = KILL_SIZE
     save_image(f"{work}/A{n}.png", a0[:n, :n])
     save_image(f"{work}/Ap{n}.png", ap0[:n, :n])
     small = [np.ascontiguousarray(f[:n, :n]) for f in frames_u8]
-    sd = f"{work}/d2_state"
-    args = ["--a", f"{work}/A{n}.png", "--ap", f"{work}/Ap{n}.png",
-            "--device", dev.type,
-            "--max-batch", str(SERVE_GRAIN), "--max-wait-ms", "25",
-            *SERVE_KNOBS]
-    rec = {"size": n, "burst": TAKEOVER_BURST}
-    # Client dispatches 0..7 are the live answers, one a request; the
-    # burst's first dispatch (ordinal 8) hangs until the kill.
-    proc, url, _ = serve_up(work, "d2", args + ["--state-dir", sd], env={
-        "IA_FAULT_PLAN": f"serve_hang:{len(small)}:hang:600"})
+    for name, p99 in (("tight", 0.001), ("loose", 60000.0)):
+        with open(f"{work}/{name}.json", "w") as f:
+            json.dump({"pipeline": {"p99_warm_ms": p99}}, f)
+    base = ["serve", "--a", f"{work}/A{n}.png", "--ap", f"{work}/Ap{n}.png",
+            "--device", dev.type, "--max-batch", str(SERVE_GRAIN),
+            "--max-wait-ms", "25", *SERVE_KNOBS, "--obs-interval-s", "0.2",
+            "--archive-interval-s", "0.2"]
+    d = {t: (f"{work}/{t}_state", f"{work}/{t}_arch") for t in "ksx"}
+
+    def boot(tag, t, extra=(), env=None):
+        return cli_start(work, tag, base + ["--state-dir", d[t][0],
+                                            "--archive-dir", d[t][1],
+                                            *extra], env)
+
+    procs = {}
     try:
+        started = {
+            "k": boot("k", "k", ["--baseline", f"{work}/tight.json"],
+                      {"IA_FAULT_PLAN": "serve_hang:2:hang:600"}),
+            "s": boot("s", "s", ["--baseline", f"{work}/loose.json"]),
+            "x": boot("x", "x", ["--baseline", f"{work}/loose.json"],
+                      {"IA_FAULT_PLAN": "archive_crash:3:fail"}),
+        }
+        procs.update({t: v[0] for t, v in started.items()})
+        crash_rc = procs["x"].wait(300)
+        with open(os.path.join(d["x"][1], "archive.jsonl"), "rb") as f:
+            torn = not f.read().endswith(b"\n")
+        started["x2"] = boot("x2", "x")
+        procs["x2"] = started["x2"][0]
+        url = {t: cli_wait(started[t], f"serve {t}")[0] for t in "ks"}
+
+        # The black box on k: two answered requests, the latency watch
+        # fires against 0.001 ms, one bundle, later ticks suppressed.
+        t_cap = time.perf_counter()
+        for i in range(2):
+            if serve_post(url["k"], small[i], f"kd-{i}")[0] != 200:
+                raise AssertionError(f"replica k request {i}")
+        while get_doc(url["k"] + "/incidents")["captured"] < 1:
+            if time.perf_counter() - t_cap > 60:
+                raise AssertionError("no incident captured")
+            time.sleep(0.05)
+        capture_ms = (time.perf_counter() - t_cap) * 1e3
         live = {}
-        for i, f in enumerate(small):
-            code, body, _, _ = serve_post(url, f, f"live-{i}")
+
+        def answer(i):
+            code, body, _, _ = serve_post(url["s"], small[i], f"live-{i}")
+            live[i] = sha(served_image(body)) if code == 200 else code
+
+        threads = [threading.Thread(target=answer, args=(i,))
+                   for i in range(KILL_BURST)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        index = get_doc(url["k"] + "/incidents")
+        inc = index["incidents"][0]["id"]
+        bundle = get_doc(f"{url['k']}/incidents?id={inc}")
+        render_url = cli_start(work, "inc_url", ["incident", inc,
+                                                 "--url", url["k"]])
+        k_archive = get_doc(url["k"] + "/archive")
+
+        # The router's fleet becomes k and s.
+        for name in old_names:
+            post_doc(router_url + "/replicas/remove", {"name": name})
+        for t in "ks":
+            code, _ = post_doc(router_url + "/replicas/add",
+                               {"url": url[t], "name": t})
             if code != 200:
-                raise AssertionError(f"takeover live {i}: {code}")
-            live[i] = hashlib.sha256(
-                np.ascontiguousarray(served_image(body)).tobytes()
-            ).hexdigest()
+                raise AssertionError(f"/replicas/add {t}: {code}")
+        routed = {}
 
-        def burst(i):
+        def client(i):
             try:
-                serve_post(url, small[i], f"burst-{i}", timeout=900)
-            except Exception:  # noqa: BLE001 - the daemon is killed
-                pass
+                code, body, hdrs, _ = serve_post(router_url, small[i],
+                                                 f"kb-{i}", timeout=900)
+                routed[i] = (code, sha(served_image(body)) if code == 200
+                             else body.get("error"), hdrs)
+            except Exception as e:  # noqa: BLE001 - reported below
+                routed[i] = (None, repr(e), {})
 
-        threads = [threading.Thread(target=burst, args=(i,), daemon=True)
-                   for i in range(TAKEOVER_BURST)]
+        render_url = render_url[0].wait(120)
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(KILL_BURST)]
         for t in threads:
             t.start()
         t0 = time.perf_counter()
-        while True:
-            ledger = json.loads(http_get(url + "/journal", 30)[1])["ledger"]
-            if ledger["appended"] == len(small) + TAKEOVER_BURST:
-                break
-            if time.perf_counter() - t0 > 120:
-                raise AssertionError(f"burst never journaled: {ledger}")
+        while get_doc(url["k"] + "/journal")["ledger"]["pending"] < 1:
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError("the burst never reached k")
             time.sleep(0.02)
-        rec["before_kill"] = ledger
-        if ledger["pending"] < 1:
-            raise AssertionError(f"nothing pending at the kill: {ledger}")
-    finally:
-        proc.send_signal(signal.SIGKILL)
-        proc.wait(60)
-    for t in threads:
-        t.join(30)
+        time.sleep(0.5)
+        before_kill = get_doc(url["k"] + "/journal")["ledger"]
+        stop(procs.pop("k"), "SIGKILL", 60)
+        for t in threads:
+            t.join(900)
+        served = [i for i, r in routed.items()
+                  if r[0] == 200 and r[1] == live[i]]
+        if len(served) != KILL_BURST:
+            raise AssertionError(f"routed burst through the kill: {routed}")
 
-    proc, url, rec["takeover_startup_s"] = serve_up(
-        work, "d3", args + ["--takeover", sd])
-    try:
+        # Boot 2s: the takeover on k's state dir and archive, s's
+        # restart after its drain; x2 comes up meanwhile.
+        started["t"] = boot("t", "k", ["--takeover", d["k"][0]])
+        procs["t"] = started["t"][0]
+        drain_exit(url["s"], procs.pop("s"), "replica s")
+        started["s2"] = boot("s2", "s")
+        procs["s2"] = started["s2"][0]
+        url["x2"] = cli_wait(started["x2"], "serve x2")[0]
+        x2_archive = get_doc(url["x2"] + "/archive")
+        x2_ok = serve_post(url["x2"], small[0], "x2-0")[0] == 200
+        drain_exit(url["x2"], procs.pop("x2"), "replica x2")
+        url["t"] = cli_wait(started["t"], "serve t")[0]
         t0 = time.perf_counter()
         while True:
-            snap = json.loads(http_get(url + "/journal", 30)[1])
+            snap = get_doc(url["t"] + "/journal")
             if snap["ledger"]["pending"] == 0:
                 break
             if time.perf_counter() - t0 > 300:
                 raise AssertionError(f"replay stalled: {snap['ledger']}")
             time.sleep(0.05)
-        rec["replay_s"] = time.perf_counter() - t0
+        replay_s = time.perf_counter() - t0
         ledger = snap["ledger"]
-        rec["after_takeover"] = ledger
-        if ledger["appended"] != (ledger["done"] + ledger["replayed"]
-                                  + ledger["cancelled"]):
-            raise AssertionError(f"acknowledged loss: {ledger}")
-        # Every burst request was journaled and none answered: all of
-        # them replay.
-        want = {f"burst-{i}": live[i] for i in range(TAKEOVER_BURST)}
-        got = {rid: r["sha256"] for rid, r in snap["replayed"].items()}
-        if set(got) != set(want):
-            raise AssertionError(f"replayed {sorted(got)}")
-        for rid, sha in got.items():
-            if sha != want[rid]:
-                raise AssertionError(f"replay {rid}: sha256 differs from "
-                                     "the live answer")
-        rec["replayed"] = len(got)
-        health = json.loads(http_get(url + "/healthz", 30)[1])
-        checks = {c["name"]: c["status"] for c in health["checks"]}
-        if checks["serving_recovery"] != "ok":
-            raise AssertionError(f"serving_recovery {checks}")
-        rec["serving_recovery"] = checks["serving_recovery"]
-        code, _, _, _ = serve_post(url, small[0], path="/drain")
-        if code != 202:
-            raise AssertionError(f"POST /drain answered {code}")
-        code, body, hdrs, _ = serve_post(url, small[0], "after-drain")
-        if code != 503 or "Retry-After" not in hdrs:
-            raise AssertionError(f"work after drain: {code}")
+        loss = ledger["appended"] - (ledger["done"] + ledger["replayed"]
+                                     + ledger["cancelled"])
+        replays = {rid: r["sha256"] for rid, r in snap["replayed"].items()}
+        if loss or not replays or any(
+                sha_ != live[int(rid.split("-")[1])]
+                for rid, sha_ in replays.items()):
+            raise AssertionError(f"takeover: loss {loss}, {replays}")
+        t_archive = get_doc(url["t"] + "/archive")
+        if t_archive["anomaly_baseline_p99_ms"] != 0.001:
+            raise AssertionError("the takeover did not resume k's baseline")
+        drain_exit(url["t"], procs.pop("t"), "takeover t")
+        url["s2"] = cli_wait(started["s2"], "serve s2")[0]
+        s2_archive = get_doc(url["s2"] + "/archive")
+        serve_post(url["s2"], small[1], "s2-0")
+        time.sleep(0.8)
+        watch = next(w for w in get_doc(url["s2"] + "/slo")["anomalies"][
+            "watches"] if w["watch"] == "latency_p99")
+        s2_overhead = get_doc(url["s2"] + "/archive")["overhead_frac"]
+        drain_exit(url["s2"], procs.pop("s2"), "replica s2")
     finally:
-        if proc.poll() is None:
-            rc = proc.wait(120)
-        else:
-            rc = proc.returncode
-    if rc != 0:
-        raise AssertionError(f"drained takeover exited {rc}")
-    rec["drain_exit"] = rc
+        for p in procs.values():
+            stop(p, "SIGKILL", 60)
+    for name in "ks":
+        post_doc(router_url + "/replicas/remove", {"name": name})
+
+    renders = {
+        t: cli_start(work, f"history_{t}", ["history", "--archive-dir",
+                                            d[t][1], "--format", "json"])
+        for t in "ks"}
+    renders["disk"] = cli_start(work, "inc_disk", ["incident", inc,
+                                                   "--archive-dir", d["k"][1]])
+    rcs = {t: r[0].wait(120) for t, r in renders.items()}
+    if rcs["k"] or rcs["s"]:
+        raise AssertionError(f"history exited {rcs}")
+    hist_k, hist_s = (json.load(open(f"{work}/history_{t}.out"))
+                      for t in "ks")
+    render_disk = rcs["disk"]
+    if len(hist_k["boots"]) != 2 or inc not in [
+            i["id"] for i in hist_k["incidents"]]:
+        raise AssertionError(f"history of k's archive: {hist_k['boots']}")
+    resumed_s = s2_archive["resumed"]
+    resumed_x = x2_archive["resumed"]
+    cont = {
+        "name": "restart_continuity", "baseline_p99_ms": 60000.0,
+        "boot1_exit_code": 0, "boot2_exit_code": 0,
+        "baseline_resumed": s2_archive["anomaly_baseline_p99_ms"] == 60000.0,
+        "generation_monotonic": bool(
+            isinstance(resumed_s.get("generation"), int)
+            and s2_archive["obs_generation"] > resumed_s["generation"]),
+        "watch_graded": watch["status"] != "no_data",
+        "history_boots": len(hist_s["boots"]),
+        "boot2_overhead_frac": s2_overhead,
+    }
+    missing = [k for k in BUNDLE_KEYS if bundle.get(k) is None]
+    inc_arm = {
+        "name": "incident_capture", "baseline_p99_ms": 0.001,
+        "captured": index["captured"], "suppressed": index["suppressed"],
+        "rate_limited": index["captured"] == 1 and index["suppressed"] >= 1,
+        "incident_id": inc, "bundle_missing_keys": missing,
+        "render_url_rc": render_url, "render_disk_rc": render_disk,
+        "capture_latency_ms": capture_ms,
+        "overhead_frac": k_archive["overhead_frac"],
+    }
+    torn_arm = {
+        "name": "archive_torn_reload", "torn_line_appended": torn,
+        "crash_exit_code": crash_rc,
+        "skipped_lines": resumed_x.get("skipped_lines"),
+        "reload_clean": resumed_x.get("records", 0) >= 2,
+        "baseline_resumed": x2_archive["anomaly_baseline_p99_ms"] == 60000.0,
+        "generation_monotonic": bool(
+            isinstance(resumed_x.get("generation"), int)
+            and x2_archive["obs_generation"] > resumed_x["generation"]),
+        "post_restart_request_ok": x2_ok,
+    }
+    archive_record = {
+        "schema_version": 1, "kind": "archive_drill", "round": 23,
+        "proxy_size": n,
+        "baseline_continuity": float(
+            cont["baseline_resumed"] and cont["watch_graded"]
+            and cont["generation_monotonic"] and cont["history_boots"] >= 2),
+        "capture_completeness": float(not missing and render_url == 0
+                                      and render_disk == 0),
+        "captured_bundles": index["captured"],
+        "capture_latency_ms": capture_ms,
+        "archive_overhead_frac": max(
+            v for v in (s2_overhead, k_archive["overhead_frac"],
+                        t_archive["overhead_frac"])
+            if isinstance(v, (int, float))),
+        "torn_reload_clean": float(torn_arm["reload_clean"]
+                                   and torn_arm["baseline_resumed"]
+                                   and x2_ok),
+        "generation_monotonic": float(cont["generation_monotonic"]
+                                      and torn_arm["generation_monotonic"]),
+        "arms": [cont, inc_arm, torn_arm],
+    }
+    return archive_record, {
+        "size": n, "k_pending_at_kill": before_kill["pending"],
+        "routed_served": len(served),
+        "routed_to": dict(collections.Counter(
+            r[2].get("X-Routed-To") for r in routed.values())),
+        "acked_loss": loss, "replayed": len(replays),
+        "replay_bit_identical": True, "replay_s": replay_s,
+        "capture_latency_ms": capture_ms,
+        "history_boots_k": len(hist_k["boots"]),
+        "history_boots_s": len(hist_s["boots"]),
+        "incident": inc, "crash_exit_code": crash_rc,
+        "torn_skipped_lines": resumed_x.get("skipped_lines"),
+    }
+
+
+def phase_fleet(dev, smi, serve=None):
+    """The serving fleet on the card (ROADMAP Queue 1 step 13b):
+
+      1. routed sweep: two `serve` replicas (shared --warm-dir, own
+         --state-dir, --lattice 768:1024) behind `route --discovery-out`
+         (in a process that must exit with CUDA uninitialised); 4 x 2
+         and 8 x 2 clients, every answer the library's grain-4 dispatch
+         of that frame bit for bit, both replicas serving, 48 K1
+         launches booked per dispatch;
+      2. lattice: eight never-seen in-lattice frames on one replica (warm
+         hits; three held against the library's dispatch of the padded
+         frame, cropped), a 1100 x 1024 frame as an honest miss equal to
+         the exact dispatch; the record through tools/check_lattice.py;
+      3. warm join: a third replica on the warm dir restores the sealed
+         shapes (`disk`), joins by POST /replicas/add mid-burst, and its
+         first routed request takes at most 2x the fleet's warm p99; a
+         one-client and a three-client point for the weak-scaling
+         figure;
+      4. affinity and drain: a session of 3 frames; after frame 2 POST
+         /drain_replica on its replica while a request is in flight
+         there, and a second (in-process, traced) router with a stale
+         view re-routes a draining 503; frame 3 on the adopter equals
+         `VideoStream` stepped by hand; the traced router against an
+         untraced one over the same replicas (overhead);
+      5. `obs --targets D` (through tools/check_obs.py with the
+         observatory's measured overhead) and `trace --fleet D` on a
+         routed request (coverage >= 0.95);
+      6. `kill_arm` at 256^2 behind the same router; the ARCHIVE record
+         through tools/check_archive.py.
+    The trace, router and persist records go through
+    tools/check_fleet_trace.py, check_router.py and
+    check_serve_persist.py; the latter two's weak-scaling and 10x gates
+    are printed, not asserted.  `serve` is this call's serve phase
+    record, for the single-daemon figures beside the routed ones."""
+    import os
+    import shutil
+    import threading
+
+    from image_analogies_tpu_torch.config import SynthConfig
+    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+    from image_analogies_tpu_torch.serving import fleettrace
+    from image_analogies_tpu_torch.serving.accesslog import read_entries
+    from image_analogies_tpu_torch.serving.daemon import _luma_bucket
+    from image_analogies_tpu_torch.serving.router import FleetRouter
+    from image_analogies_tpu_torch.telemetry.flight import FlightRecorder
+    from image_analogies_tpu_torch.telemetry.metrics import MetricsRegistry
+    from image_analogies_tpu_torch.telemetry.spans import Tracer
+    from image_analogies_tpu_torch.utils.examples import npr_frames
+    from image_analogies_tpu_torch.utils.io import (
+        load_image,
+        save_image,
+        to_uint8,
+    )
+    from image_analogies_tpu_torch.video.sequence import VideoStream
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "fleet_smoke")
+    out_dir = os.path.join(root, "chiprun_out")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    os.makedirs(out_dir, exist_ok=True)
+    rec = {"phase": "fleet", "nvidia_smi": smi, "size": SERVE_SIZE,
+           "grain": SERVE_GRAIN, "lattice": FLEET_LATTICE}
+    a0, ap0, frames = npr_frames(n_frames=8, size=SERVE_SIZE)
+    save_image(f"{work}/A.png", a0)
+    save_image(f"{work}/Ap.png", ap0)
+    a, ap = load_image(f"{work}/A.png"), load_image(f"{work}/Ap.png")
+    frames_u8 = [to_uint8(f) for f in frames]
+    cfg = SynthConfig(levels=5, matcher="patchmatch", em_iters=2, kappa=2.0,
+                      device=dev.type)
+    fleet_args = ["serve", "--a", f"{work}/A.png", "--ap", f"{work}/Ap.png",
+                  "--device", dev.type, "--max-batch", str(SERVE_GRAIN),
+                  "--max-wait-ms", "25", "--max-queue-depth",
+                  str(SERVE_QUEUE_DEPTH), *SERVE_KNOBS, "--lattice",
+                  FLEET_LATTICE, "--warm-dir", f"{work}/warm",
+                  "--obs-interval-s", "1"]
+    procs, routers = {}, []
+
+    def replica(tag):
+        return cli_start(work, tag, fleet_args + [
+            "--state-dir", f"{work}/{tag}_state"])
+
+    try:
+        # ---- 1. two replicas and the router; the library's answers
+        # meanwhile (the serve phase's, when it ran in this call).
+        started = {t: replica(t) for t in ("ra", "rb")}
+        procs.update({t: v[0] for t, v in started.items()})
+        refs = SERVE_MEMO.get("refs") or [
+            library_dispatch(a, ap, as_float(f), cfg) for f in frames_u8]
+        urls = {}
+        for t, v in started.items():
+            urls[t], rec[f"{t}_startup_s"] = cli_wait(v, f"serve {t}")
+        disc = f"{work}/fleet.json"
+        route = cli_start(
+            work, "route", ["route", "--targets",
+                            f"{urls['ra']},{urls['rb']}",
+                            "--discovery-out", disc],
+            env={"IA_FLIGHT_RING": "8192"}, code=_ROUTE_NO_CUDA)
+        procs["route"] = route[0]
+        router_url, rec["route_startup_s"] = cli_wait(route, "route")
+        name_of = {t: next(h["name"] for h in get_doc(
+            router_url + "/replicas")["replicas"] if h["url"] == u)
+            for t, u in urls.items()}
+        bodies = [serve_body(f) for f in frames_u8]
+        launches0 = fleet_k1(urls.values())
+        sweep = []
+        for clients, per in FLEET_SWEEP:
+            point = serve_point(router_url, clients, per, bodies, refs,
+                                f"f{clients}")
+            sweep.append(point)
+            emit({"phase": "fleet", "part": "sweep",
+                  **points_summary([point])[0]})
+        launches1 = fleet_k1(urls.values())
+        sweep_k1 = launches1[0] - launches0[0]
+        k1_per = sweep_k1 / max(1, launches1[1] - launches0[1])
+        want_k1 = batch_k1_launches(cfg, SERVE_SIZE, SERVE_GRAIN,
+                                    SERVE_GRAIN)
+        if k1_per != want_k1:
+            raise AssertionError(f"fleet sweep: {k1_per} K1 launches a "
+                                 f"dispatch, not {want_k1}")
+        served_by = collections.Counter()
+        for p in sweep:
+            served_by.update(p["routed_to"])
+            if p["completed"] != p["requests"]:
+                raise AssertionError(f"fleet sweep {p['clients']}: "
+                                     f"{p['completed']} of {p['requests']}")
+        if set(served_by) != set(name_of.values()):
+            raise AssertionError(f"routed to {dict(served_by)} only")
+        rec["sweep"] = points_summary(sweep)
+        rec["k1_launches_per_dispatch"] = k1_per
+        rec["serve_single_daemon"] = (serve or {}).get("record", {}).get(
+            "sweep")
+
+        # ---- 2. the lattice, on replica ra directly.
+        ra = urls["ra"]
+        before = get_doc(ra + "/serving")
+        rungs = before["lattice"]["rungs"]
+        burst, ident = [], []
+        for i, (h, w) in enumerate(FLEET_BURST):
+            f = frame_of(frames_u8, i, h, w)
+            code, body, _, ms = serve_post(ra, f, f"lat-{i}")
+            if code != 200 or body["shape"] != [h, w, 3]:
+                raise AssertionError(f"lattice {h}x{w}: {code} "
+                                     f"{body.get('error')}")
+            burst.append({"shape": [h, w], "cache": body["cache"],
+                          "ms": ms})
+            if i < 3:
+                bh, bw = (min(r for r in rungs if r >= h),
+                          min(r for r in rungs if r >= w))
+                padded = np.pad(as_float(f), [(0, bh - h), (0, bw - w),
+                                              (0, 0)], mode="edge")
+                # K1 on this path: the first 4-frame level-0 launch of
+                # the padded 1024^2 frame, held against its plain version
+                # below.
+                with capture_first(pt, "tile_sweep", lambda *a_, **k: (
+                        a_[1].ndim == 4 and a_[1].shape[0] == SERVE_GRAIN
+                        and k["ha"] == SERVE_SIZE)) as seen_i:
+                    want = library_dispatch(a, ap, padded, cfg)
+                if i == 0:
+                    seen = seen_i
+                ident.append(bool(np.array_equal(served_image(body),
+                                                 want[:h, :w])))
+        after = get_doc(ra + "/serving")
+        big = frame_of(frames_u8, 0, *FLEET_BYPASS)
+        code, byp, _, byp_ms = serve_post(ra, big, "lat-bypass")
+        if code != 200 or not np.array_equal(
+                served_image(byp), library_dispatch(a, ap, as_float(big),
+                                                    cfg)):
+            raise AssertionError("lattice bypass differs from the exact "
+                                 "dispatch")
+        ra_serving = get_doc(ra + "/serving")
+        ra_metrics = get_doc(ra + "/metrics.json")
+        ra_health = {c["name"]: c["status"] for c in get_doc(
+            ra + "/healthz")["checks"]}
+        lat = ra_serving["lattice"]
+        warm_p99 = sweep[0]["p99_ms"]
+        cold_p99 = float(np.percentile([b["ms"] for b in burst], 99))
+        if ident.count(False):
+            raise AssertionError(f"lattice crops differ: {ident}")
+        lattice_record = {
+            "schema_version": 1, "kind": "lattice", "nvidia_smi": smi,
+            "plan": lat["plan"],
+            "exec_keys": {
+                "bound": lat["buckets"],
+                "resident_after_warmup": before["cache"]["resident"],
+                "resident_after_burst": after["cache"]["resident"],
+                "bypass_keys": ra_serving["cache"]["resident"]
+                - after["cache"]["resident"],
+            },
+            "burst": {"requests": len(burst),
+                      "shapes": [b["shape"] for b in burst],
+                      "all_hits": all(b["cache"] == "hit" for b in burst),
+                      "p99_cold_ms": cold_p99},
+            "warm": {"p99_ms": warm_p99},
+            "p99_cold_over_warm": cold_p99 / warm_p99,
+            "bit_identity": {"verified": len(ident),
+                             "mismatched": ident.count(False),
+                             "on_bucket_identical": ident[2]},
+            "bypass": {"cache": byp["cache"], "ms": byp_ms,
+                       "admissions": total_of(
+                           ra_metrics, "ia_lattice_admissions_total",
+                           path="bypass")},
+            "cardinality": lat["shape_cardinality"],
+            "serving_check": ra_health["serving"],
+        }
+        _, rec["check_lattice"] = run_validator("check_lattice.py",
+                                                lattice_record, out_dir)
+        rec["lattice_arm"] = {"burst": burst, "bypass_ms": byp_ms,
+                              "bypass_cache": byp["cache"],
+                              "p99_cold_over_warm": cold_p99 / warm_p99,
+                              "waste": lat["mean_bucket_waste_frac"]}
+        emit({"phase": "fleet", "part": "lattice", **rec["lattice_arm"]})
+
+        # ---- 3. the warm join, and the weak-scaling pair.
+        single = serve_point(router_url, 1, 2, bodies, refs, "w1")
+        # `trace --fleet` on the first of them, a routed request with no
+        # other in flight, while its replica still serves (section 5).
+        trace_main = cli_start(work, "trace_main", [
+            "trace", "w1-0-0", "--fleet", disc, "--format", "json"])
+        joining = replica("rc")
+        procs["rc"] = joining[0]
+        urls["rc"], rec["rc_startup_s"] = cli_wait(joining, "serve rc")
+        rc_serving = get_doc(urls["rc"] + "/serving")
+        restored = rc_serving["disk_cache"]["restored"]
+        if sorted(map(tuple, restored)) != sorted(
+                (e["shape"][1], e["shape"][2], e["shape"][3])
+                for e in (json.load(open(f"{work}/warm/excache/index.json"))
+                          ["entries"].values())):
+            raise AssertionError(f"warm join restored {restored}")
+        hold = [threading.Thread(target=serve_post, args=(
+            router_url, bodies[i], f"hold-{i}")) for i in range(2)]
+        for t in hold:
+            t.start()
+        time.sleep(0.3)
+        code, added = post_doc(router_url + "/replicas/add",
+                               {"url": urls["rc"], "name": "rc"})
+        if code != 200:
+            raise AssertionError(f"/replicas/add: {code} {added}")
+        name_of["rc"] = "rc"
+        code, first, hdrs, first_ms = serve_post(router_url, bodies[3],
+                                                 "join-first")
+        for t in hold:
+            t.join()
+        if code != 200 or hdrs.get("X-Routed-To") != "rc" or \
+                not np.array_equal(served_image(first), refs[3]):
+            raise AssertionError(f"warm join first request: {code} "
+                                 f"{hdrs.get('X-Routed-To')}")
+        fleet_pt = serve_point(router_url, 3, 2, bodies, refs, "w3")
+        rc_metrics = get_doc(urls["rc"] + "/metrics.json")
+        rc_health = {c["name"]: c["status"] for c in get_doc(
+            urls["rc"] + "/healthz")["checks"]}
+        rec["warm_join"] = {
+            "restored": restored,
+            "restore_ms": rc_serving["disk_cache"]["restore_ms"],
+            "disk_hits_warmup": total_of(rc_metrics,
+                                         "ia_excache_disk_hits_total",
+                                         kind="warmup"),
+            "first_request_ms": first_ms, "first_cache": first["cache"],
+            "first_server_ms": first["wall_ms"],
+            "fleet_warm_p99_ms": fleet_pt["p99_ms"],
+            "warm_p99_ratio": first_ms / fleet_pt["p99_ms"],
+            "single": points_summary([single])[0],
+            "fleet": points_summary([fleet_pt])[0],
+        }
+        emit({"phase": "fleet", "part": "warm_join", **rec["warm_join"]})
+        if first_ms > 2.0 * fleet_pt["p99_ms"]:
+            raise AssertionError(f"added replica's first request "
+                                 f"{first_ms} ms > 2x {fleet_pt['p99_ms']}")
+
+        # ---- 4. a session, drained off its replica and adopted.
+        clip = [serve_body(frames_u8[i], session="clip") for i in range(3)]
+        session = [serve_post(router_url, clip[i], f"clip-{i}")
+                   for i in range(2)]
+        pinned = session[0][2]["X-Routed-To"]
+        if session[1][2]["X-Routed-To"] != pinned or any(
+                r[0] != 200 for r in session):
+            raise AssertionError("session frames 1-2 not pinned")
+        victim = next(t for t, nm in name_of.items() if nm == pinned)
+        survivors = [t for t in name_of if t != victim]
+        # A second router, traced, its poller parked so its view of the
+        # victim goes stale; an untraced twin for the overhead pairs.
+        rreg = MetricsRegistry()
+        tracer = Tracer(registry=rreg)
+        flight = FlightRecorder(tracer, rreg, f"{work}/r2_flight.json",
+                                capacity=4096)
+        tracer.add_observer(flight.observe)
+        traced = FleetRouter(rreg, tracer=tracer, poll_interval_s=3600.0,
+                             flight=flight, discovery_path=f"{work}/r2.json",
+                             access_log_path=f"{work}/r2_access.jsonl")
+        routers.append(traced.start())
+        bare = FleetRouter(MetricsRegistry(), poll_interval_s=3600.0)
+        routers.append(bare.start())
+        for t in name_of:
+            traced.add_replica(urls[t], name=name_of[t])
+        for t in survivors:
+            bare.add_replica(urls[t], name=name_of[t])
+        with traced._lock:
+            traced._affinity["stale"] = pinned
+        held = {}
+
+        def in_flight():
+            held["r"] = serve_post(urls[victim], bodies[4], "handoff")
+
+        def drain():
+            held["drain"] = post_doc(router_url + "/drain_replica",
+                                     {"name": pinned})
+
+        t_in = threading.Thread(target=in_flight)
+        t_in.start()
+        t0 = time.perf_counter()
+        while get_doc(urls[victim] + "/serving")["inflight"] < 1:
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError("hand-off request never dispatched")
+            time.sleep(0.01)
+        t_dr = threading.Thread(target=drain)
+        t_dr.start()
+        while not get_doc(urls[victim] + "/serving")["draining"]:
+            time.sleep(0.01)
+        small = serve_body(frame_of(frames_u8, 5, KILL_SIZE, KILL_SIZE),
+                           session="stale")
+        code, _, rhdrs, _ = serve_post(traced.url, small, "retry-1")
+        t_in.join()
+        t_dr.join()
+        code_d, report = held["drain"]
+        if code != 200 or rhdrs.get("X-Routed-To") == pinned:
+            raise AssertionError(f"stale route: {code} "
+                                 f"{rhdrs.get('X-Routed-To')}")
+        if code_d != 200 or report["sessions_migrated"] != ["clip"]:
+            raise AssertionError(f"drain_replica: {code_d} {report}")
+        hcode, hbody, _, handoff_ms = held["r"]
+        if hcode != 200 or not np.array_equal(served_image(hbody),
+                                              refs[4]):
+            raise AssertionError("the request in flight at the drain "
+                                 f"answered {hcode}")
+        if stop(procs.pop(victim)) != 0:
+            raise AssertionError(f"drained {victim} did not exit 0")
+        session.append(serve_post(router_url, clip[2], "clip-2"))
+        if session[2][0] != 200 or session[2][2][
+                "X-Routed-To"] != report["migrated_to"]:
+            raise AssertionError(f"frame 3 routed to "
+                                 f"{session[2][2].get('X-Routed-To')}")
+        want = SERVE_MEMO.get("session")
+        if not want:
+            stream = VideoStream(a, ap, cfg=cfg, b_stats=_luma_bucket(
+                as_float(frames_u8[0])))
+            want = [stream.step(as_float(frames_u8[i])).cpu().numpy()
+                    for i in range(3)]
+        for i, (code, body, _, _) in enumerate(session):
+            if not np.array_equal(served_image(body), want[i]):
+                raise AssertionError(f"session frame {i} differs from "
+                                     "VideoStream")
+        aff = get_doc(router_url + "/fleet")["affinity"]
+        affinity = {"sessions": 1, "frames_per_session": 3,
+                    "hit": aff["hit"], "new": aff["new"],
+                    "repin": aff["repin"], "expected_hits": 2,
+                    "hit_rate": aff["hit"] / 2}
+        if post_doc(router_url + "/replicas/remove",
+                    {"name": pinned})[0] != 200:
+            raise AssertionError(f"/replicas/remove {pinned}")
+        # Traced against untraced, in turns, over the same replicas, on
+        # frames of the bottom rung.
+        body_low = serve_body(frame_of(frames_u8, 6, rungs[0], rungs[0]))
+        bases, deltas = [], []
+        for k in range(FLEET_OVERHEAD_PAIRS):
+            base = serve_post(bare.url, body_low, f"bare-{k}")[3]
+            full = serve_post(traced.url, body_low, f"traced-{k}")[3]
+            bases.append(base)
+            deltas.append(full - base)
+        overhead = {"pairs": len(bases),
+                    "base_median_ms": statistics.median(bases),
+                    "min_delta_ms": min(deltas),
+                    "frac": max(0.0, min(deltas)) / statistics.median(bases)}
+        with open(f"{work}/r2.json") as f:
+            fetched = fleettrace.fetch_fleet_trace(json.load(f), "retry-1")
+        retry_joined = fleettrace.join_fleet_trace(
+            fetched["router"]["request"],
+            [r["doc"]["request"] for r in fetched["replicas"]
+             if (r.get("doc") or {}).get("request")], "retry-1")
+        span_retries = sum(
+            1 for e in read_entries(traced.access.path)
+            for att in e.get("attempts") or [] if att.get("retry_reason"))
+        counter_retries = total_of(rreg.to_dict(), "ia_route_retries_total")
+        for r in routers:
+            r.stop()
+        routers.clear()
+        rec["drain"] = {"report": report, "handoff_ms": handoff_ms,
+                        "affinity": affinity, "overhead": overhead,
+                        "retry_routed_to": rhdrs.get("X-Routed-To")}
+        emit({"phase": "fleet", "part": "drain", **rec["drain"]})
+
+        # ---- 5. obs and trace --fleet over the discovery file: the
+        # routed request with nothing else in flight (gated), and one of
+        # the 4-client sweep's (its coverage reported).
+        rid = next(r for r, nm in sweep[0]["routes"].items()
+                   if nm != pinned)
+        obs_out = f"{work}/obs.json"
+        cli_obs = cli_start(work, "obs", ["obs", "--targets", disc, "--out",
+                                          obs_out, "--format", "json"])
+        _, tr_out = run_cli(["trace", rid, "--fleet", disc, "--format",
+                             "json"])
+        obs_frac = obs_overhead(a0, ap0, frames_u8, dev)
+        if cli_obs[0].wait(120) != 0:
+            raise AssertionError("obs: " + open(cli_obs[3]).read()[-2000:])
+        with open(obs_out) as f:
+            obs_rec = json.load(f)
+        obs_rec["observatory_overhead_frac"] = obs_frac
+        _, rec["check_obs"] = run_validator("check_obs.py", obs_rec,
+                                            out_dir)
+        if trace_main[0].wait(120) != 0:
+            raise AssertionError("trace --fleet: "
+                                 + open(trace_main[3]).read()[-2000:])
+        with open(os.path.join(work, "trace_main.out")) as f:
+            main_joined = json.load(f)
+        loaded_joined = json.loads(tr_out)
+
+        def waterfall(j):
+            return {"coverage": j["critical_path_coverage"],
+                    "unattributed_ms": j["unattributed_ms"],
+                    "skew_bound_ms": j["skew_bound_ms"],
+                    "total_ms": j["router"]["total_ms"],
+                    "rows": [(r.get("process"), r.get("phase"),
+                              r.get("wall_ms")) for r in j["rows"]]}
+
+        rec["obs_trace"] = {
+            "obs_replicas": [r["url"] for r in obs_rec["replicas"]],
+            "obs_routers": [r["url"] for r in obs_rec["routers"]],
+            "fleet_slo_verdict": obs_rec["fleet"]["slo"]["verdict"],
+            "observatory_overhead_frac": obs_frac,
+            "trace": {"w1-0-0": waterfall(main_joined),
+                      rid: waterfall(loaded_joined)}}
+        emit({"phase": "fleet", "part": "obs_trace", **rec["obs_trace"]})
+        if main_joined["critical_path_coverage"] < 0.95:
+            raise AssertionError(f"trace --fleet coverage "
+                                 f"{rec['obs_trace']['trace']}")
+        for t in survivors:
+            drain_exit(urls[t], procs.pop(t), f"replica {t}")
+
+        # ---- 6. kill, archive, incident at 256^2, behind the router.
+        archive_record, rec["kill"] = kill_arm(
+            work, a0, ap0, frames_u8, dev, router_url,
+            [name_of[t] for t in survivors])
+        emit({"phase": "fleet", "part": "kill", **rec["kill"]})
+        _, rec["check_archive"] = run_validator(
+            "check_archive.py", archive_record, out_dir)
+        if stop(procs.pop("route"), timeout=60) != 0:
+            raise AssertionError("route did not exit 0 (or initialised "
+                                 "CUDA): " + open(route[3]).read()[-2000:])
+        with open(os.path.join(route[1], "flight.json")) as f:
+            mig_spans = sorted({
+                ev.get("name") for ev in json.load(f).get("events", [])
+                if ev.get("name") in ("drain_migration", "drain_wait",
+                                      "sessions_adopt", "repin")})
+    finally:
+        for r in routers:
+            r.stop()
+        for p in procs.values():
+            stop(p, "SIGKILL", 60)
+
+    # ---- the trace, router and persist records.
+    trace_record = {
+        "schema_version": 1, "kind": "fleet_trace_load", "nvidia_smi": smi,
+        "proxy_size": SERVE_SIZE,
+        "main": {"request_id": "w1-0-0", "http_status": 200,
+                 "joined": main_joined},
+        "retry": {"request_id": "retry-1", "http_status": 200,
+                  "retries": retry_joined.get("retries"),
+                  "retry_ms": retry_joined.get("retry_ms"),
+                  "joined": retry_joined},
+        "migration": {"replica": pinned, "target": report["migrated_to"],
+                      "migration_ms": report["migration_ms"],
+                      "sessions": len(report["sessions_migrated"]),
+                      "spans": mig_spans,
+                      "post_migration_routed_to":
+                      session[2][2]["X-Routed-To"]},
+        "overhead": overhead,
+        "reconciliation": {"counter_retries_total": counter_retries,
+                           "span_retry_attempts": span_retries},
+    }
+    _, rec["check_fleet_trace"] = run_validator(
+        "check_fleet_trace.py", trace_record, out_dir)
+
+    def point(p, replicas):
+        return {"replicas": replicas, "clients": p["clients"],
+                "requests": p["requests"], "wall_s": p["wall_s"],
+                "throughput_rps": p["requests"] / p["wall_s"],
+                "p50_ms": p["p50_ms"], "p99_ms": p["p99_ms"]}
+
+    router_record = {
+        "schema_version": 1, "kind": "router", "nvidia_smi": smi,
+        "proxy_size": SERVE_SIZE,
+        "protocol": {"mode": "weak_scaling", "clients_per_replica": 1,
+                     "requests_per_client": 2},
+        "single": point(single, 1),
+        "fleet": {**point(fleet_pt, 3),
+                  "per_replica_requests": fleet_pt["routed_to"]},
+        "warm_start": {"replica": "rc", "first_request_ms": first_ms,
+                       "fleet_warm_p99_ms": fleet_pt["p99_ms"],
+                       "warm_p99_ratio": first_ms / fleet_pt["p99_ms"],
+                       "disk_cache": rc_serving["disk_cache"]},
+        "affinity": affinity,
+        "chaos": {"name": "replica_kill_midburst",
+                  "acked_loss": rec["kill"]["acked_loss"],
+                  "replay_bit_identical": True,
+                  "sessions_migrated": len(report["sessions_migrated"]),
+                  "migrated_frame_bit_identical": True,
+                  "routed_burst": KILL_BURST,
+                  "routed_served": rec["kill"]["routed_served"]},
+    }
+    router_record["scaling_factor"] = (
+        router_record["fleet"]["throughput_rps"]
+        / router_record["single"]["throughput_rps"])
+    gates, rec["check_router"] = run_validator("check_router.py",
+                                               router_record, out_dir)
+    rec["scaling_factor"] = router_record["scaling_factor"]
+    rec["unasserted_gates"] = {"check_router.py": gates}
+    persist_record = {
+        "schema_version": 1, "kind": "serve_persist", "nvidia_smi": smi,
+        "proxy_size": SERVE_SIZE,
+        # The reference's cold request pays an XLA compile; the port's
+        # counterpart is a process's first dispatch (the least of ra's
+        # four warmup dispatches, which ran at once beside rb's), its
+        # restart the added replica's first client request (a warm hit
+        # after the restore), both by the daemon's clock.
+        "persist": {
+            "cold_ms": min(e["compile_ms"] for e in before["cache"][
+                "entries"] if e["compile_ms"] is not None),
+            "cold_restart_ms": first["wall_ms"],
+            "warm_ms": single["server_wall_ms_median"],
+            "first_restart_cache": (
+                "disk" if rec["warm_join"]["disk_hits_warmup"] else "miss"),
+            "bit_identical": True,
+            "restore_ms": rc_serving["disk_cache"]["restore_ms"],
+            "disk": {w: total_of(rc_metrics, f"ia_excache_disk_{w}_total")
+                     for w in ("hits", "misses", "errors")},
+            "cache_misses": total_of(rc_metrics,
+                                     "ia_serve_excache_misses_total"),
+            "serving_check": rc_health["serving"],
+        },
+        "pipeline": {
+            "window": ra_serving["pipeline"]["window"],
+            "bit_identical": True,
+            "requests": sum(p["requests"] for p in sweep),
+            "p50_warm_ms": sweep[-1]["p50_ms"],
+            "p99_warm_ms": sweep[-1]["p99_ms"],
+            "inflight_batches_after": ra_serving["pipeline"][
+                "inflight_batches"],
+            "ledger": {
+                **{k: total_of(ra_metrics, f"ia_serve_{k}_total")
+                   for k in ("requests", "admitted", "shed", "completed",
+                             "failed", "dispatches")},
+                "hits": total_of(ra_metrics, "ia_serve_excache_hits_total"),
+                "misses": total_of(ra_metrics,
+                                   "ia_serve_excache_misses_total")},
+            "serving_check": ra_health["serving"],
+        },
+    }
+    gates, rec["check_serve_persist"] = run_validator(
+        "check_serve_persist.py", persist_record, out_dir)
+    rec["unasserted_gates"]["check_serve_persist.py"] = gates
+    rec["persist"] = persist_record["persist"]
+    args, kw, _ = seen[0]
+    kw = {k: kw[k] for k in ("specs", "geom", "ha", "wa", "coh_factor")}
+    rec["k1_frames"] = k1_frames_row(args, kw)
+    rec["k1_launches"] = sweep_k1
+    emit(rec)
+    shutil.rmtree(work, ignore_errors=True)
     return rec
 
 
@@ -3189,6 +4107,8 @@ def main(argv=None) -> int:
         run("telemetry", phase_telemetry, dev, smi, l2_rate)
     serve = run("serve", phase_serve, dev, smi, script_t0) \
         if "serve" in phases else {}
+    fleet = run("fleet", phase_fleet, dev, smi, serve) \
+        if "fleet" in phases else {}
     PHASE_T0[0] = script_t0
     emit({"phase": "timing", "seconds_by_phase": seconds,
           "build_s": build_s})
@@ -3304,6 +4224,21 @@ def main(argv=None) -> int:
             "source": "image_analogies_tpu_torch/kernels/csrc/tile_sweep.cu",
             "replaces": "image_analogies_tpu/kernels/patchmatch_tile.py:888",
             "launches": serve["record"]["k1_launches"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+        })
+    if fleet:
+        # K1 with the frame axis behind the router: the library's
+        # dispatch of the lattice's padded 1024^2 frame, captured and held
+        # against the plain version, beside the launches the replicas
+        # booked over the routed sweep.
+        row = fleet["k1_frames"]
+        kernels_line.append({
+            "name": "tile_sweep_frames_fleet", "route": "cuda",
+            "source": "image_analogies_tpu_torch/kernels/csrc/tile_sweep.cu",
+            "replaces": "image_analogies_tpu/kernels/patchmatch_tile.py:888",
+            "launches": fleet["k1_launches"],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,

@@ -12,7 +12,15 @@ Subcommands:
             request queue, continuous batching, admission control, a
             journal with drain and takeover, and video sessions
   trace     one served request's critical path, from a live daemon
-            (--url) or its artifacts (--trace-dir)
+            (--url), its artifacts (--trace-dir), or across a fleet
+            (--fleet: the router's discovery file)
+  route     the fleet router over serve replicas: least outstanding
+            work, session affinity, drain-time session migration, and
+            a discovery file for obs and trace --fleet
+  obs       the fleet observatory: scrape N replicas, pool their
+            registries, grade the pooled SLO, write an OBS record
+  history   the restart lineage of a telemetry archive (--archive-dir)
+  incident  render one black-box incident bundle
 
 The flags are the reference CLI's (`image_analogies_tpu/cli.py`), with
 `--device {cuda,cpu}` (default cuda; a run without a card raises unless
@@ -23,9 +31,7 @@ the reference's compilation cache.
 Flags of parts not ported yet keep the reference's parser, so a bad
 value still fails at parse time, and then stop the run with a message
 naming the ROADMAP step that ports them: `--spatial`, `--sharded-a`,
-`--bands`, `--n-devices` (step 14, multi-device); serve's `--lattice`,
-`--warm-dir`, `--archive-dir`, `--archive-interval-s` and trace's
-`--fleet` (step 13b, the fleet).
+`--bands`, `--n-devices` (step 14, multi-device).
 
 `--trace-dir DIR` writes the telemetry artifacts (host_spans.json,
 metrics.json, metrics.prom, flight.json) and costs one device sync a
@@ -199,15 +205,9 @@ _UNPORTED = (
 )
 
 
-# serve's and trace's: (attribute, flag, the ROADMAP step, its off value).
-_STEP_13B = "step 13b (the serving fleet)"
+# serve's: (attribute, flag, the ROADMAP step, its off value).
 _SERVE_UNPORTED = (
     ("n_devices", "--n-devices", "step 14 (multi-device runners)", None),
-    ("lattice", "--lattice", _STEP_13B, "off"),
-    ("warm_dir", "--warm-dir", _STEP_13B, None),
-    ("archive_dir", "--archive-dir", _STEP_13B, None),
-    ("archive_interval_s", "--archive-interval-s", _STEP_13B, None),
-    ("fleet", "--fleet", _STEP_13B, None),
 )
 
 
@@ -639,6 +639,25 @@ def cmd_serve(args) -> int:
                 "no_data", file=sys.stderr,
             )
         anomaly_config = AnomalyConfig(baseline_p99_ms=baseline_p99)
+    lattice_plan = None
+    if args.lattice:
+        from .serving.lattice import parse_lattice_spec, plan_lattice
+
+        try:
+            lattice_cfg = parse_lattice_spec(args.lattice)
+        except ValueError as e:
+            raise SystemExit(f"serve: {e}")
+        if lattice_cfg is not None:
+            lattice_plan = plan_lattice(lattice_cfg)
+            lat = lattice_plan.lattice
+            print(
+                f"lattice[{lattice_plan.source}]: rungs "
+                f"{list(lat.rungs)} x channels "
+                f"{list(lat.config.channels)} = {lat.size} buckets "
+                f"(growth {lat.growth:g}, "
+                f"{len(lattice_plan.rejected)} candidate(s) rejected)",
+                flush=True,
+            )
     # Daemon-lifetime telemetry session: no device trace over an
     # unbounded lifetime; artifacts and the flight recorder go to
     # --trace-dir.  SIGTERM is re-bound to a drain below.
@@ -666,6 +685,7 @@ def cmd_serve(args) -> int:
                 if args.trace_dir else None
             ),
             state_dir=state_dir,
+            warm_dir=args.warm_dir,
             drain_deadline_s=args.drain_deadline_s,
             dispatch_deadline_s=args.dispatch_deadline_s,
             pipeline_window=args.pipeline_window,
@@ -673,6 +693,9 @@ def cmd_serve(args) -> int:
             obs_interval_s=args.obs_interval_s,
             obs_capacity=args.obs_capacity,
             anomaly_config=anomaly_config,
+            lattice=lattice_plan,
+            archive_dir=args.archive_dir,
+            archive_interval_s=args.archive_interval_s,
         )
         try:
             daemon.start()
@@ -693,8 +716,10 @@ def cmd_serve(args) -> int:
             if restored:
                 print(f"takeover: restored {restored} session(s)")
             for rec in daemon.warmup(warm_entries or []):
+                how = ("disk-restored" if rec.get("verdict") == "disk"
+                       else "first use")
                 print(
-                    f"warmup: {rec['key']} first use in "
+                    f"warmup: {rec['key']} {how} in "
                     f"{rec['wall_ms']:.0f} ms"
                 )
             replayed = daemon.replay_journal() if state_dir else 0
@@ -709,8 +734,9 @@ def cmd_serve(args) -> int:
                 daemon.live.announce(args.trace_dir)
             print(
                 f"serving on {daemon.url} (POST /synthesize /drain; "
-                "GET /serving /slo /journal /obs/window /request "
-                "/metrics /metrics.json /healthz /progress)",
+                "/sessions/adopt; GET /serving /slo /journal /obs/window "
+                "/request /incidents /archive /metrics /metrics.json "
+                "/healthz /progress)",
                 flush=True,
             )
             while not daemon.drained.wait(1.0):
@@ -728,26 +754,85 @@ def cmd_serve(args) -> int:
 TRACE_GAP_PCT_MAX = 5.0
 
 
+def _cmd_trace_fleet(args) -> int:
+    """`trace ID --fleet DISCOVERY`: the one-command cross-process
+    waterfall.  Walks the router's discovery file, asks every process
+    `GET /request?id=`, joins the router's and the replica's records by
+    the forwarded span context, and renders one waterfall with the
+    clock-skew bound and the honest unattributed gap."""
+    import json
+
+    from .serving.fleettrace import (
+        fetch_fleet_trace,
+        join_fleet_trace,
+        render_fleet_waterfall,
+    )
+    from .serving.router import load_discovery
+
+    try:
+        discovery = load_discovery(args.fleet)
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"trace: discovery file {args.fleet}: {e}")
+    fetched = fetch_fleet_trace(discovery, args.request_id, timeout=10.0)
+    router_doc = fetched.get("router") or {}
+    router_rec = router_doc.get("request")
+    replica_recs = []
+    replica_events = {}
+    for rep in fetched.get("replicas") or []:
+        doc = rep.get("doc") or {}
+        rec = doc.get("request")
+        if rec is not None:
+            replica_recs.append(rec)
+            replica_events[str(rep.get("name"))] = (
+                doc.get("flight_events") or []
+            )
+    if router_rec is None and not replica_recs:
+        detail = "; ".join(fetched.get("errors") or [])
+        raise SystemExit(
+            f"trace: request {args.request_id!r} unknown to every "
+            "process in the discovery file"
+            + (f" ({detail})" if detail else "")
+        )
+    joined = join_fleet_trace(
+        router_rec, replica_recs, args.request_id,
+        router_events=router_doc.get("flight_events") or [],
+        replica_events=replica_events,
+    )
+    if fetched.get("errors"):
+        joined.setdefault("notes", []).extend(
+            f"unreachable mid-fetch: {e}" for e in fetched["errors"]
+        )
+    if args.format == "json":
+        print(json.dumps(joined, indent=1))
+    else:
+        print(render_fleet_waterfall(joined))
+    return 0
+
+
 def cmd_trace(args) -> int:
     """Reconstruct one served request's critical path: the access log
     is the source of truth for phase attribution (queue/compile/
     execute/demux ms the daemon booked at response time), joined, when
     the artifacts exist, with the request's `serve_request` span tree
     from flight.json.  `--url` asks a live daemon instead (GET
-    /request?id=).  Prints a phase-attributed waterfall; exits nonzero
-    when the id is unknown, and 1 when a dispatched request's phases
-    leave more than TRACE_GAP_PCT_MAX percent of its latency
-    unexplained."""
+    /request?id=); `--fleet DISCOVERY` walks the router's discovery
+    file and joins the router's and the replica's records into one
+    waterfall (`_cmd_trace_fleet`).  Prints a phase-attributed
+    waterfall; exits nonzero when the id is unknown, and 1 when a
+    dispatched request's phases leave more than TRACE_GAP_PCT_MAX
+    percent of its latency unexplained."""
     import json
 
     from .serving.accesslog import phase_fields
 
-    _refuse_unported(args, _SERVE_UNPORTED)
-    if bool(args.url) == bool(args.trace_dir):
+    if sum(map(bool, (args.url, args.trace_dir, args.fleet))) != 1:
         raise SystemExit(
-            "trace: exactly one of --url (live daemon) or --trace-dir "
-            "(post-mortem artifacts) is required"
+            "trace: exactly one of --url (live daemon), --trace-dir "
+            "(post-mortem artifacts) or --fleet (router discovery "
+            "file) is required"
         )
+    if args.fleet:
+        return _cmd_trace_fleet(args)
     if args.url:
         import urllib.error
         import urllib.parse
@@ -846,6 +931,366 @@ def cmd_trace(args) -> int:
         )
         print(f"  flight: {len(flight_evs)} span events{extra}")
     return 1 if over else 0
+
+
+def cmd_obs(args) -> int:
+    """The fleet observatory: scrape every target daemon's /metrics.json + /slo + /obs/window, pool the
+    registries (sum counters, merge histogram buckets — fleet burn
+    rates are request-weighted, never replica-averaged), render the
+    terminal dashboard, and optionally write the OBS record
+    tools/check_obs.py validates.  Exits 1 when no target answered or
+    the pooled SLO verdict is violated."""
+    import json
+
+    from .serving.observatory import (
+        aggregate,
+        parse_targets,
+        render_dashboard,
+        write_obs,
+    )
+
+    try:
+        targets = parse_targets(args.targets)
+    except ValueError as e:
+        raise SystemExit(f"obs: {e}")
+    record = aggregate(targets, span_s=args.span, timeout=args.timeout)
+    if args.format == "json":
+        print(json.dumps(record, indent=1))
+    else:
+        print(render_dashboard(record), end="")
+    if args.out:
+        write_obs(record, args.out)
+        print(f"obs: wrote {args.out}", file=sys.stderr)
+    fleet = record.get("fleet") or {}
+    if not fleet.get("replicas_live"):
+        print("obs: no live replicas", file=sys.stderr)
+        return 1
+    if (fleet.get("slo") or {}).get("verdict") == "violated":
+        return 1
+    return 0
+
+
+def cmd_history(args) -> int:
+    """Restart-lineage view over a durable telemetry archive
+    (telemetry/archive.py): group the archived snapshots by boot,
+    summarize each boot's window (obs generation span, SLO verdict,
+    latency p99, the anomaly baseline it graded against), diff
+    consecutive boots, and list the incidents captured along the way.
+    With --targets, each live endpoint is probed too — an endpoint
+    that is down while its archive is present renders FROM THE
+    ARCHIVE with an explicit degraded-fleet warning, never a silent
+    drop.  Exits 1 only when the archive itself holds no records."""
+    import json
+    import urllib.error
+    import urllib.request
+    from collections import OrderedDict
+
+    from .telemetry.archive import list_incidents, read_archive_entries
+
+    boots = OrderedDict()
+    records = 0
+    for rec in read_archive_entries(args.archive_dir):
+        records += 1
+        bid = rec.get("boot_id")
+        if not isinstance(bid, str):
+            continue
+        boot = boots.setdefault(bid, {
+            "boot_id": bid, "first_ts": rec.get("ts"),
+            "last_ts": rec.get("ts"), "snapshots": 0,
+            "incidents": [], "generation": None, "baseline": None,
+            "verdict": None, "p99_ms": None, "final": False,
+        })
+        boot["last_ts"] = rec.get("ts", boot["last_ts"])
+        kind = rec.get("kind")
+        if kind == "snapshot":
+            boot["snapshots"] += 1
+            g = rec.get("obs_generation")
+            if isinstance(g, int):
+                boot["generation"] = g
+            b = rec.get("anomaly_baseline_p99_ms")
+            if isinstance(b, (int, float)):
+                boot["baseline"] = float(b)
+            boot["final"] = bool(rec.get("final"))
+            slo = rec.get("slo") or {}
+            boot["verdict"] = slo.get("verdict", boot["verdict"])
+            lat = next(
+                (o for o in slo.get("objectives", [])
+                 if o.get("kind") == "latency"), None,
+            )
+            if lat and lat.get("observed_p99_ms") is not None:
+                boot["p99_ms"] = float(lat["observed_p99_ms"])
+        elif kind == "incident":
+            boot["incidents"].append(rec.get("id"))
+    warnings = []
+    if getattr(args, "targets", None):
+        from .serving.observatory import parse_targets
+
+        try:
+            targets = parse_targets(args.targets)
+        except ValueError as e:
+            raise SystemExit(f"history: {e}")
+        for t in targets:
+            try:
+                with urllib.request.urlopen(
+                    f"{t}/healthz", timeout=args.timeout
+                ):
+                    pass
+            except (urllib.error.URLError, OSError) as e:
+                warnings.append(
+                    f"target {t} unreachable ({type(e).__name__}: "
+                    f"{e}); history rendered from the archive only"
+                )
+    incidents = list_incidents(args.archive_dir)
+    if args.format == "json":
+        print(json.dumps({
+            "archive_dir": args.archive_dir,
+            "records": records,
+            "boots": list(boots.values()),
+            "incidents": incidents,
+            "warnings": warnings,
+        }, indent=1))
+        return 0 if boots else 1
+    print(
+        f"telemetry history — {args.archive_dir}: "
+        f"{len(boots)} boot(s), {records} record(s), "
+        f"{len(incidents)} incident bundle(s)"
+    )
+    prev = None
+    for boot in boots.values():
+
+        def _ts(v):
+            return (
+                time.strftime("%H:%M:%S", time.gmtime(v))
+                if isinstance(v, (int, float)) else "-"
+            )
+
+        p99 = boot["p99_ms"]
+        base = boot["baseline"]
+        print(
+            f"boot {boot['boot_id']:<22} "
+            f"{_ts(boot['first_ts'])}→{_ts(boot['last_ts'])}  "
+            f"snaps={boot['snapshots']:<4} "
+            f"gen={boot['generation'] if boot['generation'] is not None else '-':<4} "
+            f"verdict={boot['verdict'] or '-':<9} "
+            f"p99={f'{p99:.1f}ms' if p99 is not None else '-':<10} "
+            f"baseline={f'{base:.1f}ms' if base is not None else '-'}"
+            + ("  [drained]" if boot["final"] else "")
+        )
+        for inc in boot["incidents"]:
+            print(f"  incident {inc}")
+        if prev is not None:
+            pp, np_ = prev["p99_ms"], boot["p99_ms"]
+            carried = (
+                prev["baseline"] is not None
+                and boot["baseline"] == prev["baseline"]
+            ) or (
+                prev["p99_ms"] is None and boot["baseline"] is not None
+            )
+            diff = (
+                f"p99 {pp:.1f}→{np_:.1f}ms"
+                if pp is not None and np_ is not None else "p99 -"
+            )
+            print(
+                f"  ↳ restart diff vs {prev['boot_id']}: {diff}, "
+                f"baseline "
+                + ("carried" if boot["baseline"] is not None
+                   else "absent")
+            )
+        prev = boot
+    for warn in warnings:
+        print(f"WARNING (fleet degraded): {warn}")
+    if not boots:
+        print("history: archive holds no records", file=sys.stderr)
+        return 1
+    return 0
+
+
+def cmd_incident(args) -> int:
+    """Render one black-box incident bundle: the trigger,
+    the config/backend fingerprint, the graded SLO objectives and
+    anomaly watches at capture time, the access-log tail, and the
+    slowest tail request's phase waterfall — from the archive dir on
+    disk, or proxied live from a daemon/router URL."""
+    import json
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    from .serving.accesslog import phase_fields
+
+    doc = None
+    if bool(args.url) == bool(args.archive_dir):
+        raise SystemExit(
+            "incident: exactly one of --archive-dir (on disk) or "
+            "--url (live daemon/router) is required"
+        )
+    if args.url:
+        base = args.url.rstrip("/")
+        if not base.startswith(("http://", "https://")):
+            base = "http://" + base
+        q = urllib.parse.quote(args.incident_id, safe="")
+        try:
+            with urllib.request.urlopen(
+                f"{base}/incidents?id={q}", timeout=10.0
+            ) as resp:
+                doc = json.loads(resp.read().decode("utf-8"))
+        except urllib.error.HTTPError as e:
+            raise SystemExit(
+                f"incident: {args.incident_id!r}: endpoint answered "
+                f"{e.code}"
+            )
+        except (urllib.error.URLError, OSError) as e:
+            raise SystemExit(f"incident: cannot reach {args.url}: {e}")
+    else:
+        from .telemetry.archive import load_incident
+
+        doc = load_incident(args.archive_dir, args.incident_id)
+        if doc is None:
+            raise SystemExit(
+                f"incident: {args.incident_id!r} not found under "
+                f"{args.archive_dir}/incidents"
+            )
+    if args.format == "json":
+        print(json.dumps(doc, indent=1))
+        return 0
+    trig = doc.get("trigger") or {}
+    print(
+        f"incident {doc.get('id')}  trigger={trig.get('kind')}  "
+        f"ts={doc.get('ts')}"
+    )
+    if trig.get("watches"):
+        print(f"  watches firing: {', '.join(trig['watches'])}")
+    for o in trig.get("objectives") or []:
+        print(
+            f"  objective {o.get('name')}: {o.get('status')} "
+            f"(burn={o.get('burn_rate')})"
+        )
+    fp = doc.get("fingerprint") or {}
+    print(
+        f"  daemon: pid={fp.get('pid')} backend={fp.get('backend')} "
+        f"devices={fp.get('devices')} boot={fp.get('boot_id')}"
+    )
+    slo = doc.get("slo") or {}
+    print(f"  slo verdict at capture: {slo.get('verdict', '-')}")
+    for o in slo.get("objectives") or []:
+        burn = o.get("burn_rate")
+        print(
+            f"    {o.get('name'):<24} {o.get('status'):<10} "
+            f"burn={'-' if burn is None else f'{burn:.4f}'}"
+        )
+    anom = doc.get("anomaly") or {}
+    if anom:
+        print(
+            f"  anomaly verdict: {anom.get('verdict', '-')} "
+            f"(firing: "
+            f"{', '.join(anom.get('firing') or []) or 'none'})"
+        )
+    flight = doc.get("flight") or {}
+    if flight:
+        print(
+            f"  flight: {len(flight.get('events') or [])} span "
+            f"event(s) in ring, flushed_on="
+            f"{flight.get('flushed_on')}"
+        )
+    tail = doc.get("access_tail") or []
+    print(f"  access tail: {len(tail)} request(s)")
+    for rec in tail[-args.tail:]:
+        print(
+            f"    {str(rec.get('request_id')):<24} "
+            f"{str(rec.get('outcome')):<9} "
+            f"http={rec.get('http_status')} "
+            f"total={rec.get('total_ms')}ms"
+        )
+    served = [r for r in tail if r.get("total_ms") is not None]
+    if served:
+        worst = max(served, key=lambda r: float(r["total_ms"]))
+        total_ms = float(worst.get("total_ms") or 0.0)
+        print(
+            f"  slowest tail request {worst.get('request_id')} "
+            f"({total_ms:.3f} ms):"
+        )
+        width = 32
+        for name, ms in phase_fields(worst):
+            frac = ms / total_ms if total_ms > 0 else 0.0
+            bar = ("#" * max(1, int(round(frac * width)))
+                   if ms > 0 else "")
+            print(f"    {name:8s} {ms:10.3f} ms  "
+                  f"{100.0 * frac:5.1f}%  {bar}")
+    return 0
+
+
+def cmd_route(args) -> int:
+    """Fleet router (serving/router.py): spread POST /synthesize across
+    N daemon replicas — least outstanding work with queue-depth
+    awareness from each replica's /serving snapshot, session affinity
+    for video streams, drain-time session migration — and keep a
+    replica-discovery file current for `obs`.  With --trace-dir, every
+    proxied request gets a span tree (received/pick/proxy_attempt/
+    respond) in the router's flight ring, a line in the router's own
+    access.jsonl, and the `X-Parent-Span`/`X-Trace-Hop` headers it
+    forwards join the replica's serve_request tree to this hop
+    (`trace ID --fleet DISCOVERY`).  Pure coordination over HTTP: this
+    process touches no tensor and never initialises CUDA."""
+    import signal as _signal
+    import threading
+
+    from .serving.router import FleetRouter
+    from .utils.profiling import telemetry_session
+
+    try:
+        from .serving.observatory import parse_targets
+
+        targets = parse_targets(args.targets)
+    except ValueError as e:
+        raise SystemExit(f"route: {e}")
+    with telemetry_session(
+        None, enabled=True, artifact_dir=args.trace_dir,
+        metrics_port=None,
+    ) as tracer:
+        router = FleetRouter(
+            tracer.registry,
+            tracer=tracer,
+            host=args.host,
+            port=args.port,
+            poll_interval_s=args.poll_interval_s,
+            discovery_path=args.discovery_out,
+            proxy_timeout_s=args.proxy_timeout_s,
+            flight=getattr(tracer, "flight_recorder", None),
+            access_log_path=(
+                os.path.join(args.trace_dir, "access.jsonl")
+                if args.trace_dir else None
+            ),
+        ).start()
+        stop = threading.Event()
+        _signal.signal(_signal.SIGTERM, lambda *_: stop.set())
+        try:
+            for url in targets:
+                handle = router.add_replica(url)
+                state = "up" if handle.alive else "DOWN"
+                print(f"route: replica {handle.name} {handle.url} "
+                      f"[{state}]")
+            if args.trace_dir:
+                os.makedirs(args.trace_dir, exist_ok=True)
+                router.live.announce(args.trace_dir)
+            print(
+                f"routing on {router.url} (POST /synthesize "
+                "/replicas/add /replicas/remove /drain_replica; GET "
+                "/fleet /replicas /request /slo /metrics /metrics.json "
+                "/healthz)",
+                flush=True,
+            )
+            if args.discovery_out:
+                print(f"route: discovery file at {args.discovery_out} "
+                      "(pass to `obs --targets` and "
+                      "`trace --fleet`)")
+            while not stop.wait(1.0):
+                pass
+            print("route: exiting", flush=True)
+        except KeyboardInterrupt:
+            print("route: interrupted")
+        finally:
+            router.stop()
+    return 0
 
 
 def cmd_examples(args) -> int:
@@ -1056,8 +1501,12 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--warm-dir", default=None, metavar="DIR",
-        help="fleet-shared warm tier: not ported yet (ROADMAP Queue 1 "
-        "step 13b)",
+        help="fleet-shared warm tier: N replicas of one config root "
+        "their warm tier (DIR/excache/index.json, the shapes the fleet "
+        "has served) and the observed-warmup union here, merged on "
+        "every write; a new replica dispatches every sealed shape "
+        "before its endpoint announces (journal, lock and sessions "
+        "stay per replica in --state-dir).  Default: the state dir",
     )
     p.add_argument(
         "--takeover", default=None, metavar="DIR",
@@ -1114,13 +1563,20 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--archive-dir", default=None, metavar="DIR",
-        help="durable telemetry archive + black box: not ported yet "
-        "(ROADMAP Queue 1 step 13b)",
+        help="durable telemetry archive + black box: observatory "
+        "windows, SLO state and anomaly baselines persist to DIR as "
+        "segmented JSONL (atomic sealing, torn-tail-tolerant reload), "
+        "so a restart with the same DIR resumes its anomaly watches "
+        "against the pre-restart baselines; an SLO fast_burn or a "
+        "firing watch captures one incident bundle under "
+        "DIR/incidents (rate-limited, disk-budgeted; GET /incidents, "
+        "`history`, `incident <id>`)",
     )
     p.add_argument(
-        "--archive-interval-s", type=float, default=None, metavar="S",
-        help="archive snapshot cadence: not ported yet (ROADMAP Queue 1 "
-        "step 13b)",
+        "--archive-interval-s", type=float, default=30.0, metavar="S",
+        help="archive snapshot cadence (default 30; <= 0 keeps the "
+        "archive open for boot/drain records and incidents but skips "
+        "the periodic snapshots)",
     )
     p.add_argument(
         "--flight-ring", type=int, default=None, metavar="N",
@@ -1130,8 +1586,15 @@ def main(argv=None) -> int:
     )
     p.add_argument(
         "--lattice", default=None, metavar="SPEC",
-        help="shape-lattice admission: not ported yet (ROADMAP Queue 1 "
-        "step 13b); 'off' is accepted",
+        help="shape-lattice admission: sessionless frames are edge-"
+        "padded up to the smallest bucket of a geometric grid at "
+        "admission and cropped back at demux, so the executable keys "
+        "are bounded by the lattice, and warmup dispatches every "
+        "bucket before the endpoint announces.  SPEC: off (default) | "
+        "on (32:512, planner-chosen growth) | MIN:MAX (planner-chosen "
+        "growth) | MIN:MAX:GROWTH.  Frames over the top rung bypass to "
+        "the exact-key path; a takeover successor must run the same "
+        "spec for bit-identical journal replay",
     )
     _add_synth_flags(p)
     p.set_defaults(fn=cmd_serve)
@@ -1158,12 +1621,16 @@ def main(argv=None) -> int:
         "--url", default=None, metavar="URL",
         help="ask a LIVE daemon over HTTP instead of reading "
         "artifacts (GET /request?id=); exactly one of "
-        "--trace-dir/--url",
+        "--trace-dir/--url/--fleet",
     )
     p.add_argument(
         "--fleet", default=None, metavar="DISCOVERY",
-        help="cross-process fleet waterfall: not ported yet (ROADMAP "
-        "Queue 1 step 13b)",
+        help="cross-process waterfall: walk the router's discovery "
+        "file (route --discovery-out), pull the router-side and "
+        "replica-side records for this id, join them by the forwarded "
+        "X-Parent-Span context, and render one waterfall with a "
+        "clock-skew bound and an honest unattributed gap; exactly one "
+        "of --trace-dir/--url/--fleet",
     )
     p.add_argument(
         "--access-log", default=None, metavar="JSONL",
@@ -1172,6 +1639,133 @@ def main(argv=None) -> int:
     )
     p.add_argument("--format", default="table", choices=["table", "json"])
     p.set_defaults(fn=cmd_trace)
+
+    p = sub.add_parser(
+        "route",
+        help="fleet router: spread POST /synthesize across N serve "
+        "replicas with session affinity, queue-aware least-"
+        "outstanding routing, drain-time session migration, and a "
+        "discovery file for `obs`",
+    )
+    _add_common_flags(p)
+    p.add_argument(
+        "--targets", required=True, metavar="HOST:PORT,... | FILE",
+        help="initial replica endpoints: comma-separated host:port / "
+        "http:// URLs, or an existing discovery file (replicas can "
+        "also join later via POST /replicas/add)",
+    )
+    p.add_argument(
+        "--port", type=int, default=0,
+        help="router bind port (0 = ephemeral; announces in "
+        "<trace-dir>/live.json when --trace-dir is set)",
+    )
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument(
+        "--poll-interval-s", type=float, default=0.5, metavar="S",
+        help="replica /serving scrape cadence feeding the queue-"
+        "depth-aware routing scores (default 0.5)",
+    )
+    p.add_argument(
+        "--proxy-timeout-s", type=float, default=600.0, metavar="S",
+        help="per-proxy HTTP timeout (default 600 — must outlast a "
+        "cold compile on the slowest replica)",
+    )
+    p.add_argument(
+        "--discovery-out", default=None, metavar="JSON",
+        help="replica-discovery file, rewritten atomically on every "
+        "membership/drain change; `obs --targets FILE` "
+        "scrapes exactly this fleet",
+    )
+    p.add_argument(
+        "--trace-dir", default=None, metavar="DIR",
+        help="announce the router endpoint in DIR/live.json",
+    )
+    p.set_defaults(fn=cmd_route)
+
+    p = sub.add_parser(
+        "obs",
+        help="multi-replica serving observatory: scrape N daemons' "
+        "/metrics.json + /slo + /obs/window, pool registries into "
+        "fleet burn rates, render a dashboard, write OBS json",
+    )
+    _add_common_flags(p)
+    p.add_argument(
+        "--targets", required=True, metavar="HOST:PORT,HOST:PORT,...",
+        help="comma-separated daemon endpoints (host:port or full "
+        "http:// URLs)",
+    )
+    p.add_argument(
+        "--span", type=float, default=None, metavar="S",
+        help="window span (seconds) requested from each replica's "
+        "/obs/window (default: each replica's whole ring)",
+    )
+    p.add_argument(
+        "--timeout", type=float, default=10.0, metavar="S",
+        help="per-scrape HTTP timeout (default 10)",
+    )
+    p.add_argument(
+        "--out", default=None, metavar="JSON",
+        help="write the OBS record here (the artifact "
+        "tools/check_obs.py validates)",
+    )
+    p.add_argument("--format", default="table", choices=["table", "json"])
+    p.set_defaults(fn=cmd_obs)
+
+    p = sub.add_parser(
+        "history",
+        help="restart-lineage view over a durable telemetry archive: "
+        "per-boot window summaries, cross-restart diffs, incident "
+        "index",
+    )
+    _add_common_flags(p)
+    p.add_argument(
+        "--archive-dir", required=True, metavar="DIR",
+        help="the daemon's --archive-dir (segmented archive.jsonl + "
+        "incidents/ live here)",
+    )
+    p.add_argument(
+        "--targets", default=None, metavar="HOST:PORT,... | FILE",
+        help="optionally probe these live endpoints too (same "
+        "grammar as `obs --targets`, discovery files "
+        "included); an endpoint that is down while its archive is "
+        "present renders from the archive with a degraded-fleet "
+        "warning, never a silent drop",
+    )
+    p.add_argument(
+        "--timeout", type=float, default=5.0, metavar="S",
+        help="per-probe HTTP timeout (default 5)",
+    )
+    p.add_argument("--format", default="table", choices=["table", "json"])
+    p.set_defaults(fn=cmd_history)
+
+    p = sub.add_parser(
+        "incident",
+        help="render one black-box incident bundle: trigger, "
+        "fingerprint, SLO/anomaly state at capture, access-log tail "
+        "+ slowest-request waterfall",
+    )
+    _add_common_flags(p)
+    p.add_argument(
+        "incident_id",
+        help="the bundle id (from `history`, GET "
+        "/incidents, or the incidents/ directory)",
+    )
+    p.add_argument(
+        "--archive-dir", default=None, metavar="DIR",
+        help="read the bundle from DIR/incidents on disk; exactly "
+        "one of --archive-dir/--url",
+    )
+    p.add_argument(
+        "--url", default=None, metavar="URL",
+        help="fetch the bundle live from a daemon or router "
+        "(GET /incidents?id=); exactly one of --archive-dir/--url",
+    )
+    p.add_argument(
+        "--tail", type=int, default=10, metavar="N",
+        help="access-tail rows to print (default 10)",
+    )
+    p.add_argument("--format", default="table", choices=["table", "json"])
+    p.set_defaults(fn=cmd_incident)
 
     p = sub.add_parser("examples", help="generate procedural example assets")
     _add_common_flags(p)

@@ -108,6 +108,15 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
+def sources_digest() -> str:
+    """One digest over every kernel source, as `_lib_path` hashes each:
+    the build identity the serving warm tier's fingerprint names."""
+    h = hashlib.sha256()
+    for name in sorted(SOURCES):
+        h.update((CSRC / f"{name}.cu").read_bytes())
+    return h.hexdigest()[:16]
+
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 

@@ -28,6 +28,9 @@ which performs the simulated failure, rather than raised:
                     executable-cache epoch eviction before lookup
     serve_diskfull  the journal write syscall (key = write ordinal):
                     OSError counted on journal.errors, never raised
+    archive_crash   the telemetry-archive append (key = archive write
+                    ordinal): half the line reaches disk, then the
+                    process hard-exits, a SIGKILL mid-append
 
 armed by a fault plan (`IA_FAULT_PLAN` or `set_fault_plan`): comma or
 semicolon separated entries
@@ -52,8 +55,7 @@ attempt runs on a worker thread with a thread-local abort token
 `fire("level", ...)` on that thread (or an interrupted `hang`) raises
 `LevelAborted`, so an abandoned attempt unwinds at its next level
 boundary.  Unsupervised runs carry no token and pay one falsy check.
-The reference's module, copied; its `archive_crash` point waits for
-the telemetry archive (ROADMAP Queue 1 step 13b).
+The reference's module, copied.
 """
 
 from __future__ import annotations
@@ -65,18 +67,19 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 POINTS = ("level", "kernel", "ckpt", "xfer", "serve_crash", "serve_hang",
-          "serve_evict", "serve_diskfull")
+          "serve_evict", "serve_diskfull", "archive_crash")
 ACTIONS = ("raise", "hang", "truncate", "fail")
 
 # Serving-plane points: "fail" returns to the caller instead of
 # raising, and only the actions below are grammatical per point.
 SERVE_POINTS = ("serve_crash", "serve_hang", "serve_evict",
-                "serve_diskfull")
+                "serve_diskfull", "archive_crash")
 _SERVE_ACTIONS = {
     "serve_crash": ("fail",),
     "serve_hang": ("hang",),
     "serve_evict": ("fail",),
     "serve_diskfull": ("fail",),
+    "archive_crash": ("fail",),
 }
 
 class InjectedFault(RuntimeError):

@@ -1,10 +1,10 @@
 """Synthesis as a service on the port: a request-queue daemon over the
 runners, with executable-cache accounting, continuous batching and
 admission control.  `python -m image_analogies_tpu_torch.cli serve` is
-the front door; serving/daemon.py documents the architecture.  The
-reference's exports, less the fleet's (ROADMAP Queue 1 step 13b: the
-lattice, the disk tier, the router, the fleet trace and the
-observatory)."""
+the front door, `route` the fleet's (serving/router.py);
+serving/daemon.py documents the architecture.  The reference's
+exports; the fleet's modules (lattice, router, fleettrace,
+observatory) are imported by path, as the reference's are."""
 
 from .daemon import SynthDaemon
 from .excache import (

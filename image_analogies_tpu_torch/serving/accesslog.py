@@ -1,7 +1,8 @@
 """Structured access log for the serving daemon (with the
 request-scoped tracing in serving/daemon.py): the reference's module,
-copied.  The port serves no `disk` verdict yet (the disk tier is ROADMAP
-Queue 1 step 13b); the grammar keeps it.
+copied.  On the port a `disk` verdict marks a shape the fleet's warm
+tier had sealed (serving/excache.DiskExecCache), not a deserialized
+executable.
 
 One JSONL line per finished request — every outcome, including the
 ones that never reached the queue (400 rejected) or never left it
@@ -156,15 +157,19 @@ def find_request(path: str, request_id: str
 
 
 # Lifecycle order of every phase any access record can carry.  A
-# REPLICA record (serving/daemon.py) carries the queue..demux subset;
+# REPLICA record (serving/daemon.py) carries the ingest..encode subset;
 # a ROUTER record (serving/router.py) carries pick/proxy/respond.  The
 # two sets are disjoint per record, so one ordered tuple serves both
 # readers — and the fleet waterfall (serving/fleettrace.py) relies on
 # that shared order when it nests a replica's phases inside the
-# router's proxy window.
+# router's proxy window.  `ingest` (the body's receipt, decode,
+# admission and journal append) and `encode` (the answer's payload)
+# are the port's: the reference's replica clock starts at enqueue and
+# stops before the payload, which left 18 % of a routed 1024^2
+# request's wall outside every named phase on an H100 (PERF.md).
 PHASE_ORDER = (
-    "pick_ms", "queue_ms", "compile_ms", "restore_ms",
-    "execute_ms", "demux_ms", "proxy_ms", "respond_ms",
+    "pick_ms", "ingest_ms", "queue_ms", "compile_ms", "restore_ms",
+    "execute_ms", "demux_ms", "encode_ms", "proxy_ms", "respond_ms",
 )
 
 

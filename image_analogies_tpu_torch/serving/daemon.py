@@ -85,12 +85,31 @@ a bounded in-flight window (`pipeline_window`, default 2).  Admission,
 drain, the journal and the gauges read the lock-guarded in-flight
 count.
 
-Left to ROADMAP Queue 1 step 13b, with their constructor arguments
-raising NotImplementedError unless off: the shape lattice (`lattice`),
-the disk executable tier and the fleet-shared warm directory
-(`warm_dir`), the telemetry archive and incident capture
-(`archive_dir`, `archive_interval_s`, `incident_min_interval_s`), and
-session adoption across replicas (`/sessions/adopt`).
+The fleet's parts (the reference's rounds 18-23, with the router in
+serving/router.py):
+
+  - Warm tier (serving/excache.DiskExecCache) under the fleet-shared
+    `warm_dir`, else the state dir: the index of shapes the fleet has
+    dispatched.  `warmup` dispatches every sealed shape once before the
+    announce (`restore_warm_set`, span `disk-restored`, verdict
+    `disk`), and an in-memory miss probes the index for the same
+    verdict.  The observed-warmup file lives there too, merged by every
+    replica.
+  - Shape lattice (serving/lattice.py, `lattice=`): sessionless frames
+    are edge-padded up to the smallest bucket containing them at
+    `_make_request`, before the executable key and the luma bucket are
+    computed, and demux crops each answer back to its request's shape;
+    warmup dispatches every bucket before the announce.  A frame over
+    the top rung bypasses to the exact-key path (an honest miss);
+    session traffic never buckets.
+  - Session adoption (`adopt_sessions`, `POST /sessions/adopt`): a
+    survivor restores a drained replica's sessions from that replica's
+    state dir, which the drain snapshot wrote sessions-first.
+  - Telemetry archive and black box (telemetry/archive.py,
+    `archive_dir=`): periodic snapshots on the sampler tick, a final
+    one at drain, anomaly baselines and the observatory generation
+    resumed at start, and an incident bundle captured when an SLO
+    objective burns fast or a watch fires (`/incidents`, `/archive`).
 """
 
 from __future__ import annotations
@@ -101,7 +120,6 @@ import json
 import logging
 import os
 import queue as stdqueue
-import re
 import shutil
 import tempfile
 import threading
@@ -113,6 +131,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from .accesslog import AccessLog, find_request
+from .fleettrace import parse_hop, valid_token
 from .excache import (
     OBSERVED_WARMUP_FILE,
     ExecutableCache,
@@ -145,37 +164,28 @@ LUMA_BUCKET = 32.0
 
 REQUEST_TIMEOUT_S = 600.0
 
-# Client-supplied X-Request-Id values must be short and safe (they land
-# in logs, span attrs, and metrics labels verbatim); anything else is
-# ignored and a server id generated instead.
-_REQUEST_ID_RE = re.compile(r"^[A-Za-z0-9._-]{1,64}$")
-
-
 def _request_id_from_headers(headers) -> str:
     """The request's id: the client's `X-Request-Id` when present and
-    well-formed (so a caller can correlate daemon telemetry with its
-    own), else a fresh server-generated one."""
+    a well-formed trace token (fleettrace.valid_token: short and safe,
+    since it lands in logs, span attrs and metric labels verbatim),
+    else a fresh server-generated one."""
     if headers:
         for k, v in headers.items():
-            if str(k).lower() == "x-request-id" \
-                    and isinstance(v, str) and _REQUEST_ID_RE.match(v):
+            if str(k).lower() == "x-request-id" and valid_token(v):
                 return v
     return uuid.uuid4().hex[:12]
 
-
-# X-Trace-Hop is a small decimal (the router sends 1; a deeper proxy
-# chain counts up).  Anything else is replaced with 1, never rejected.
-_TRACE_HOP_RE = re.compile(r"^\d{1,3}$")
 
 
 def _trace_context_from_headers(headers) -> Dict[str, Any]:
     """Inbound distributed-trace context (round 22): `X-Parent-Span`
     (the upstream hop's span id — the fleet router's, normally) and
-    `X-Trace-Hop`.  Returns {} when neither header is present (direct
-    untraced traffic pays nothing).  Malformed or oversized values are
-    REPLACED with generated/clamped ones and echoed back — the
-    round-15 `X-Request-Id` policy: a hostile value must not poison
-    logs/span attrs, and a request must never be rejected over
+    `X-Trace-Hop` (a small decimal: the router sends 1).  Returns {}
+    when neither header is present (direct untraced traffic pays
+    nothing).  Malformed or oversized values are REPLACED (a new span
+    id, hop 1) and echoed back, by the router's own validators
+    (fleettrace.valid_token, parse_hop): a hostile value must not
+    poison logs/span attrs, and a request must never be rejected over
     telemetry decoration."""
     parent = hop = None
     for k, v in (headers or {}).items():
@@ -186,11 +196,10 @@ def _trace_context_from_headers(headers) -> Dict[str, Any]:
             hop = v
     if parent is None and hop is None:
         return {}
-    if parent is None or not _REQUEST_ID_RE.match(parent):
+    if parent is None or not valid_token(parent):
         parent = uuid.uuid4().hex[:12]
-    hop_n = int(hop) if (hop is not None
-                         and _TRACE_HOP_RE.match(hop)) else 1
-    return {"parent_span": parent, "hop": hop_n}
+    hop_n = parse_hop(hop)
+    return {"parent_span": parent, "hop": 1 if hop_n is None else hop_n}
 
 
 def _phase_attribution(req: ServeRequest,
@@ -205,22 +214,35 @@ def _phase_attribution(req: ServeRequest,
                    clamped into the execution window: the port
                    compiles nothing per shape, and the prologue is
                    where a cold shape's first-use costs land
-      execute_ms = cache-verdict -> executed, minus compile_ms
+      restore_ms = the same prologue wall when the verdict was `disk`
+                   (a warm-tier shape), booked under its own name so
+                   the restore population never blends into the
+                   compile one (compile_ms is then 0)
+      execute_ms = cache-verdict -> executed, minus compile/restore
       demux_ms   = executed -> the response (demux + settle + handler
                    wakeup — everything after the engine returned)
     The parts deliberately sum to total_ms minus only the sub-ms
-    admitted -> cache-verdict preamble, which is what lets the trace
-    CLI assert its 5%% reconstruction bound."""
+    admitted -> cache-verdict preamble; with `_book_response`'s ingest
+    (arrival -> enqueue) and encode (done -> payload) they tile the
+    request's whole wall, which is what lets the trace CLI assert its
+    5%% reconstruction bound and the fleet waterfall cover a routed
+    request."""
     t = {ev["name"]: ev["t_ms"] for ev in req.spans}
     out: Dict[str, float] = {}
     if "admitted" in t:
         out["queue_ms"] = round(t["admitted"], 3)
-    verdict = t.get("cache-hit", t.get("compiled"))
+    verdict = t.get(
+        "cache-hit", t.get("disk-restored", t.get("compiled"))
+    )
     executed = t.get("executed")
     if executed is not None and verdict is not None:
         window = max(0.0, executed - verdict)
         c = min(float(req.compile_ms or 0.0), window)
-        out["compile_ms"] = round(c, 3)
+        if "disk-restored" in t:
+            out["compile_ms"] = 0.0
+            out["restore_ms"] = round(c, 3)
+        else:
+            out["compile_ms"] = round(c, 3)
         out["execute_ms"] = round(window - c, 3)
         out["demux_ms"] = round(max(0.0, total_ms - executed), 3)
     return out
@@ -247,15 +269,6 @@ def _luma_bucket(frame: np.ndarray) -> Optional[Tuple[float, float]]:
 
 
 _LOG = logging.getLogger("image_analogies_tpu_torch")
-
-# Constructor arguments of parts still to port, with their off values.
-_STEP_13B = {
-    "lattice": None,
-    "warm_dir": None,
-    "archive_dir": None,
-    "archive_interval_s": 30.0,
-    "incident_min_interval_s": 60.0,
-}
 
 
 class SynthDaemon:
@@ -291,6 +304,7 @@ class SynthDaemon:
         access_log_path: Optional[str] = None,
         slo_window_s: float = 300.0,
         state_dir: Optional[str] = None,
+        warm_dir: Optional[str] = None,
         drain_deadline_s: float = 30.0,
         dispatch_deadline_s: Optional[float] = None,
         pipeline_window: int = 2,
@@ -298,24 +312,16 @@ class SynthDaemon:
         obs_interval_s: float = 5.0,
         obs_capacity: int = 120,
         anomaly_config=None,
-        **unported,
+        lattice=None,
+        archive_dir: Optional[str] = None,
+        archive_interval_s: float = 30.0,
+        incident_min_interval_s: float = 60.0,
     ):
         from ..models.analogy import resolve_device
         from ..telemetry.anomaly import AnomalyDetector
         from ..telemetry.slo import SloEngine
         from ..telemetry.timeseries import TimeSeriesRing
 
-        for name, value in unported.items():
-            if name not in _STEP_13B:
-                raise TypeError(
-                    f"SynthDaemon() got an unexpected keyword argument "
-                    f"{name!r}"
-                )
-            if value != _STEP_13B[name]:
-                raise NotImplementedError(
-                    f"SynthDaemon({name}=...) is not ported to the "
-                    "PyTorch package yet: ROADMAP Queue 1 step 13b"
-                )
         # A "cuda" daemon without a card refuses here, before binding.
         resolve_device(cfg)
         self.a = np.asarray(a, np.float32)
@@ -331,6 +337,20 @@ class SynthDaemon:
         self.admission = AdmissionController(
             max_depth=max_queue_depth, registry=registry
         )
+        # Shape lattice: a LatticePlan (the CLI's planner output), a
+        # LatticeConfig (planned here), or None (off).  Resolved before
+        # the cache: its capacity must hold the whole bucket grid plus
+        # headroom for bypass keys, or warmup would evict its own work.
+        self.lattice = None
+        self.lattice_plan = None
+        if lattice is not None:
+            from .lattice import LatticeConfig, plan_lattice
+
+            if isinstance(lattice, LatticeConfig):
+                lattice = plan_lattice(lattice)
+            self.lattice_plan = lattice
+            self.lattice = lattice.lattice
+            cache_capacity = max(cache_capacity, self.lattice.size + 2)
         self.cache = ExecutableCache(
             capacity=cache_capacity, registry=registry
         )
@@ -380,6 +400,9 @@ class SynthDaemon:
         self._settle_q: "stdqueue.Queue" = stdqueue.Queue()
         self._completer: Optional[threading.Thread] = None
         self._pipeline_busy = 0
+        # The warm tier (DiskExecCache, built in start() when a warm
+        # root exists).
+        self.disk = None
         # Per-request span trees + run-subtree tracer + structured
         # access log, all gated on ONE switch so a bare arm is
         # bit-identical.  (The request-duration histogram and request
@@ -391,6 +414,10 @@ class SynthDaemon:
         # Resilience state (inert when state_dir is None except drain,
         # which still quiesces and exits cleanly).
         self.state_dir = state_dir
+        # Fleet-shared warm directory: N replicas root their warm tier
+        # and observed-warmup file there (journal, lock and sessions
+        # stay per replica in state_dir).  None: the state dir.
+        self.warm_dir = warm_dir
         self.journal: Optional[RequestJournal] = None
         self.drain_deadline_s = float(drain_deadline_s)
         self.dispatch_deadline_s = dispatch_deadline_s
@@ -401,10 +428,20 @@ class SynthDaemon:
         # in-flight responses complete before the process exits.
         self._outstanding = 0
         self._outstanding_lock = threading.Lock()
+        # Running mean of per-request pad waste over lattice-admitted
+        # (non-bypass) traffic: handler threads book it, so guarded.
+        self._lattice_lock = threading.Lock()
+        self._lattice_waste_sum = 0.0
+        self._lattice_waste_n = 0
         # Runtime-observed frame shapes, LRU order: snapshotted to
         # warmup.observed.json and merged into the successor's warmup.
+        # With the lattice on this set holds BUCKET shapes (what a
+        # successor must warm); the raw client shapes are tracked
+        # separately for the `view="raw"` cardinality cell.
         self._observed_shapes: "OrderedDict[Tuple[int, ...], None]" = \
             OrderedDict()
+        self._observed_raw_shapes: \
+            "OrderedDict[Tuple[int, ...], None]" = OrderedDict()
         # Observatory: windowed time-series ring + live anomaly
         # watches, sampled on one daemon thread.  Interval <= 0
         # disables the plane; evaluation never runs on the request
@@ -420,6 +457,16 @@ class SynthDaemon:
                 self.obs, registry, config=anomaly_config,
                 max_queue_depth=max_queue_depth,
             )
+        # Durable telemetry archive + black box (built in start():
+        # reload must precede the first anomaly evaluation).  Interval
+        # <= 0 keeps the archive open (boot and drain records,
+        # incidents) but skips the periodic snapshots.
+        self.archive_dir = archive_dir
+        self.archive = None
+        self.incidents = None
+        self._archive_interval_s = float(archive_interval_s)
+        self._incident_min_interval_s = float(incident_min_interval_s)
+        self._archive_last_t = -float("inf")
         self._dispatch_seq = 0  # client-dispatch ordinal (fault keys)
         # request_id -> {"sha256", "shape"} for replayed requests; the
         # takeover check reads it from GET /journal to assert replay
@@ -509,6 +556,28 @@ class SynthDaemon:
         self._g_shape_card.set(0)
         self._g_shape_card.set(0, labels={"view": "raw"})
         self._g_shape_card.set(0, labels={"view": "bucketed"})
+        if self.lattice is not None:
+            self._c_lattice = r.counter(
+                "ia_lattice_admissions_total",
+                "sessionless admissions through the shape lattice by "
+                "path: bucketed (padded up to a bucket), exact "
+                "(already on a bucket shape), bypass (over the top "
+                "rung: exact-key path, honest miss)",
+            )
+            self._g_lattice_waste = r.gauge(
+                "ia_lattice_bucket_waste_frac",
+                "running mean fraction of the bucket canvas that is "
+                "pad, over lattice-admitted requests (the per-request "
+                "compute price of bounded exec-key cardinality)",
+            )
+            self._g_lattice_buckets = r.gauge(
+                "ia_lattice_buckets",
+                "exec-key cardinality bound the lattice guarantees "
+                "for in-bounds sessionless traffic (rungs^2 x "
+                "channels)",
+            )
+            self._g_lattice_waste.set(0.0)
+            self._g_lattice_buckets.set(self.lattice.size)
 
     # ------------------------------------------------------ lifecycle
     def start(self) -> "SynthDaemon":
@@ -528,11 +597,53 @@ class SynthDaemon:
             self.journal = RequestJournal(
                 journal_path(self.state_dir), registry=self.registry
             )
+        if self._warm_root is not None:
+            # The warm tier: the fleet's sealed shapes, restored by
+            # `warmup` before the announce.  Under a shared --warm-dir
+            # every replica reads the union every replica sealed.
+            from .excache import DiskExecCache, backend_fingerprint
+
+            self.disk = DiskExecCache(
+                os.path.join(self._warm_root, "excache"),
+                backend_fingerprint(self.cfg.device),
+                registry=self.registry,
+            )
         if self.observability:
             self.access = AccessLog(
                 self._access_log_path
                 or os.path.join(self._work_dir, "access.jsonl")
             )
+        if self.archive_dir is not None:
+            # Reload BEFORE the sampler starts: this boot's first
+            # anomaly evaluation grades against the pre-restart
+            # baseline, and the ring generation starts past every
+            # archived window's stamp.
+            from ..telemetry.archive import (
+                IncidentStore,
+                TelemetryArchive,
+            )
+
+            self.archive = TelemetryArchive(
+                self.archive_dir, registry=self.registry
+            )
+            self.incidents = IncidentStore(
+                self.archive_dir, registry=self.registry,
+                min_interval_s=self._incident_min_interval_s,
+            )
+            resumed = self.archive.resumed
+            if (self.obs is not None
+                    and resumed.get("generation") is not None):
+                self.obs.seed_generation(int(resumed["generation"]) + 1)
+            if (self.anomaly is not None
+                    and resumed.get("baseline_p99_ms") is not None
+                    and self.anomaly.config.baseline_p99_ms is None):
+                # No --baseline given: the archived one (what the
+                # previous boot graded against) carries over.  An
+                # explicit --baseline always wins.
+                self.anomaly.config = dataclasses.replace(
+                    self.anomaly.config,
+                    baseline_p99_ms=float(resumed["baseline_p99_ms"]),
+                )
         self.live = LiveTelemetryServer(
             self.tracer,
             self.registry,
@@ -548,6 +659,9 @@ class SynthDaemon:
                 ("GET", "/obs/window"): self._route_obs_window,
                 ("GET", "/request"): self._route_request,
                 ("POST", "/drain"): self._route_drain,
+                ("POST", "/sessions/adopt"): self._route_sessions_adopt,
+                ("GET", "/incidents"): self._route_incidents,
+                ("GET", "/archive"): self._route_archive,
             },
         ).start()
         if self.obs is not None:
@@ -603,6 +717,9 @@ class SynthDaemon:
         if self.access is not None:
             self.access.close()
             self.access = None
+        if self.archive is not None:
+            self.archive.close()
+            self.archive = None
         if self.journal is not None:
             self.journal.close()
             self.journal = None
@@ -619,15 +736,24 @@ class SynthDaemon:
     def warmup(self, entries: List[Dict[str, Any]]) -> List[Dict]:
         """Dispatch the manifest's shapes through the real dispatch
         path BEFORE announcing the endpoint (cli.cmd_serve orders it
-        so): rendezvous implies warm.  With a state dir the manifest is
-        merged with the RUNTIME-OBSERVED shapes of warmup.observed.json,
-        the fix for manifest drift.  Distinct shapes warm concurrently
-        on `warmup_workers` threads, with per-shape walls on the warmup
-        span tree (run_warmup's docstring)."""
-        if self.state_dir is not None:
+        so): rendezvous implies warm.  With a warm root (the state dir,
+        or the fleet-shared --warm-dir) the warm tier's sealed shapes
+        go first, one dispatch each, as its restore (`disk` verdicts,
+        `ia_excache_disk_restore_ms`), and the manifest is merged with
+        the RUNTIME-OBSERVED shapes of warmup.observed.json, the fix
+        for manifest drift (under a shared warm dir, the union every
+        replica merged in).  With the lattice on, the whole bucket grid
+        joins, and the dedup key and the dispatch both run through the
+        bucketing `_make_request` applies.  Distinct shapes warm
+        concurrently on `warmup_workers` threads, with per-shape walls
+        on the warmup span tree (run_warmup's docstring).  Returns the
+        restore's and the warmup's per-shape records."""
+        if self._warm_root is not None:
             entries = merge_warmup_entries(
                 entries, load_observed_warmup(self.observed_warmup_path),
             )
+        if self.lattice is not None:
+            entries = merge_warmup_entries(entries, self.lattice.shapes())
 
         def dispatch(shape):
             frame = np.zeros(shape, np.float32)
@@ -640,15 +766,45 @@ class SynthDaemon:
                 )
 
         def key_fn(shape):
-            return exec_key(tuple(shape), self.cfg, self.policy.max_batch)
+            return exec_key(
+                self._lattice_shape(shape), self.cfg,
+                self.policy.max_batch,
+            )
 
-        return run_warmup(
+        report: List[Dict] = []
+        if self.disk is not None:
+            restored = set()
+            for rec in self.disk.restore_warm_set(dispatch):
+                key = key_fn(rec["shape"])
+                self.cache.note_compile_ms(key, rec["wall_ms"])
+                restored.add(key)
+                report.append({"key": key_str(key), "verdict": "disk",
+                               "wall_ms": rec["wall_ms"]})
+            entries = [
+                e for e in entries
+                if key_fn((e["height"], e["width"], e["channels"]))
+                not in restored
+            ]
+        return report + run_warmup(
             entries, dispatch, self.cache, key_fn,
             max_workers=self.warmup_workers,
             tracer=self.tracer if self.observability else None,
         )
 
     # ------------------------------------------------------- serving
+    def _lattice_shape(self, shape) -> tuple:
+        """A shape tuple as the lattice would admit it: (H, W[, C])
+        with the leading two axes rounded up to their bucket, raw when
+        the lattice is off or the shape bypasses (over the top rung).
+        The warmup dedup key and the dispatch path agree on exactly
+        this mapping."""
+        if self.lattice is None:
+            return tuple(shape)
+        b = self.lattice.bucket_for(int(shape[0]), int(shape[1]))
+        if b is None:
+            return tuple(shape)
+        return b + tuple(shape[2:])
+
     def _make_request(self, frame: np.ndarray,
                       session: Optional[str] = None,
                       req_id: Optional[str] = None) -> ServeRequest:
@@ -656,6 +812,39 @@ class SynthDaemon:
         # stream, so their cache identity is the batch-1 grain, not
         # the daemon's padding grain.
         grain = 1 if session is not None else self.policy.max_batch
+        crop = None
+        # Lattice admission, sessionless only: pad BEFORE the executable
+        # key and the luma bucket are computed, so the compat identity,
+        # the dispatch stack and the warm-tier seal see the bucket shape
+        # and nothing else.  (A session's carried state is sized to its
+        # true frames.)
+        if self.lattice is not None and session is None:
+            h, w = int(frame.shape[0]), int(frame.shape[1])
+            b = self.lattice.bucket_for(h, w)
+            if b is None:
+                path = "bypass"
+            elif b == (h, w):
+                path = "exact"
+            else:
+                pad = [(0, b[0] - h), (0, b[1] - w)]
+                if frame.ndim == 3:
+                    pad.append((0, 0))
+                frame = np.pad(frame, pad, mode="edge")
+                crop = (h, w)
+                path = "bucketed"
+            # Client and replay traffic only (warmup's synthetic
+            # dispatches carry no request id and are not admissions).
+            if req_id:
+                self._c_lattice.inc(labels={"path": path})
+                if b is not None:
+                    waste = self.lattice.waste_frac(h, w, b[0], b[1])
+                    with self._lattice_lock:
+                        self._lattice_waste_sum += waste
+                        self._lattice_waste_n += 1
+                        self._g_lattice_waste.set(round(
+                            self._lattice_waste_sum
+                            / self._lattice_waste_n, 6,
+                        ))
         key = exec_key(frame.shape, self.cfg, grain)
         bucket = None
         if self.cfg.color_mode == "luminance" and \
@@ -664,7 +853,7 @@ class SynthDaemon:
         kwargs = {"req_id": req_id} if req_id else {}
         return ServeRequest(
             frame=frame, key=key, compat=key + (bucket, session),
-            b_stats=bucket, session=session, **kwargs,
+            b_stats=bucket, session=session, crop=crop, **kwargs,
         )
 
     def _route_synthesize(self, body: Optional[bytes], headers=None,
@@ -684,7 +873,9 @@ class SynthDaemon:
         `route_request` tree and this one join by id."""
         rid = _request_id_from_headers(headers)
         tctx = _trace_context_from_headers(headers)
-        t_in = time.monotonic()
+        # The request's clock starts when its request line arrived,
+        # before the body was read (the live server's stamp).
+        t_in = (ctx or {}).get("t_received") or time.monotonic()
         bytes_in = len(body) if body else 0
         try:
             manifest = _parse_manifest(body)
@@ -816,18 +1007,30 @@ class SynthDaemon:
             # failed here too would double-count the admission ledger
             # the serving sentinel check balances.
             req.error = "request timed out in the daemon"
+            t_done = time.monotonic()
             payload = _json_bytes({
                 "status": "failed", "request_id": rid,
                 "error": req.error, **tctx,
             })
             self._book_response(
                 rid, req, "timeout", 504,
-                (time.monotonic() - req.enqueue_t) * 1000.0, bytes_in,
-                len(payload), trace=tctx,
+                (time.monotonic() - t_in) * 1000.0, bytes_in,
+                len(payload), trace=tctx, t_in=t_in, t_done=t_done,
             )
             return 504, payload, "application/json"
-        total_ms = (time.monotonic() - req.enqueue_t) * 1000.0
+        t_done = time.monotonic()
+        # The daemon's clock (enqueue -> done): the lifecycle histogram
+        # and the answer's `wall_ms`.
+        total_ms = (t_done - req.enqueue_t) * 1000.0
         self._h_latency.observe(total_ms, labels={"phase": "total"})
+
+        def book(outcome, code, payload):
+            self._book_response(
+                rid, req, outcome, code, (time.monotonic() - t_in) * 1000.0,
+                bytes_in, len(payload), trace=tctx, t_in=t_in,
+                t_done=t_done,
+            )
+
         if req.status == "cancelled":
             # Retired before dispatch (socket gone / deadline blown in
             # queue).  499 after nginx's "client closed request"; the
@@ -836,20 +1039,14 @@ class SynthDaemon:
                 "status": "cancelled", "request_id": rid,
                 "error": req.error, **tctx,
             })
-            self._book_response(
-                rid, req, "cancelled", 499, total_ms, bytes_in,
-                len(payload), trace=tctx,
-            )
+            book("cancelled", 499, payload)
             return 499, payload, "application/json"
         if req.status != "ok":
             payload = _json_bytes({
                 "status": "failed", "request_id": rid,
                 "error": req.error, "spans": req.spans, **tctx,
             })
-            self._book_response(
-                rid, req, "failed", 500, total_ms, bytes_in,
-                len(payload), trace=tctx,
-            )
+            book("failed", 500, payload)
             return 500, payload, "application/json"
         out = np.asarray(req.result, np.float32)
         payload = _json_bytes({
@@ -866,19 +1063,23 @@ class SynthDaemon:
                 np.ascontiguousarray(out).tobytes()
             ).decode(),
         })
-        self._book_response(
-            rid, req, "ok", 200, total_ms, bytes_in, len(payload),
-            trace=tctx,
-        )
+        book("ok", 200, payload)
         return 200, payload, "application/json"
 
     def _book_response(self, rid: str, req: Optional[ServeRequest],
                        outcome: str, code: int, total_ms: float,
                        bytes_in: int, bytes_out: int,
-                       trace: Optional[Dict[str, Any]] = None) -> None:
+                       trace: Optional[Dict[str, Any]] = None,
+                       t_in: Optional[float] = None,
+                       t_done: Optional[float] = None) -> None:
         """Response-time bookkeeping, one call per exit path: the
         request-duration observation (always — it is the SLO engine's
         raw material) and the access-log line (observability only).
+        `total_ms` runs from the request's arrival to its payload; an
+        admitted request's line splits it into ingest (arrival ->
+        enqueue: body, decode, admission, journal), the lifecycle
+        phases to `t_done`, and encode (the payload), so the phases
+        tile the total a router observes around this replica.
         Also the journal's `done` mark — a response write IS what
         retires a journal entry (cancellation marks happen at the
         dispatcher, and drain-stranded requests skip the mark via
@@ -918,7 +1119,18 @@ class SynthDaemon:
             entry["exec_key"] = key_str(req.key)
             entry["cache"] = req.cache
             entry["batch_size"] = req.batch_size
-            entry.update(_phase_attribution(req, total_ms))
+            if t_in is not None and t_done is not None:
+                # The wall anchor moves back to the arrival with the
+                # total it anchors.
+                entry["t0"] = round(req.t0 - (req.enqueue_t - t_in), 6)
+                entry["ingest_ms"] = round(
+                    (req.enqueue_t - t_in) * 1000.0, 3)
+                entry.update(_phase_attribution(
+                    req, (t_done - req.enqueue_t) * 1000.0))
+                entry["encode_ms"] = round(max(
+                    0.0, total_ms - (t_done - t_in) * 1000.0), 3)
+            else:
+                entry.update(_phase_attribution(req, total_ms))
         self.access.log(entry)
 
     def _route_slo(self, _body):
@@ -956,12 +1168,188 @@ class SynthDaemon:
         return 200, _json_bytes(self.obs.window(span)), \
             "application/json"
 
+    # ------------------------------------ archive + black box
     def _obs_tick(self) -> None:
-        """The sampler tick: grade the anomaly watches (the archive's
-        snapshot and incident trigger are ROADMAP Queue 1 step 13b).
-        Never the request hot path."""
-        if self.anomaly is not None:
-            self.anomaly.evaluate()
+        """The sampler tick, in order: grade the anomaly watches,
+        persist the periodic archive snapshot when the cadence says so,
+        then run the black-box trigger check.  Never the request hot
+        path, and an archive failure never takes the sampler down (the
+        archive counts its own write errors; this guard covers the
+        bundle assembly)."""
+        report = (self.anomaly.evaluate()
+                  if self.anomaly is not None else None)
+        if self.archive is None:
+            return
+        try:
+            now = time.monotonic()
+            if (self._archive_interval_s > 0
+                    and now - self._archive_last_t
+                    >= self._archive_interval_s):
+                self._archive_last_t = now
+                self._archive_snapshot(anomaly_report=report)
+            self._maybe_capture_incident(report)
+        except Exception:  # noqa: BLE001 - observer never kills
+            _LOG.exception("telemetry archive tick failed")
+
+    def _archive_snapshot(self, anomaly_report=None,
+                          final: bool = False) -> bool:
+        """One durable snapshot record: the obs window (with its
+        generation stamp), the graded SLO report, the anomaly report
+        and the ACTIVE latency baseline (what a successor resumes
+        against), and the lattice / shape-cardinality state."""
+        if self.archive is None:
+            return False
+        if anomaly_report is None and self.anomaly is not None:
+            anomaly_report = self.anomaly.evaluate()
+        return self.archive.append("snapshot", {
+            "final": bool(final),
+            "obs_window": (self.obs.window()
+                           if self.obs is not None else None),
+            "obs_generation": (self.obs.generation
+                               if self.obs is not None else None),
+            "slo": self.slo.evaluate(),
+            "anomaly": anomaly_report,
+            "anomaly_baseline_p99_ms": (
+                self.anomaly.config.baseline_p99_ms
+                if self.anomaly is not None else None
+            ),
+            "lattice": self._lattice_snapshot(),
+            "shape_cardinality": {
+                "raw": len(self._observed_raw_shapes),
+                "bucketed": len(self._observed_shapes),
+            },
+        })
+
+    def _maybe_capture_incident(self, anomaly_report=None) -> \
+            Optional[str]:
+        """The black-box trigger: an SLO objective in fast_burn or
+        exhausted, or a firing anomaly watch, captures ONE bundle (the
+        store rate-limits per trigger kind, so an episode that stays
+        hot across many ticks yields one).  Captures are noted in the
+        archive stream too, so `history` shows them beside the
+        restarts they explain."""
+        if self.incidents is None:
+            return None
+        slo_report = self.slo.evaluate()
+        burning = [
+            o for o in slo_report.get("objectives", [])
+            if o.get("status") in ("fast_burn", "exhausted")
+        ]
+        firing = list((anomaly_report or {}).get("firing") or [])
+        if not burning and not firing:
+            return None
+        trigger = {
+            "kind": "slo_burn" if burning else "anomaly",
+            "objectives": [
+                {"name": o.get("name"), "status": o.get("status"),
+                 "burn_rate": o.get("burn_rate")}
+                for o in burning
+            ],
+            "watches": firing,
+        }
+        inc_id = self.incidents.capture(
+            trigger, self._incident_bundle(slo_report, anomaly_report)
+        )
+        if inc_id is not None and self.archive is not None:
+            self.archive.append("incident", {
+                "id": inc_id, "trigger": trigger,
+            })
+        return inc_id
+
+    def _incident_bundle(self, slo_report,
+                         anomaly_report) -> Dict[str, Any]:
+        """A self-contained crime scene: everything `incident <id>`
+        and a post-mortem need without the daemon alive."""
+        tail: List[Dict[str, Any]] = []
+        if self.access is not None:
+            from collections import deque
+
+            from .accesslog import read_entries
+
+            # A bounded tail across every rotation generation.
+            tail = list(deque(read_entries(self.access.path), maxlen=100))
+        return {
+            "flight": (self.flight.to_dict(reason="incident")
+                       if self.flight is not None else None),
+            "access_tail": tail,
+            "obs_window": (self.obs.window()
+                           if self.obs is not None else None),
+            "slo": slo_report,
+            "anomaly": anomaly_report,
+            "serving": {
+                "queue_depth": len(self.queue),
+                "inflight": self._inflight,
+                "draining": self._draining.is_set(),
+                "cache": self.cache.snapshot(),
+                "lattice": self._lattice_snapshot(),
+            },
+            "fingerprint": self._fingerprint(),
+        }
+
+    def _fingerprint(self) -> Dict[str, Any]:
+        """Config and backend identity for the bundle: enough to answer
+        "was the incident daemon running the config I think it was"."""
+        return {
+            "pid": os.getpid(),
+            "boot_id": (self.archive.boot_id
+                        if self.archive is not None else None),
+            "backend": self.cfg.device,
+            "devices": 1,
+            "config": dataclasses.asdict(self.cfg),
+            "policy": {
+                "max_batch": self.policy.max_batch,
+                "max_wait_ms": self.policy.max_wait_ms,
+                "max_queue_depth": self.admission.max_depth,
+                "pipeline_window": self.pipeline_window,
+            },
+            "state_dir": self.state_dir,
+            "archive_dir": self.archive_dir,
+        }
+
+    def _route_incidents(self, _body, _headers, ctx):
+        """GET /incidents: the black-box index; `?id=` returns one full
+        bundle.  404 (not an empty list) when the archive is off, so
+        the router's fan-out can tell the feature's absence from the
+        absence of incidents."""
+        from ..telemetry.archive import list_incidents, load_incident
+
+        if self.incidents is None:
+            return 404, _json_bytes({
+                "error": "incident capture disabled "
+                         "(no --archive-dir)",
+            }), "application/json"
+        inc_id = (ctx.get("query") or {}).get("id") if ctx else None
+        if inc_id:
+            doc = load_incident(self.archive_dir, inc_id)
+            if doc is None:
+                return 404, _json_bytes({
+                    "error": f"incident {inc_id!r} not found",
+                    "id": inc_id,
+                }), "application/json"
+            return 200, _json_bytes(doc), "application/json"
+        return 200, _json_bytes({
+            "archive_dir": self.archive_dir,
+            "incidents": list_incidents(self.archive_dir),
+            **self.incidents.stats(),
+        }), "application/json"
+
+    def _route_archive(self, _body):
+        """GET /archive: live archive stats and what reload resumed."""
+        if self.archive is None:
+            return 404, _json_bytes({
+                "error": "telemetry archive disabled "
+                         "(no --archive-dir)",
+            }), "application/json"
+        snap = self.archive.stats()
+        snap["incidents"] = (self.incidents.stats()
+                             if self.incidents is not None else None)
+        snap["anomaly_baseline_p99_ms"] = (
+            self.anomaly.config.baseline_p99_ms
+            if self.anomaly is not None else None
+        )
+        snap["obs_generation"] = (self.obs.generation
+                                  if self.obs is not None else None)
+        return 200, _json_bytes(snap), "application/json"
 
     def _route_request(self, _body, _headers, ctx):
         """GET /request?id=<request_id>: one request's access-log
@@ -999,16 +1387,17 @@ class SynthDaemon:
 
     def _route_serving(self, _body):
         """GET /serving: the operator's one-look snapshot — queue /
-        in-flight occupancy, cache residency, and the SLO quantiles.
-        `disk_cache` and `lattice` stay null until ROADMAP Queue 1
-        step 13b."""
+        in-flight occupancy, cache residency, the warm tier and the
+        lattice, and the SLO quantiles.  The router's poller routes on
+        queue_depth + inflight and reads the drain state and state_dir
+        (the migration source) from here."""
         snap = {
             "queue_depth": len(self.queue),
             "inflight": self._inflight,
             "backlog": self._backlog,
             "draining": self._draining.is_set(),
             "state_dir": self.state_dir,
-            "warm_dir": None,
+            "warm_dir": self.warm_dir,
             "policy": {
                 "max_batch": self.policy.max_batch,
                 "max_wait_ms": self.policy.max_wait_ms,
@@ -1020,8 +1409,9 @@ class SynthDaemon:
                 "inflight_batches": self._pipeline_busy,
             },
             "cache": self.cache.snapshot(),
-            "disk_cache": None,
-            "lattice": None,
+            "disk_cache": (self.disk.snapshot()
+                           if self.disk is not None else None),
+            "lattice": self._lattice_snapshot(),
             "sessions": {
                 "active": len(self._sessions),
                 "max": self.max_sessions,
@@ -1043,6 +1433,32 @@ class SynthDaemon:
             },
         }
         return 200, _json_bytes(snap), "application/json"
+
+    def _lattice_snapshot(self) -> Optional[Dict[str, Any]]:
+        """The /serving lattice section: grid geometry, the decision's
+        provenance, and the live waste / cardinality numbers (None with
+        the lattice off)."""
+        if self.lattice is None:
+            return None
+        with self._lattice_lock:
+            waste_n = self._lattice_waste_n
+            mean_waste = (self._lattice_waste_sum / waste_n
+                          if waste_n else 0.0)
+        snap = dict(self.lattice.snapshot())
+        snap.update({
+            "source": (self.lattice_plan.source
+                       if self.lattice_plan is not None
+                       else "direct"),
+            "plan": (self.lattice_plan.as_dict()
+                     if self.lattice_plan is not None else None),
+            "mean_bucket_waste_frac": round(mean_waste, 6),
+            "admissions": waste_n,
+            "shape_cardinality": {
+                "raw": len(self._observed_raw_shapes),
+                "bucketed": len(self._observed_shapes),
+            },
+        })
+        return snap
 
     def _route_journal(self, _body):
         """GET /journal: the durability ledger — journal counts, the
@@ -1114,6 +1530,14 @@ class SynthDaemon:
             self._drain_snapshot()
         except Exception:  # noqa: BLE001 - drain must terminate
             _LOG.exception("drain snapshot failed (continuing to exit)")
+        if self.archive is not None:
+            # The final archive record BEFORE the flight flush: the
+            # successor's reload reads baselines and the generation
+            # from the freshest window.
+            try:
+                self._archive_snapshot(final=True)
+            except Exception:  # noqa: BLE001 - drain must terminate
+                _LOG.exception("final archive snapshot failed")
         if self.flight is not None:
             try:
                 # Sticky "drain" label: distinguishes a graceful
@@ -1128,11 +1552,15 @@ class SynthDaemon:
         every resident session's carried state (session ids are hashed
         into dir names: they are client-chosen strings, not safe path
         components), the runtime-observed shapes, and finally the
-        journal's pending-only compaction.  Sessions first: the
-        compaction is the one destructive step, so a kill inside this
-        function leaves either the old journal intact or the full
-        snapshot plus a compacted journal."""
+        journal's pending-only compaction.  Sessions first: the router
+        is told "drained" only after this whole function, but a kill
+        can land inside it, and the compaction is the one destructive
+        step, so a kill leaves either the old journal intact or the
+        full snapshot plus a compacted journal, never a compacted
+        journal without the session snapshot a survivor adopts."""
         if self.state_dir is None:
+            if self.warm_dir is not None:
+                self._save_observed_shapes()
             return
         import hashlib
 
@@ -1155,10 +1583,18 @@ class SynthDaemon:
 
     # --------------------------------------------- takeover machinery
     @property
+    def _warm_root(self) -> Optional[str]:
+        """Directory the warm tier and the observed warmup live under:
+        the fleet-shared --warm-dir when set, else the state dir."""
+        return self.warm_dir if self.warm_dir is not None \
+            else self.state_dir
+
+    @property
     def observed_warmup_path(self) -> Optional[str]:
-        if self.state_dir is None:
+        root = self._warm_root
+        if root is None:
             return None
-        return os.path.join(self.state_dir, OBSERVED_WARMUP_FILE)
+        return os.path.join(root, OBSERVED_WARMUP_FILE)
 
     @staticmethod
     def _lru_note(lru: "OrderedDict", key, cap: int = 32) -> bool:
@@ -1175,29 +1611,45 @@ class SynthDaemon:
         """LRU-track the (H, W, C) shapes real clients send; persisted
         on first sighting and at drain so the successor's warmup
         dispatches what traffic actually needs, not what the manifest
-        author guessed.  With no lattice the raw and bucketed
-        cardinality cells are one series."""
+        author guessed.  With the lattice on, the PERSISTED set holds
+        bucket shapes (persisting the raw long tail would fragment a
+        successor's warmup into the cardinality the lattice bounds)
+        while the raw client shapes feed the `view="raw"` cell; with
+        no lattice the two cells are one series.  The unlabeled cell
+        follows the bucketed series, the one the anomaly watch
+        grades."""
         shape = manifest.get("shape")
         if not (isinstance(shape, list) and len(shape) == 3):
             return
-        fresh = self._lru_note(
-            self._observed_shapes, tuple(int(d) for d in shape)
-        )
-        card = len(self._observed_shapes)
-        self._g_shape_card.set(card)
-        self._g_shape_card.set(card, labels={"view": "raw"})
-        self._g_shape_card.set(card, labels={"view": "bucketed"})
-        if fresh and self.state_dir is not None:
+        raw = tuple(int(d) for d in shape)
+        key = raw
+        if self.lattice is not None:
+            self._lru_note(self._observed_raw_shapes, raw)
+            b = self.lattice.bucket_for(raw[0], raw[1])
+            if b is not None:
+                key = b + raw[2:]
+        fresh = self._lru_note(self._observed_shapes, key)
+        bucketed = len(self._observed_shapes)
+        raw_card = (len(self._observed_raw_shapes)
+                    if self.lattice is not None else bucketed)
+        self._g_shape_card.set(bucketed)
+        self._g_shape_card.set(raw_card, labels={"view": "raw"})
+        self._g_shape_card.set(bucketed, labels={"view": "bucketed"})
+        if fresh and self._warm_root is not None:
             try:
                 self._save_observed_shapes()
             except OSError:
                 pass
 
     def _save_observed_shapes(self) -> None:
-        if self.state_dir is None or not self._observed_shapes:
+        if self._warm_root is None or not self._observed_shapes:
             return
+        # Under a fleet-shared warm dir each replica UNIONS its shapes
+        # into the file (overwriting would shrink the fleet's observed
+        # set to the last drainer's slice).
         save_observed_warmup(
             self.observed_warmup_path, list(self._observed_shapes),
+            merge=self.warm_dir is not None,
         )
 
     def restore_sessions(self) -> int:
@@ -1231,6 +1683,121 @@ class SynthDaemon:
                 self._sessions[sid] = stream
                 n += 1
         return n
+
+    def adopt_sessions(self, source_state_dir: str,
+                       only: Optional[List[str]] = None) -> List[str]:
+        """Cross-replica session migration: restore session streams
+        from ANOTHER replica's drain snapshot (the router calls POST
+        /sessions/adopt when it drains a replica, handing its pinned
+        sessions to a survivor over the shared filesystem).  `only`
+        limits adoption to the named ids; None adopts the whole
+        snapshot.  Best-effort per session: one that fails to restore
+        runs its next frame cold wherever it lands.  Returns the
+        adopted ids.
+
+        Runs on an HTTP handler thread while the dispatcher owns
+        `_sessions`: dict insertion is safe under the GIL, and the
+        router routes an adopted session's next frame here only after
+        this call returns, so the dispatcher never races the restore
+        of a stream it is using."""
+        from ..telemetry.spans import span_at
+        from ..video.sequence import VideoStream
+
+        p_adopt0 = time.perf_counter()
+        idx_path = os.path.join(source_state_dir, "sessions.json")
+        try:
+            with open(idx_path, "r", encoding="utf-8") as fh:
+                doc = json.load(fh)
+        except (OSError, ValueError):
+            return []
+        sessions = doc.get("sessions")
+        if not isinstance(sessions, dict):
+            return []
+        wanted = None if only is None else {str(s) for s in only}
+        cfg = dataclasses.replace(self.cfg, save_level_artifacts=None)
+        adopted: List[str] = []
+        restores = []  # (sid, restored, p_start, p_end) for the span
+        for sid, dirname in sessions.items():
+            if not (isinstance(sid, str) and isinstance(dirname, str)):
+                continue
+            if wanted is not None and sid not in wanted:
+                continue
+            sdir = os.path.join(source_state_dir, "sessions",
+                                os.path.basename(dirname))
+            p_s0 = time.perf_counter()
+            stream = VideoStream(
+                self.a, self.ap, cfg=cfg, registry=self.registry
+            )
+            restored = stream.restore_state(sdir)
+            restores.append((sid, restored, p_s0, time.perf_counter()))
+            if restored:
+                self._sessions[sid] = stream
+                self._sessions.move_to_end(sid)
+                adopted.append(sid)
+        while len(self._sessions) > self.max_sessions:
+            self._sessions.popitem(last=False)
+        p_adopt1 = time.perf_counter()
+        if adopted:
+            self.registry.counter(
+                "ia_serve_sessions_adopted_total",
+                "session streams adopted from another replica's drain "
+                "snapshot (fleet migration)",
+            ).inc(len(adopted))
+        self.registry.histogram(
+            "ia_serve_adopt_ms",
+            "wall of one /sessions/adopt restore (the replica half of "
+            "a drain migration)",
+        ).observe((p_adopt1 - p_adopt0) * 1000.0)
+        if self.tracer is not None and self.tracer.enabled:
+            # The adopt as a span tree (one session_restore child per
+            # stream), so a repinned session's first frame can point at
+            # the restore cost.
+            root = span_at(
+                "sessions_adopt", p_adopt0, p_adopt1,
+                source=source_state_dir, sessions=len(adopted),
+            )
+            for sid, restored, a, b in restores:
+                root.children.append(span_at(
+                    "session_restore", a, b, session=sid,
+                    restored=restored,
+                ))
+            self.tracer.attach_tree(root)
+        return adopted
+
+    def _route_sessions_adopt(self, body: Optional[bytes]):
+        """POST /sessions/adopt {"state_dir": DIR, "sessions": [...]}:
+        the router-facing migration endpoint (adopt_sessions above).
+        Refused while draining: a draining replica sheds sessions, it
+        does not collect them."""
+        try:
+            doc = json.loads((body or b"{}").decode("utf-8"))
+            if not isinstance(doc, dict):
+                raise ValueError("body must be a JSON object")
+            src = doc.get("state_dir")
+            if not isinstance(src, str) or not src:
+                raise ValueError("state_dir (source replica's state "
+                                 "dir) is required")
+            only = doc.get("sessions")
+            if only is not None and not (
+                isinstance(only, list)
+                and all(isinstance(s, str) for s in only)
+            ):
+                raise ValueError("sessions must be a list of strings")
+        except (ValueError, UnicodeDecodeError) as e:
+            return 400, _json_bytes(
+                {"status": "rejected", "error": str(e)}
+            ), "application/json"
+        if self._draining.is_set():
+            return 503, _json_bytes({
+                "status": "unavailable",
+                "error": "daemon is draining; adopt elsewhere",
+            }), "application/json"
+        adopted = self.adopt_sessions(src, only=only)
+        return 200, _json_bytes({
+            "status": "ok",
+            "adopted": adopted,
+            "sessions_active": len(self._sessions),
+        }), "application/json"
 
     def replay_journal(self) -> int:
         """Takeover: push every journal-pending request back through
@@ -1453,8 +2020,12 @@ class SynthDaemon:
         """Shared dispatch preamble: admission spans/latency, the
         in-flight gauges, the dispatch counter, and the executable-
         cache verdict (booked exactly once per dispatch: the serving
-        sentinel's `hits + misses == dispatches` contract).  Returns
-        the admission timestamp."""
+        sentinel's `hits + misses == dispatches` contract).  With a
+        warm tier every in-memory MISS is resolved one level further
+        down: `probe` books exactly one of disk-hit / disk-miss (the
+        sentinel's `disk hits + disk misses == misses`), and a sealed
+        key upgrades the verdict to `disk` (span `disk-restored`).
+        Returns the admission timestamp."""
         admit_t = time.monotonic()
         for req in batch:
             req.span("admitted")
@@ -1470,7 +2041,11 @@ class SynthDaemon:
         cache_status = self.cache.lookup(
             batch[0].key, kind=kind, request_id=batch[0].req_id
         )
-        span_name = "cache-hit" if cache_status == "hit" else "compiled"
+        if cache_status == "miss" and self.disk is not None:
+            cache_status = self.disk.probe(batch[0].key, kind=kind)
+        span_name = {
+            "hit": "cache-hit", "disk": "disk-restored",
+        }.get(cache_status, "compiled")
         for req in batch:
             req.cache = cache_status
             req.span(span_name)
@@ -1689,6 +2264,12 @@ class SynthDaemon:
                 ok = True
             except SupervisorGaveUp as e:
                 gaveup = e
+            if ok and self.disk is not None:
+                # Sealed only after a successful dispatch: a failed one
+                # never claims a warm shape.
+                fs = batch[0].frame.shape
+                self.disk.seal(batch[0].key,
+                               fs if len(fs) == 3 else fs + (1,))
         except BaseException:
             settle()
             raise

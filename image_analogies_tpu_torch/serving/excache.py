@@ -26,10 +26,19 @@ A "hit" is a later dispatch of a key still warm.
     to cold.  The next use of a demoted key pays its first use again
     and is counted as a miss.
 
-The disk tier (`DiskExecCache`, the reference's serialized XLA
-executables) is not ported yet: ROADMAP Queue 1 step 13b decides what
-a persisted first use can mean for torch from the miss/hit figures the
-chip smoke check measures.
+The disk tier (`DiskExecCache`, below) keeps the reference's index of
+sealed shapes under a warm directory that N replicas share, its `disk`
+verdict and counters and its honest-miss rules, over what a first use
+costs on an H100 (PERF.md): a new process's first dispatch pays 3.4-4.3
+s over a hit at 1024^2, while a new shape in a warm process, or an
+evicted key's next use, costs nothing measurable.  So no per-shape artifact is worth a
+file, and the tier persists none: its warm set is the list of shapes
+the fleet has served, which a new replica dispatches once each before
+it announces (`restore_warm_set`).  The reference's blob store has no
+counterpart (`_jax_cache_bypass`, `_enable_jax_cache`,
+`release_jax_cache`, the persist hook's `call`, `begin_recording` /
+`end_recording` and the blob reader and writer): the port compiles no
+executable to serialize.
 """
 
 from __future__ import annotations
@@ -476,3 +485,262 @@ def run_warmup(entries: List[Dict[str, Any]],
             ))
         tracer.attach_tree(root)
     return report
+
+
+# ------------------------------------------------------------ disk tier
+# The warm tier under <warm root>/excache/ (the fleet-shared --warm-dir,
+# else the replica's state dir):
+#
+#   index.json   {schema_version, fingerprint, entries:
+#                 {key_str: {shape, warmup_shape, blobs: []}}}
+#
+# the reference's index schema (`blobs` stays, always empty: the port
+# persists no executable).  An entry is sealed after a successful
+# dispatch of its key; the index is merged on every write, so replicas
+# sharing one directory compose.  Entries are valid only under the
+# BACKEND FINGERPRINT that wrote them (torch and CUDA versions, the
+# device, the kernels' sources): any other, the JAX package's included,
+# is an honest miss, never a restore.
+DISK_SCHEMA_VERSION = 1
+_INDEX_FILE = "index.json"
+
+
+def backend_fingerprint(device: str = "cuda") -> Dict[str, Any]:
+    """The environment a sealed warm set is valid in: the torch and CUDA
+    versions, the device a daemon on `device` serves on, and the digest
+    of the kernels' sources.  A "cpu" daemon never touches CUDA here."""
+    import torch
+
+    from ..kernels import sources_digest
+
+    on_card = device == "cuda"
+    return {
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "platform": "cuda" if on_card else "cpu",
+        "device_kind": (torch.cuda.get_device_name(0) if on_card
+                        else "cpu"),
+        "device_count": torch.cuda.device_count() if on_card else 1,
+        "kernels": sources_digest(),
+    }
+
+
+class DiskExecCache:
+    """The warm tier: an index of sealed shapes, shared by the replicas
+    of a fleet.
+
+    `probe` resolves an in-memory miss one level further down: "disk"
+    when the key is sealed under this fingerprint (another process, or
+    this one before an eviction, dispatched it), else "miss"; exactly
+    one of `ia_excache_disk_{hits,misses}_total{kind}` per probe (the
+    sentinel's disk hits + disk misses == in-memory misses).
+    `restore_warm_set` dispatches every sealed shape once, before the
+    daemon announces, and books the wall in `ia_excache_disk_restore_ms`.
+    An unreadable or wrongly-versioned index counts
+    `ia_excache_disk_errors_total` and serves misses; it never raises."""
+
+    def __init__(self, root: str, fingerprint: Dict[str, Any],
+                 registry=None):
+        import os
+
+        self.root = str(root)
+        os.makedirs(self.root, exist_ok=True)
+        self._registry = registry
+        self._fp = dict(fingerprint)
+        self._lock = threading.RLock()
+        # key_str(exec_key) -> {"shape", "warmup_shape", "blobs"}
+        self._entries: Dict[str, Dict[str, Any]] = {}
+        self.errors = 0
+        self.restore_ms: Optional[float] = None
+        self.restored: List[list] = []
+        self._foreign_seen = False
+        self._load_index()
+
+    # ---------------------------------------------------- metrics
+    def _reg(self):
+        if self._registry is not None:
+            return self._registry
+        from ..telemetry.metrics import get_registry
+
+        return get_registry()
+
+    def _count(self, which: str, kind: Optional[str] = None) -> None:
+        c = self._reg().counter(
+            f"ia_excache_disk_{which}_total",
+            f"serving warm-tier {which}"
+            + (" by request kind" if kind is not None else
+               " (unreadable or wrongly-versioned index, failed index "
+               "write: counted, served as misses, never raised)"),
+        )
+        c.inc(labels={"kind": kind} if kind is not None else None)
+
+    def _error(self, why: str) -> None:
+        self.errors += 1
+        self._count("errors")
+        import logging
+
+        logging.getLogger("image_analogies_tpu_torch").warning(
+            "disk excache: %s (honest miss)", why
+        )
+
+    # ------------------------------------------------------ index
+    def _index_path(self) -> str:
+        import os
+
+        return os.path.join(self.root, _INDEX_FILE)
+
+    def _read_index(self) -> Optional[Dict[str, Any]]:
+        """The on-disk index's entries under this fingerprint; {} when
+        there is none or it was written under another backend; None
+        (an error counted) when it cannot be read."""
+        import os
+
+        path = self._index_path()
+        if not os.path.exists(path):
+            return {}
+        try:
+            with open(path, "r", encoding="utf-8") as fh:
+                doc = json.load(fh)
+        except (OSError, ValueError):
+            self._error(f"unreadable index {path}")
+            return None
+        if not isinstance(doc, dict) or doc.get(
+            "schema_version"
+        ) != DISK_SCHEMA_VERSION:
+            self._error(f"index {path}: wrong schema")
+            return None
+        if doc.get("fingerprint") != self._fp:
+            # Not corruption: another backend's warm set is not ours
+            # (said once; a probe re-reads the index on every miss).
+            if not self._foreign_seen:
+                self._foreign_seen = True
+                import logging
+
+                logging.getLogger("image_analogies_tpu_torch").warning(
+                    "disk excache: backend fingerprint differs (%s vs "
+                    "%s); the sealed shapes are honest misses here",
+                    doc.get("fingerprint"), self._fp,
+                )
+            return {}
+        out = {}
+        for kstr, e in (doc.get("entries") or {}).items():
+            if isinstance(e, dict) and isinstance(e.get("shape"), list):
+                out[str(kstr)] = {
+                    "shape": e.get("shape"),
+                    "warmup_shape": e.get("warmup_shape"),
+                    "blobs": [],
+                }
+        return out
+
+    def _load_index(self) -> None:
+        entries = self._read_index()
+        if entries:
+            self._entries.update(entries)
+
+    def _write_index(self) -> None:
+        """Whole-index write, merged with what a sibling replica put on
+        disk under the same fingerprint (last-writer-wins would drop
+        every other replica's sealed shapes).  Two seals racing can
+        lose one writer's newest entry for one generation; its next
+        seal writes it back, so the union converges."""
+        import os
+
+        entries = self._read_index() or {}
+        entries.update(self._entries)
+        doc = {
+            "schema_version": DISK_SCHEMA_VERSION,
+            "fingerprint": self._fp,
+            "entries": entries,
+        }
+        tmp = self._index_path() + f".{os.getpid()}.tmp"
+        try:
+            with open(tmp, "w", encoding="utf-8") as fh:
+                json.dump(doc, fh, indent=1, sort_keys=True)
+                fh.write("\n")
+            os.replace(tmp, self._index_path())
+        except OSError as e:
+            self._error(f"index write failed: {e}")
+
+    # ------------------------------------------------ seal / probe
+    def seal(self, key: ExecKey, warmup_shape) -> None:
+        """Seal one key after a SUCCESSFUL dispatch: a failed dispatch
+        never claims a warm shape.  `warmup_shape` is the (H, W, C)
+        frame shape a restore dispatches."""
+        kstr = key_str(key)
+        entry = {
+            "shape": [int(d) for d in key[0]],
+            "warmup_shape": [int(d) for d in warmup_shape],
+            "blobs": [],
+        }
+        with self._lock:
+            if self._entries.get(kstr) == entry:
+                return
+            self._entries[kstr] = entry
+            self._write_index()
+
+    def probe(self, key: ExecKey, kind: str = "client") -> str:
+        """The verdict for a key the in-memory cache just missed: "disk"
+        when it is sealed here or, since this process started, by a
+        sibling (the index is re-read on a local miss), else "miss"."""
+        kstr = key_str(key)
+        with self._lock:
+            hit = kstr in self._entries
+            if not hit:
+                fresh = self._read_index() or {}
+                if kstr in fresh:
+                    self._entries[kstr] = fresh[kstr]
+                    hit = True
+        self._count("hits" if hit else "misses", kind)
+        return "disk" if hit else "miss"
+
+    # ------------------------------------------------------ restore
+    def warmup_shapes(self) -> List[Dict[str, Any]]:
+        """The sealed entries' frame shapes as warmup-manifest entries."""
+        out = []
+        with self._lock:
+            for entry in self._entries.values():
+                ws = entry.get("warmup_shape")
+                if isinstance(ws, list) and len(ws) == 3:
+                    out.append({
+                        "height": int(ws[0]), "width": int(ws[1]),
+                        "channels": int(ws[2]),
+                    })
+        return out
+
+    def restore_warm_set(self, dispatch_fn: Callable[[tuple], Any]
+                         ) -> List[Dict[str, Any]]:
+        """Dispatch every sealed shape once through `dispatch_fn` (the
+        daemon's warmup dispatch, whose cache lookup misses and whose
+        probe answers "disk"), before the port is announced.  Returns
+        per-shape {shape, wall_ms} and sets `ia_excache_disk_restore_ms`
+        to the total wall."""
+        report = []
+        t_all = time.perf_counter()
+        for e in self.warmup_shapes():
+            shape = (e["height"], e["width"], e["channels"])
+            t0 = time.perf_counter()
+            dispatch_fn(shape)
+            report.append({
+                "shape": list(shape),
+                "wall_ms": round((time.perf_counter() - t0) * 1000.0, 1),
+            })
+        self.restore_ms = round((time.perf_counter() - t_all) * 1000.0, 1)
+        self.restored = [r["shape"] for r in report]
+        self._reg().gauge(
+            "ia_excache_disk_restore_ms",
+            "wall of the last daemon-start warm-tier restore (one "
+            "dispatch of every sealed shape, before the port announce)",
+        ).set(self.restore_ms)
+        return report
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "root": self.root,
+                "enabled": True,
+                "entries": len(self._entries),
+                "restored": list(self.restored),
+                "errors": self.errors,
+                "restore_ms": self.restore_ms,
+                "fingerprint": dict(self._fp),
+            }

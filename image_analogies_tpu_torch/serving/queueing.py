@@ -1,7 +1,6 @@
 """Request queue, continuous batching, and admission control for the
 serving daemon (with serving/excache.py and serving/daemon.py): the
-reference's module, copied; the shape lattice's crop waits for ROADMAP
-Queue 1 step 13b.
+reference's module, copied.
 
 Three pure-testable policy pieces, kept free of HTTP and engine
 imports so tests/test_serving.py can unit-test them with stub
@@ -91,6 +90,12 @@ class ServeRequest:
     alive: Any = None  # Optional[Callable[[], bool]]
     replay: bool = False
     manifest: Optional[Dict[str, Any]] = field(default=None, repr=False)
+    # Shape lattice: when admission padded `frame` up to a lattice
+    # bucket, `crop` is the client's true (H, W); demux slices the
+    # output row back down to it before the response is encoded.
+    # None: the frame rode its exact shape (lattice off, on-bucket, or
+    # bypass).
+    crop: Optional[Tuple[int, int]] = None
     # Filled by the dispatcher before `done` is set:
     result: Any = None  # np.ndarray output frame on success
     error: Optional[str] = None  # failure detail (maps to 5xx)
@@ -317,14 +322,21 @@ def demux(batch: Sequence[ServeRequest], stacked) -> None:
     """Fan the dispatched stack's rows back out to their requests:
     row i -> batch[i], by construction of the dispatch (the daemon
     stacks `[r.frame for r in batch]` in batch order and the runner
-    preserves frame order through padding/trim).  Marks each request
-    ok; the caller sets `done` after response fields are final."""
+    preserves frame order through padding/trim).  A request admitted
+    through the shape lattice gets its row cropped back to the
+    client's true (H, W) here — per request, because co-tenants
+    sharing a bucket may carry different raw shapes.  Marks each
+    request ok; the caller sets `done` after response fields are
+    final."""
     if len(stacked) < len(batch):
         raise ValueError(
             f"demux: {len(stacked)} output rows for {len(batch)} "
             "requests"
         )
     for i, req in enumerate(batch):
-        req.result = stacked[i]
+        row = stacked[i]
+        if req.crop is not None:
+            row = row[: req.crop[0], : req.crop[1]]
+        req.result = row
         req.status = "ok"
         req.span("demuxed")

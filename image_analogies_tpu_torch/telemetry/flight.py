@@ -74,6 +74,17 @@ def resolve_ring_capacity(cli_value: Optional[int] = None) -> int:
             pass
     return DEFAULT_RING_CAPACITY
 
+
+# The `flushed_on` labels a dump may carry: the lifecycle and fault
+# reasons, "drain" (an orderly serving hand-off, distinct from a
+# SIGTERM dump) and "incident" (a dump cut into a black-box bundle,
+# telemetry/archive.py, while the process runs on).
+FLUSH_REASONS = (
+    "sigterm", "sigint", "atexit", "violation", "watchdog",
+    "session-end", "manual", "drain", "incident",
+)
+
+
 class FlightRecorder:
     """Ring buffer of span events + periodic registry snapshots.
 

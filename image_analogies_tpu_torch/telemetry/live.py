@@ -48,6 +48,7 @@ from __future__ import annotations
 import inspect
 import json
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
 
@@ -195,7 +196,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _dispatch_route(self, method: str, path: str,
                         body: Optional[bytes],
-                        query: Optional[Dict[str, str]] = None) -> bool:
+                        query: Optional[Dict[str, str]] = None,
+                        t_received: Optional[float] = None) -> bool:
         """Injected-route dispatch (round 13: the serving daemon mounts
         its endpoints on this same server).  A route handler returns
         (code, body_bytes, ctype[, headers]); True = handled.
@@ -203,7 +205,9 @@ class _Handler(BaseHTTPRequestHandler):
         receive the request headers as a dict (round 15); arity-3
         handlers get a ctx dict whose `query` entry carries the parsed
         query string, last value wins per key (round 19 — /obs/window
-        and /request are parameterized GETs)."""
+        and /request are parameterized GETs), and `t_received`, the
+        monotonic instant the request line arrived, before its body was
+        read (the serving daemon's latency starts there)."""
         live = self.server.live  # type: ignore[attr-defined]
         handler = live.routes.get((method, path))
         if handler is None:
@@ -215,6 +219,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "alive": lambda: _socket_alive(conn),
                 "client": self.client_address,
                 "query": dict(query or {}),
+                "t_received": t_received,
             }
             out = handler(body, dict(self.headers.items()), ctx)
         elif arity >= 2:
@@ -272,11 +277,13 @@ class _Handler(BaseHTTPRequestHandler):
                 pass
 
     def do_POST(self) -> None:  # noqa: N802 (http.server API)
+        t_received = time.monotonic()
         try:
             path, query = _split_path(self.path)
             length = int(self.headers.get("Content-Length") or 0)
             body = self.rfile.read(length) if length else b""
-            if not self._dispatch_route("POST", path, body, query):
+            if not self._dispatch_route("POST", path, body, query,
+                                        t_received):
                 self._send(404, b"not found\n", "text/plain")
         except Exception as e:  # noqa: BLE001 - never kill the server
             try:

@@ -284,10 +284,6 @@ def test_health_epilogue_on_every_runner(assets, tmp_path, capsys, cmd):
 
 
 @pytest.mark.parametrize("flags,step", [
-    (["--lattice", "on"], "step 13b"),
-    (["--warm-dir", "w"], "step 13b"),
-    (["--archive-dir", "a"], "step 13b"),
-    (["--archive-interval-s", "5"], "step 13b"),
     (["--n-devices", "2"], "step 14"),
 ])
 def test_serve_unported_flags_stop_with_their_step(assets, flags, step):
@@ -297,11 +293,6 @@ def test_serve_unported_flags_stop_with_their_step(assets, flags, step):
               "--device", "cpu"] + flags)
     assert "not ported" in str(exc.value.code)
     assert step in str(exc.value.code)
-
-
-def test_trace_fleet_stops_with_its_step():
-    with pytest.raises(SystemExit, match="step 13b"):
-        _run(["trace", "r1", "--fleet", "discovery.json"])
 
 
 def test_serve_without_a_card_refuses(assets, monkeypatch):

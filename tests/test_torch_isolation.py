@@ -140,6 +140,48 @@ def test_serving_imports_without_the_reference_package():
     assert out.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("rel", [
+    "serving/lattice.py", "serving/fleettrace.py", "serving/router.py",
+    "serving/observatory.py", "telemetry/archive.py",
+])
+def test_fleet_modules_are_checked(rel):
+    """The fleet's modules are among the files held to no JAX import
+    below, and none names the repository's tools."""
+    assert (PORT / rel) in set(PORT.rglob("*.py"))
+    assert "tools" not in set(_imported_roots(PORT / rel))
+
+
+def test_fleet_imports_without_the_reference_package():
+    """The fleet's modules in a fresh process with the JAX package and
+    the validators unimportable; a router started and stopped there
+    leaves CUDA uninitialised."""
+    code = (
+        "import sys; sys.modules['jax'] = None; "
+        "sys.modules['image_analogies_tpu'] = None; "
+        "[sys.modules.__setitem__(m, None) for m in ('check_router', "
+        "'check_lattice', 'check_obs', 'check_fleet_trace', "
+        "'check_archive', 'check_serve_persist')]; "
+        "import torch; "
+        "from image_analogies_tpu_torch.serving import lattice, "
+        "fleettrace, observatory; "
+        "from image_analogies_tpu_torch.serving.router import FleetRouter; "
+        "from image_analogies_tpu_torch.telemetry import archive; "
+        "from image_analogies_tpu_torch.telemetry.metrics import "
+        "MetricsRegistry; "
+        "FleetRouter(MetricsRegistry()).start().stop(); "
+        "assert not torch.cuda.is_initialized(); "
+        "assert not {m.split('.')[0] for m in sys.modules "
+        "if sys.modules[m] is not None} & {'jax', 'image_analogies_tpu'}; "
+        "print('ok')"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_native_library_builds_apart_from_the_reference():
     """The port builds native/ann.cpp into its own directory, never the
     reference's native/build/."""

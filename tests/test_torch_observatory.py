@@ -4,8 +4,12 @@ CPU: the reference's time-series ring and anomaly-detector cases
 `telemetry/anomaly.py`, the window and the watches equal to the JAX
 package's on the same snapshots, the flight-ring capacity resolution,
 and a port daemon's `/obs/window`, `/request` and `trace --url`.  The
-fleet aggregator (`serving/observatory.py`) is ROADMAP Queue 1 step
-13b's."""
+fleet half (`serving/observatory.py`): the reference's merge cases
+against the port's module, `merge_registries`, `fleet_slo` and
+`fleet_route_slo` bit-equal to the JAX package's on the same
+per-replica payloads, and the port's repair: a router among the
+targets is filed under `routers`, so an OBS record over a discovery
+file passes tools/check_obs.py, where the reference's does not."""
 
 import json
 import os
@@ -542,3 +546,115 @@ class TestObservatoryLive:
         with pytest.raises(SystemExit, match="exactly one"):
             cli.main(["trace", "x", "--url", d.url,
                       "--trace-dir", "/tmp"])
+
+
+# ------------------------------------------------- the fleet aggregator
+import sys  # noqa: E402
+
+sys.path.insert(0, os.path.join(_ROOT, "tools"))
+
+import test_observatory as ref_obs  # noqa: E402
+from check_obs import validate_obs  # noqa: E402
+from image_analogies_tpu.serving import observatory as j_obs  # noqa: E402
+from image_analogies_tpu_torch.serving import observatory as t_obs  # noqa: E402
+from image_analogies_tpu_torch.telemetry import metrics as t_metrics  # noqa: E402
+from image_analogies_tpu_torch.telemetry.slo import (  # noqa: E402
+    REQUEST_DURATION_BUCKETS,
+    ROUTE_DURATION_METRIC,
+)
+from torch_ref_swap import swap  # noqa: E402
+
+
+class TestMergeRegistries(ref_obs.TestMergeRegistries):
+    @pytest.fixture(autouse=True)
+    def _port_modules(self, monkeypatch):
+        swap(monkeypatch, ref_obs)
+
+    def test_reference_names_are_the_ports(self):
+        assert ref_obs.merge_registries is t_obs.merge_registries
+        assert ref_obs.fleet_slo is t_obs.fleet_slo
+
+
+def _payload(mod, seed, route=False):
+    """One process's registry exposition: request (or route) durations
+    over every outcome, a counter pair and a gauge."""
+    rng = np.random.default_rng(seed)
+    reg = mod.MetricsRegistry()
+    name = ROUTE_DURATION_METRIC if route else REQUEST_DURATION_METRIC
+    h = reg.histogram(name, "d", buckets=REQUEST_DURATION_BUCKETS)
+    for _ in range(40):
+        outcome = ("ok",) * 20 + ("shed", "cancelled")
+        outcome = outcome[int(rng.integers(len(outcome)))]
+        labels = ({"outcome": outcome, "replica": "r0"} if route else
+                  {"route": "/synthesize", "outcome": outcome,
+                   "cache": "hit"})
+        h.observe(float(rng.lognormal(6.5, 1.2)), labels=labels)
+    reg.counter("ia_serve_requests_total").inc(int(rng.integers(50)))
+    reg.counter("ia_serve_shed_total").inc(int(rng.integers(5)))
+    reg.gauge("ia_serve_queue_depth").set(float(rng.integers(8)))
+    return reg.to_dict()
+
+
+@pytest.mark.parametrize("seeds", [(1, 2), (3, 4, 5)])
+def test_fleet_merge_and_slo_equal_jax(seeds):
+    payloads = [_payload(j_metrics, s) for s in seeds] + [
+        _payload(j_metrics, 99, route=True)]
+    # The port's registry writes the same expositions.
+    assert payloads == [_payload(t_metrics, s) for s in seeds] + [
+        _payload(t_metrics, 99, route=True)]
+    t_m, j_m = t_obs.merge_registries(payloads), \
+        j_obs.merge_registries(payloads)
+    assert t_m == j_m
+    assert t_obs.fleet_slo(t_m) == j_obs.fleet_slo(j_m)
+    route = t_obs.fleet_route_slo(t_m)
+    assert route == j_obs.fleet_route_slo(j_m) and route is not None
+    assert t_obs.fleet_route_slo(t_obs.merge_registries(payloads[:-1])) \
+        is None
+
+
+def _scrapes(monkeypatch, mod, recs):
+    monkeypatch.setattr(mod, "scrape_replica",
+                        lambda url, span_s=None, timeout=10.0: recs[url])
+
+
+def _scrape(url, metrics):
+    return {"url": url, "error": None, "metrics": metrics,
+            "slo": {"kind": "slo", "verdict": "ok", "objectives": []},
+            "window": None}
+
+
+def test_router_target_is_filed_apart(monkeypatch):
+    """A discovery file's targets: two replicas, the router, one dead
+    replica.  The port files the router under `routers`; the pooled
+    families still hold its traffic; check_obs passes (the overhead
+    measurement the chip smoke check takes supplied)."""
+    recs = {
+        "http://a": _scrape("http://a", _payload(j_metrics, 1)),
+        "http://b": _scrape("http://b", _payload(j_metrics, 2)),
+        "http://r": _scrape("http://r", _payload(j_metrics, 3, True)),
+        "http://d": {"url": "http://d", "error": "URLError: refused",
+                     "metrics": None, "slo": None, "window": None},
+    }
+    order = ["http://a", "http://b", "http://r", "http://d"]
+    _scrapes(monkeypatch, t_obs, recs)
+    rec = t_obs.aggregate(order)
+    assert [r["url"] for r in rec["routers"]] == ["http://r"]
+    assert [r["url"] for r in rec["replicas"]] == [
+        "http://a", "http://b", "http://d"]
+    fleet = rec["fleet"]
+    assert (fleet["replicas_live"], fleet["replicas_total"],
+            fleet["degraded"]) == (2, 3, True)
+    assert ROUTE_DURATION_METRIC in fleet["merged_metrics"]
+    assert fleet["route_slo"] is not None
+    assert "(router)" in t_obs.render_dashboard(rec)
+    rec["observatory_overhead_frac"] = 0.001
+    assert validate_obs(rec) == []
+    # The reference pools the router as one more replica, and its own
+    # validator rejects the record.
+    _scrapes(monkeypatch, j_obs, recs)
+    j_rec = j_obs.aggregate(order)
+    j_rec["observatory_overhead_frac"] = 0.001
+    assert any("no ia_request_duration_ms" in e
+               for e in validate_obs(j_rec))
+    assert j_rec["fleet"]["slo"] == fleet["slo"]
+

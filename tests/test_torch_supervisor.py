@@ -89,7 +89,7 @@ class TestFaultPlan:
         "level:0:hang:soon",       # non-numeric seconds
         "serve_crash:0:raise",     # a serving point's action is fail
         "serve_hang:0:fail",       # ... or hang, for serve_hang
-        "archive_crash:0:fail",    # the archive's point: not ported
+        "archive_crash:0:raise",   # ... or fail, for archive_crash
     ])
     def test_parse_rejects_malformed(self, bad):
         with pytest.raises(ValueError):
