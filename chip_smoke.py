@@ -16,6 +16,8 @@
 
     python3 chip_smoke.py --phases fleet   # route, obs, history, incident
 
+    python3 chip_smoke.py --phases multi   # K1 banded, sharded-A, spatial
+
 Builds the port's CUDA kernels from `image_analogies_tpu_torch/kernels/
 csrc/`, holds each kernel against its plain PyTorch version at the main
 path's shapes (K1 in float32 and int8 mode, on a seeded case and on the
@@ -50,7 +52,13 @@ and `trace`; and the serving fleet:
 swept at 4 and 8 clients, never-seen shapes and a bypass, a replica
 joining warm, a session drained and adopted, `obs` and `trace --fleet`,
 and at 256^2 a replica SIGKILLed mid-burst, its takeover, the telemetry
-archive across restarts and a torn append, `history` and `incident`),
+archive across restarts and a torn append, `history` and `incident`;
+and the multi-device runners: K1's banded mode at the headline's
+level-0 shapes in float32 and int8 over 2 and 4 bands, against its plain
+version and as a band sequence against one launch, the sharded-A
+headline over NCCL at world size 1 and over gloo with two ranks on
+cuda:0, and the spatial runner at world size 1 and through `synth
+--spatial --n-devices 1`, each bit-identical to its single-device B'),
 checks the outputs and their PSNR against the brute oracle, and the
 batch and video runners' isolation and gates, and prints one JSON line
 per phase, each with its `seconds` (also appended to
@@ -91,7 +99,7 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 PHASES = ("k1", "k2", "k3", "k1i8", "headline", "compressed", "config1",
           "quality", "profile", "lean", "batch", "video", "cli", "telemetry",
-          "serve", "fleet")
+          "serve", "fleet", "multi")
 HEADLINE = dict(levels=5, matcher="patchmatch", em_iters=2, pm_iters=6,
                 pm_polish_iters=1, device="cuda")
 
@@ -209,7 +217,7 @@ def Modes(cand_dtype, prune, polish):
         pt._CAND_DTYPE, pt._CAND_PRUNE, pm._POLISH_MODE = saved
 
 
-def k1_case(dev, rng):
+def k1_case(dev, rng, size=1024):
     """K1's inputs at the headline's level-0 shapes: 1024^2 B and A, 4
     channels with the coarse pair, seeded candidate tables with invalid
     slots, an incoming state; returns (A images, args, kw)."""
@@ -217,7 +225,7 @@ def k1_case(dev, rng):
     from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
 
     cfg = SynthConfig()
-    h = w = ha = wa = 1024
+    h = w = ha = wa = size
     specs = pt.channel_specs(1, 1, cfg, True)
     geom = pt.tile_geometry(h, w, specs)
 
@@ -3527,20 +3535,27 @@ def phase_fleet(dev, smi, serve=None):
                   "--obs-interval-s", "1"]
     procs, routers = {}, []
 
-    def replica(tag):
+    def replica(tag, *extra):
         return cli_start(work, tag, fleet_args + [
-            "--state-dir", f"{work}/{tag}_state"])
+            "--state-dir", f"{work}/{tag}_state", *extra])
 
     try:
         # ---- 1. two replicas and the router; the library's answers
-        # meanwhile (the serve phase's, when it ran in this call).
-        started = {t: replica(t) for t in ("ra", "rb")}
-        procs.update({t: v[0] for t, v in started.items()})
+        # meanwhile (the serve phase's, when it ran in this call).  ra
+        # comes up alone, one warmup dispatch at a time: its first
+        # dispatches are the persist record's cold arm, each with the
+        # card to itself; rb starts once ra is up.
+        urls = {}
+        started = {"ra": replica("ra", "--warmup-workers", "1")}
+        procs["ra"] = started["ra"][0]
         refs = SERVE_MEMO.get("refs") or [
             library_dispatch(a, ap, as_float(f), cfg) for f in frames_u8]
-        urls = {}
-        for t, v in started.items():
-            urls[t], rec[f"{t}_startup_s"] = cli_wait(v, f"serve {t}")
+        urls["ra"], rec["ra_startup_s"] = cli_wait(started["ra"],
+                                                   "serve ra")
+        started["rb"] = replica("rb")
+        procs["rb"] = started["rb"][0]
+        urls["rb"], rec["rb_startup_s"] = cli_wait(started["rb"],
+                                                   "serve rb")
         disc = f"{work}/fleet.json"
         route = cli_start(
             work, "route", ["route", "--targets",
@@ -3968,10 +3983,11 @@ def phase_fleet(dev, smi, serve=None):
         "schema_version": 1, "kind": "serve_persist", "nvidia_smi": smi,
         "proxy_size": SERVE_SIZE,
         # The reference's cold request pays an XLA compile; the port's
-        # counterpart is a process's first dispatch (the least of ra's
-        # four warmup dispatches, which ran at once beside rb's), its
-        # restart the added replica's first client request (a warm hit
-        # after the restore), both by the daemon's clock.
+        # counterpart is a shape's first dispatch in a process (the
+        # least of ra's warmup dispatches, run one at a time with the
+        # card to itself), its restart the added replica's first client
+        # request (a warm hit after the restore), both by the daemon's
+        # clock.
         "persist": {
             "cold_ms": min(e["compile_ms"] for e in before["cache"][
                 "entries"] if e["compile_ms"] is not None),
@@ -4009,12 +4025,327 @@ def phase_fleet(dev, smi, serve=None):
         "check_serve_persist.py", persist_record, out_dir)
     rec["unasserted_gates"]["check_serve_persist.py"] = gates
     rec["persist"] = persist_record["persist"]
+    # The cold arm's dispatches (one at a time) and the gate's ratio.
+    rec["persist_cold_walls_ms"] = sorted(
+        e["compile_ms"] for e in before["cache"]["entries"]
+        if e["compile_ms"] is not None)
+    rec["persist_ratio"] = (persist_record["persist"]["cold_ms"]
+                            / persist_record["persist"]["cold_restart_ms"])
     args, kw, _ = seen[0]
     kw = {k: kw[k] for k in ("specs", "geom", "ha", "wa", "coh_factor")}
     rec["k1_frames"] = k1_frames_row(args, kw)
     rec["k1_launches"] = sweep_k1
     emit(rec)
     shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# The multi-device runners (`--phases multi`): K1's banded mode at the
+# headline's level-0 shapes, the sharded-A runner over NCCL at world size
+# 1 and over gloo with two ranks on cuda:0, the spatial runner at world
+# size 1, and `synth --spatial --n-devices 1`.  The card has one GPU:
+# NCCL puts one rank on it, so no scaling is measured here.
+
+# The sharded-A headline: the headline's knobs with every tile-eligible
+# level lean (`feature_bytes_budget=1`), kappa 0, so the bands' merge is
+# order-equivalent to one band and B' must be bit-identical.
+MULTI = dict(HEADLINE, feature_bytes_budget=1)
+MULTI_SIZE = 1024
+MULTI_CLI_SIZE = 512
+MULTI_BANDS = (2, 4)
+
+
+def band_valid_slots(valid, cand_y, geom, ha, band):
+    """Valid slots whose clamped origin the band (row0, rows_own) owns:
+    the slots a band launch evaluates."""
+    row0, rows = band
+    ty0 = torch.arange(geom.n_ty, device=cand_y.device)[:, None, None] * \
+        geom.tile_h
+    sy = (ty0 + cand_y.long()).clamp(0, ha - geom.tile_h)
+    return int(((valid > 0) & (sy >= row0) & (sy < row0 + rows)).sum())
+
+
+def k1_band_rows(case, int8, n_bands, l2_rate):
+    """K1 banded on the seeded 1024^2 level-0 case: every band's launch
+    against its plain version (distances within rtol 1e-4 / atol 1e-5,
+    offsets equal off ties), timed beside its bound; then the bands in
+    turn with carried state against the single-band launch (kappa
+    factor 1), bit for bit.  Returns (band rows, sequence record)."""
+    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+
+    (src_a, flt_a, src_ac, flt_ac), args, kw = case
+    mode = "int8" if int8 else "bf16"
+    full = pt.prepare_a_planes(src_a, flt_a, src_ac, flt_ac, kw["specs"],
+                               cand_dtype=mode)
+    bands = pt.prepare_a_planes(src_a, flt_a, src_ac, flt_ac, kw["specs"],
+                                cand_dtype=mode, n_bands=n_bands)
+    bounds = pt.band_bounds(kw["ha"], n_bands)
+    b_planes, cand_y, _, valid, oy, ox, d_in = args[1:]
+    rest = args[1:]
+    geom, specs = kw["geom"], kw["specs"]
+    geo = {k: v for k, v in kw.items() if k != "coh_factor"}
+    h = w = kw["ha"]  # the seeded case is square, B as large as A
+    itemsize = full.element_size()
+    groups = pt.spec_groups(specs)
+    flop_per_px = 3 * len(specs) + sum(4 * len(sp.wy) for sp, _ in groups) \
+        + len(groups) + (2 * len(specs) if int8 else 0)
+    strip = pt.sweep_plan(len(specs), geom.halo)
+    moved, _ = pt.candidate_window_bytes_per_fetch(len(specs), strip,
+                                                   geom.halo, mode)
+    state = geom.n_ty * geom.tile_h * geom.n_tx * geom.tile_w * 4
+    rows = []
+    for planes, band in zip(bands, bounds):
+        got = pt.tile_sweep_kernel(planes, *rest, band=band, **kw)
+        want = pt.tile_sweep_plain(planes, *rest, band=band, **kw)
+        torch.cuda.synchronize()
+        kd, pd = got[2][:h, :w], want[2][:h, :w]
+        # A pixel whose band owns none of its tile's slots keeps its
+        # incoming distance, +inf on a first sweep: equal on both sides.
+        err = torch.where(kd == pd, torch.zeros_like(pd), (kd - pd).abs())
+        close = err <= 1e-5 + 1e-4 * pd.abs()
+        if not bool(close.all()):
+            raise AssertionError(f"K1 banded {mode} {band}: distances "
+                                 f"disagree at {int((~close).sum())} pixels")
+        bad = pt.unexplained_offsets(got, want, (oy, ox, d_in), full,
+                                     b_planes, h=h, w=w, **geo)
+        if bool(bad.any()):
+            raise AssertionError(f"K1 banded {mode} {band}: offsets differ "
+                                 f"off ties at {int(bad.sum())} pixels")
+        n_valid = band_valid_slots(valid, cand_y, geom, kw["ha"], band)
+        flops = n_valid * geom.tile_h * geom.tile_w * flop_per_px
+        nbytes = planes.numel() * itemsize + b_planes.numel() * 4 \
+            + 3 * valid.numel() * 4 + 6 * state
+        rows.append({
+            "dtype": mode, "n_bands": n_bands, "band": list(band),
+            "valid_slots": n_valid,
+            "max_abs_err": float(err.max()),
+            "changed_frac": float((pd != d_in[:h, :w]).float().mean()),
+            "unexplained_offsets": int(bad.sum()),
+            "ms": cuda_ms(lambda: pt.tile_sweep_kernel(
+                planes, *rest, band=band, **kw)),
+            "plain_ms": cuda_ms(lambda: pt.tile_sweep_plain(
+                planes, *rest, band=band, **kw), reps=3, warm=1),
+            "bound_ms": bound_ms(flops, nbytes),
+            "bound_by": "operations" if flops / PEAK_FP32_FLOPS
+            >= nbytes / PEAK_BYTES else "bytes",
+            "flops": flops, "bytes": nbytes,
+            "l2_floor_ms": 1e3 * n_valid * (geom.tile_h // strip) * moved
+            / l2_rate,
+        })
+    kw1 = dict(kw, coh_factor=1.0)
+    single = pt.tile_sweep_kernel(full, *rest, **kw1)
+    st = (oy, ox, d_in)
+    for planes, band in zip(bands, bounds):
+        st = pt.tile_sweep_kernel(planes, b_planes, cand_y, args[3], valid,
+                                  *st, band=band, **kw1)
+    torch.cuda.synchronize()
+    # Distances bit for bit.  Offsets too in float32; on the int8 grid
+    # two windows can reach exactly the same distance, and then the
+    # single launch keeps the earlier slot and the sequence the earlier
+    # band's: such pixels must be exact ties.
+    ties = (st[0] != single[0]) | (st[1] != single[1])
+    n_ties = int(ties[:h, :w].sum())
+    if not torch.equal(st[2], single[2]) or (n_ties and not int8):
+        raise AssertionError(
+            f"K1 banded {mode} x{n_bands}: the band sequence differs from "
+            f"one launch: distances equal {torch.equal(st[2], single[2])}, "
+            f"{n_ties} offsets")
+    if n_ties:
+        geo1 = {k: v for k, v in kw1.items() if k != "coh_factor"}
+        bad = pt.unexplained_offsets(st, single, (oy, ox, d_in), full,
+                                     b_planes, h=h, w=w, **geo1)
+        if bool(bad.any()):
+            raise AssertionError(
+                f"K1 banded {mode} x{n_bands}: the band sequence's offsets "
+                f"differ off ties at {int(bad.sum())} pixels")
+    return rows, {"dtype": mode, "n_bands": n_bands,
+                  "distances_bit_identical": True,
+                  "offsets_bit_identical": n_ties == 0,
+                  "offset_tie_pixels": n_ties}
+
+
+def multi_gloo_rank(size, device_type="cuda"):
+    """One of two ranks on cuda:0 through gloo: the sharded-A headline,
+    run twice (B' on the host, and this rank's wall of the second)."""
+    from image_analogies_tpu_torch.config import SynthConfig
+    from image_analogies_tpu_torch.parallel.mesh import make_mesh
+    from image_analogies_tpu_torch.parallel.sharded_a import (
+        synthesize_sharded_a,
+    )
+    from image_analogies_tpu_torch.utils.examples import super_resolution
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    a, ap, b = super_resolution(size)
+    mesh = make_mesh(2, axis_names=("bands",), device_type=device_type)
+    sync = torch.cuda.synchronize if device_type == "cuda" else (
+        lambda: None)
+    cfg = SynthConfig(**{**MULTI, "device": device_type})
+    synthesize_sharded_a(a, ap, b, cfg, mesh)  # warm: first-use costs
+    sync()
+    t0 = time.perf_counter()
+    out = synthesize_sharded_a(a, ap, b, cfg, mesh)
+    sync()
+    return out.cpu(), time.perf_counter() - t0
+
+
+def phase_multi(dev, smi, case, l2_rate, size=MULTI_SIZE,
+                cli_size=MULTI_CLI_SIZE, batch_size=CONFIG5_SIZE):
+    """The multi-device slice on the card: K1 banded (f32 and int8, 2 and
+    4 bands) against its plain version and as a band sequence against
+    one launch; the sharded-A headline at world size 1 over NCCL (its
+    launches: the main path's K1 banded count) and with two gloo ranks
+    on cuda:0, each B' bit-identical to the single-device lean B'; the
+    spatial runner at world size 1 equal to the single-device headline;
+    config 5's frames through the frame-sharded batch runner at world
+    size 1 (its padding, all_gather and energy all_reduce over NCCL)
+    equal to `synthesize_batch` without a mesh; `synth --spatial
+    --n-devices 1` equal to the library's PNG.  Walls beside the
+    single-device walls; no scaling is claimed (one card)."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from image_analogies_tpu_torch.config import SynthConfig
+    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+    from image_analogies_tpu_torch.parallel.mesh import make_mesh, spawn
+    from image_analogies_tpu_torch.parallel.sharded_a import (
+        synthesize_sharded_a,
+    )
+    from image_analogies_tpu_torch.parallel.spatial import synthesize_spatial
+    from image_analogies_tpu_torch.utils.examples import (
+        npr_frames,
+        super_resolution,
+    )
+    from image_analogies_tpu_torch.utils.io import to_uint8
+
+    rec = {"phase": "multi", "nvidia_smi": smi, "size": size,
+           "tol": "rtol 1e-4 / atol 1e-5; offsets equal off ties; "
+           "runners bit-identical"}
+    t = time.perf_counter()
+    band_rows, sequences = [], []
+    for int8 in (False, True):
+        for n_bands in MULTI_BANDS:
+            rows, seq = k1_band_rows(case, int8, n_bands, l2_rate)
+            band_rows += rows
+            sequences.append(seq)
+    rec["k1_banded"] = band_rows
+    rec["k1_band_sequences"] = sequences
+    rec["k1_banded_s"] = time.perf_counter() - t
+
+    ex = super_resolution(size)
+    cfg_lean = SynthConfig(**{**MULTI, "device": dev.type})
+    cfg_head = SynthConfig(**{**HEADLINE, "device": dev.type})
+    want_lean, _ = run_synth(ex, cfg_lean)  # warm
+    want_lean, lean_wall = run_synth(ex, cfg_lean)
+    want_head, head_wall = run_synth(ex, cfg_head)
+    check_output(want_lean, ex[2].shape, "multi single-device lean")
+    rec["single_lean_wall_s"] = lean_wall
+    rec["single_headline_wall_s"] = head_wall
+
+    had_world = dist.is_initialized()
+    try:
+        mesh = make_mesh(1, axis_names=("bands",), device_type=dev.type)
+        rec["backend"] = dist.get_backend()
+        # A warm run first: NCCL builds its communicator at the first
+        # collective.
+        synthesize_sharded_a(*ex, cfg_lean, mesh)
+        for counter in (pt.launches, pt.launches_int8, pt.launches_banded):
+            counter.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = synthesize_sharded_a(*ex, cfg_lean, mesh)
+        torch.cuda.synchronize()
+        rec["sharded_a_ws1_wall_s"] = time.perf_counter() - t
+        rec["k1_banded_launches"] = pt.launches_banded.count
+        rec["k1_launches_sharded_a"] = pt.launches.count
+        if pt.launches_banded.count == 0 or \
+                pt.launches_banded.count != pt.launches.count:
+            raise AssertionError(
+                f"sharded-A launched K1 {pt.launches.count} times, "
+                f"{pt.launches_banded.count} of them banded")
+        if not torch.equal(got, want_lean):
+            raise AssertionError(
+                "sharded-A at world size 1 differs from the single-device "
+                f"lean B' at {int((got != want_lean).sum())} values")
+        pt.launches.reset()
+        t = time.perf_counter()
+        got = synthesize_spatial(*ex, cfg_head, make_mesh(1,
+                                 device_type=dev.type))
+        torch.cuda.synchronize()
+        rec["spatial_ws1_wall_s"] = time.perf_counter() - t
+        rec["k1_launches_spatial"] = pt.launches.count
+        if not torch.equal(got, want_head):
+            raise AssertionError(
+                "spatial at world size 1 differs from the single-device "
+                f"headline at {int((got != want_head).sum())} values")
+
+        # Config 5's frames over the "batch" axis of one NCCL rank.
+        a5, ap5, frames5 = npr_frames(n_frames=CONFIG5_FRAMES,
+                                      size=batch_size)
+        cfg5 = SynthConfig(**{**CONFIG5, "device": dev.type})
+        want5, wall5 = run_batch(a5, ap5, frames5, cfg5,
+                                 frames_per_step=CONFIG5_FPS)
+        rec["single_batch_wall_s"] = wall5
+        mesh5 = make_mesh(1, axis_names=("batch",), device_type=dev.type)
+        pt.launches.reset()
+        got, wall5 = run_batch(a5, ap5, frames5, cfg5,
+                               frames_per_step=CONFIG5_FPS, mesh=mesh5)
+        rec["batch_ws1_wall_s"] = wall5
+        rec["k1_launches_batch"] = pt.launches.count
+        want_k1 = batch_k1_launches(cfg5, batch_size, CONFIG5_FRAMES,
+                                    CONFIG5_FPS)
+        if pt.launches.count != want_k1:
+            raise AssertionError(
+                f"the batch runner over a mesh launched K1 "
+                f"{pt.launches.count} times, not {want_k1}")
+        if not torch.equal(got, want5):
+            raise AssertionError(
+                "the batch runner at world size 1 differs from "
+                "synthesize_batch without a mesh at "
+                f"{int((got != want5).sum())} values")
+    finally:
+        if not had_world and dist.is_initialized():
+            dist.destroy_process_group()
+
+    t = time.perf_counter()
+    got, rank0_wall = spawn(multi_gloo_rank, 2, backend="gloo",
+                            device_type=dev.type, devices=[0, 0],
+                            args=(size, dev.type), timeout_s=600.0)
+    rec["sharded_a_gloo2_wall_s"] = rank0_wall
+    rec["sharded_a_gloo2_spawn_s"] = time.perf_counter() - t
+    if not torch.equal(got, want_lean.cpu()):
+        raise AssertionError(
+            "sharded-A over two gloo ranks differs from the "
+            f"single-device lean B' at "
+            f"{int((got != want_lean.cpu()).sum())} values")
+
+    # The command line: its own process, one NCCL rank.
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "multi_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        run_cli(["examples", "--out", work, "--size", str(cli_size)])
+        sr = assets(work, "super_resolution")
+        cfg = SynthConfig(levels=5, matcher="patchmatch", em_iters=2,
+                          pm_iters=6, device=dev.type)
+        lib_out, _ = run_synth(sr, cfg)
+        out = f"{work}/spatial.png"
+        wall, _ = run_cli(synth_args(
+            work, "super_resolution", out, *CLI_HEADLINE, "--device",
+            dev.type, "--spatial", "--n-devices", "1"))
+        rec["cli_spatial_wall_s"] = wall
+        got, want = png(out), to_uint8(lib_out)
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                "synth --spatial --n-devices 1 PNG differs from the "
+                f"library's B' at {int((got != want).sum())} values")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit(rec)
     return rec
 
 
@@ -4070,12 +4401,13 @@ def main(argv=None) -> int:
         seconds[name] = time.perf_counter() - PHASE_T0[0]
         return out
 
-    if phases & {"k1", "k1i8", "cli", "telemetry"}:
+    if phases & {"k1", "k1i8", "cli", "telemetry", "multi"}:
         l2_rate = run("l2", kernels.l2_read_rate, dev)
         emit({"phase": "l2", "nvidia_smi": smi,
               "l2_read_bytes_per_s": l2_rate})
-    if phases & {"k1", "k1i8"}:
+    if phases & {"k1", "k1i8", "multi"}:
         case = run("k1_case", k1_case, dev, rng)
+    if phases & {"k1", "k1i8"}:
         real = run("k1_real_case", capture_real_case, dev)
     k1 = run("k1", phase_k1, dev, case, real, l2_rate) \
         if "k1" in phases else {}
@@ -4109,6 +4441,8 @@ def main(argv=None) -> int:
         if "serve" in phases else {}
     fleet = run("fleet", phase_fleet, dev, smi, serve) \
         if "fleet" in phases else {}
+    multi = run("multi", phase_multi, dev, smi, case, l2_rate) \
+        if "multi" in phases else {}
     PHASE_T0[0] = script_t0
     emit({"phase": "timing", "seconds_by_phase": seconds,
           "build_s": build_s})
@@ -4242,6 +4576,23 @@ def main(argv=None) -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
+        })
+    if multi:
+        # K1's banded mode: one band of two at the 1024^2 level 0
+        # (seeded case), beside the banded launches of the sharded-A
+        # headline (every sweep of its lean levels is one band launch).
+        row = next(r for r in multi["k1_banded"]
+                   if r["dtype"] == "bf16" and r["n_bands"] == 2)
+        kernels_line.append({
+            "name": "tile_sweep_banded", "route": "cuda",
+            "source": "image_analogies_tpu_torch/kernels/csrc/tile_sweep.cu",
+            "replaces": "image_analogies_tpu/kernels/patchmatch_tile.py:888",
+            "launches": multi["k1_banded_launches"],
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in multi["k1_banded"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None,
         })
     print(smi, flush=True)
     emit({"kernels": kernels_line})

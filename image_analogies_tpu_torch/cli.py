@@ -28,10 +28,20 @@ it asks for the CPU, and `--device cpu` never initialises CUDA).  The
 kernels' build directory, `build/ia_torch_kernels/`, takes the place of
 the reference's compilation cache.
 
-Flags of parts not ported yet keep the reference's parser, so a bad
-value still fails at parse time, and then stop the run with a message
-naming the ROADMAP step that ports them: `--spatial`, `--sharded-a`,
-`--bands`, `--n-devices` (step 14, multi-device).
+Multi-device runs (parallel/): `synth --spatial` (B' row slabs; with
+`--bands N` / `--mesh-rows N` also A ownership bands on a 2-D
+("bands", "slabs") mesh, else the mesh planner's shape) and `synth
+--sharded-a` (A band-sharded), and `--n-devices N` on synth, batch and
+video (frames over the ranks; video with `--warm off` only).  The
+command starts its N ranks itself (one process each,
+`parallel.mesh.spawn`; rank r on cuda:r, NCCL, or on the CPU through
+gloo), or joins the `torchrun` world its environment
+names (WORLD_SIZE).  Rank 0 alone writes the outputs, the telemetry,
+the progress stream and the health verdict.  `--supervise` runs on one
+rank.  A flag of a part not ported yet keeps the reference's parser, so
+a bad value still fails at parse time, and then stops the run with a
+message naming the ROADMAP step that ports it: `serve --n-devices`
+(step 14b, multi-device serving).
 
 `--trace-dir DIR` writes the telemetry artifacts (host_spans.json,
 metrics.json, metrics.prom, flight.json) and costs one device sync a
@@ -197,17 +207,12 @@ def _add_synth_flags(p: argparse.ArgumentParser) -> None:
 
 
 # Flags of parts not ported yet: (attribute, flag, the ROADMAP step).
-_UNPORTED = (
-    ("spatial", "--spatial", "step 14 (multi-device runners)"),
-    ("sharded_a", "--sharded-a", "step 14 (multi-device runners)"),
-    ("bands", "--bands", "step 14 (multi-device runners)"),
-    ("n_devices", "--n-devices", "step 14 (multi-device runners)"),
-)
+_UNPORTED = ()
 
 
 # serve's: (attribute, flag, the ROADMAP step, its off value).
 _SERVE_UNPORTED = (
-    ("n_devices", "--n-devices", "step 14 (multi-device runners)", None),
+    ("n_devices", "--n-devices", "step 14b (multi-device serving)", None),
 )
 
 
@@ -306,7 +311,10 @@ def _start(args):
     install the compression modes, configure, and decide whether the run
     is instrumented (a progress stream, a telemetry directory, the
     sentinel, the live exporter or the supervisor; `--profile` alone is
-    not).  Returns (cfg, ckpt_dir, ckpt_ephemeral, instrument)."""
+    not).  On a rank other than 0 of a multi-rank run, the run keeps
+    rank 0's instrumentation (the shard walls are collectives) but
+    writes no progress stream, telemetry or profile.  Returns (cfg,
+    ckpt_dir, ckpt_ephemeral, instrument)."""
     _refuse_unported(args)
     _apply_cand_compression(args)
     cfg = _config_from(args)
@@ -314,8 +322,121 @@ def _start(args):
         args.progress or args.trace_dir or args.health
         or args.metrics_port is not None or args.supervise
     )
+    if not _is_rank0():
+        args.progress = args.trace_dir = args.profile = None
+        args.metrics_port = None
+        args.health = False
     cfg, ckpt_dir, ephemeral = _force_ckpt_dir(args, cfg)
     return cfg, ckpt_dir, ephemeral, instrument
+
+
+def _is_rank0() -> bool:
+    from .parallel.mesh import world_rank
+
+    return world_rank() == 0
+
+
+def _default_ranks(args) -> int:
+    """`--n-devices`, else every card for a CUDA run, else 1."""
+    if args.n_devices is not None:
+        if args.n_devices < 1:
+            raise SystemExit(f"--n-devices {args.n_devices}: need >= 1")
+        return args.n_devices
+    if args.device == "cuda":
+        import torch
+
+        return max(1, torch.cuda.device_count())
+    return 1
+
+
+def _rank_command(args):
+    """One spawned rank of a multi-rank command: the command itself,
+    inside the world `parallel.mesh.spawn` started."""
+    return args.fn(args)
+
+
+def _in_world(args, n_ranks: int):
+    """How a command that may run on several ranks proceeds: None when
+    it runs here (already inside a world, a `torchrun` world joined, or
+    one rank), else rank 0's exit code after the command ran on
+    `n_ranks` ranks of its own."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import backend_for, initialize_multihost, spawn
+
+    if dist.is_initialized():
+        return None
+    if int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
+        if args.device == "cuda":
+            import torch
+
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        initialize_multihost(backend=backend_for(args.device))
+        return None
+    if n_ranks <= 1:
+        return None
+    if args.supervise:
+        raise SystemExit("--supervise runs on one rank; drop --n-devices "
+                         "or --supervise")
+    return spawn(_rank_command, n_ranks, device_type=args.device,
+                 args=(args,))
+
+
+class _OwnWorld:
+    """A one-rank world the command started for a mesh of one (see
+    `parallel.mesh.make_mesh`) ends with the command, so a later
+    command in the same process starts its own ranks again."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self._had = dist.is_initialized()
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        if not self._had and dist.is_initialized():
+            dist.destroy_process_group()
+        return False
+
+
+def _synth_mesh(args, cfg, a_shape, b_shape):
+    """(runner, mesh, mesh_plan) of a synth run: the spatial runner on a
+    1-D mesh or, when `--bands` or the planner asks for bands, on the
+    2-D ("bands", "slabs") mesh; the sharded-A runner on a "bands" mesh;
+    else the single-device runner."""
+    from .parallel.mesh import make_mesh, world_size
+
+    if args.bands is not None and args.bands > 1 and not args.spatial:
+        raise SystemExit(
+            "--bands requires --spatial (it names the A-band axis of the "
+            "2-D bands x slabs mesh); for A-side banding alone use "
+            "--sharded-a"
+        )
+    if not (args.spatial or args.sharded_a):
+        return "single", None, None
+    n_dev = world_size()
+    if args.sharded_a:
+        return "sharded_a", make_mesh(n_dev, axis_names=("bands",),
+                                      device_type=cfg.device), None
+    from .parallel.plan2d import override_plan, plan_mesh_shape
+
+    if args.bands is not None:
+        if args.bands < 1 or n_dev % args.bands:
+            raise SystemExit(f"--bands {args.bands} must divide the "
+                             f"device count ({n_dev})")
+        plan = override_plan(args.bands, n_dev // args.bands)
+    else:
+        plan = plan_mesh_shape(n_dev, a_shape[:2], b_shape[:2], cfg)
+    if plan.n_bands > 1:
+        mesh = make_mesh(n_dev, axis_names=("bands", "slabs"),
+                         shape=(plan.n_bands, plan.n_slabs),
+                         device_type=cfg.device)
+    else:
+        mesh = make_mesh(n_dev, device_type=cfg.device)
+    return "spatial", mesh, plan.as_attrs()
+
 
 
 def _session(args, progress, instrument, cfg):
@@ -329,6 +450,16 @@ def _session(args, progress, instrument, cfg):
 
 
 def cmd_synth(args) -> int:
+    n_ranks = (_default_ranks(args) if args.spatial or args.sharded_a
+               else 1)
+    code = _in_world(args, n_ranks)
+    if code is not None:
+        return code
+    with _OwnWorld():
+        return _synth(args)
+
+
+def _synth(args) -> int:
     cfg, ckpt_dir, ckpt_ephemeral, instrument = _start(args)
     from .models.analogy import ResumeError, create_image_analogy
     from .utils.io import load_image, save_image
@@ -338,6 +469,7 @@ def cmd_synth(args) -> int:
     a = load_image(args.a)
     ap = load_image(args.ap)
     b = load_image(args.b)
+    runner, mesh, mesh_plan = _synth_mesh(args, cfg, a.shape, b.shape)
     t0 = time.perf_counter()
     with _session(args, progress, instrument, cfg) as tracer:
         # A disabled tracer: events still reach the JSONL/log stream
@@ -347,12 +479,22 @@ def cmd_synth(args) -> int:
         strict_state = {"first": True}
 
         def _dispatch(resume_from):
-            return create_image_analogy(
-                a, ap, b, cfg, progress=tracer if instrument else None,
+            kw = dict(
+                progress=tracer if instrument else None,
                 resume_from=resume_from,
                 resume_strict=_resume_strict_for(args, resume_from,
                                                  strict_state),
             )
+            if runner == "spatial":
+                from .parallel.spatial import synthesize_spatial
+
+                return synthesize_spatial(a, ap, b, cfg, mesh,
+                                          mesh_plan=mesh_plan, **kw)
+            if runner == "sharded_a":
+                from .parallel.sharded_a import synthesize_sharded_a
+
+                return synthesize_sharded_a(a, ap, b, cfg, mesh, **kw)
+            return create_image_analogy(a, ap, b, cfg, **kw)
 
         if args.supervise:
             bp = _run_supervised(args, _dispatch, ckpt_dir, tracer,
@@ -366,6 +508,8 @@ def cmd_synth(args) -> int:
         # device.
         bp = bp.cpu()
         events.emit("done", wall_s=round(time.perf_counter() - t0, 3))
+    if not _is_rank0():
+        return 0
     save_image(args.out, bp)
     print(f"wrote {args.out} ({time.perf_counter() - t0:.2f}s)")
     # After the output is saved: a verdict or its IO never discards a
@@ -532,21 +676,42 @@ def _write_frames(args, names, bps, failures, progress) -> None:
         )
 
 
+def _frames_mesh(args, cfg):
+    """The "batch" mesh of a batch or video run over several ranks."""
+    from .parallel.mesh import make_mesh, world_size
+
+    if world_size() == 1:
+        return None
+    return make_mesh(world_size(), axis_names=("batch",),
+                     device_type=cfg.device)
+
+
 def cmd_batch(args) -> int:
+    code = _in_world(args, args.n_devices or 1)
+    if code is not None:
+        return code
+    return _batch(args)
+
+
+def _batch(args) -> int:
     cfg, ckpt_dir, ckpt_ephemeral, instrument = _start(args)
     from .parallel.batch import synthesize_batch
     from .utils.progress import ProgressWriter
 
     progress = ProgressWriter(args.progress)
+    mesh = _frames_mesh(args, cfg)
 
     def run(a, ap, frames, prog, resume_from, strict):
         return synthesize_batch(
             a, ap, frames, cfg, frames_per_step=args.frames_per_step,
             resume_from=resume_from, resume_strict=strict, progress=prog,
+            mesh=mesh,
         )
 
     bps, names, failures, t0, tracer = _run_frames(
         args, cfg, ckpt_dir, ckpt_ephemeral, instrument, progress, run)
+    if not _is_rank0():
+        return 0
     _write_frames(args, names, bps, failures, progress)
     print(f"wrote {len(names)} frames to {args.out} "
           f"({time.perf_counter() - t0:.2f}s)")
@@ -558,7 +723,28 @@ def cmd_batch(args) -> int:
 def cmd_video(args) -> int:
     """A frame sequence with temporal warm starts (video/): the batch
     command's ingest, telemetry and --supervise, frame-granular resume
-    through the per-frame `frames_{t:05d}` checkpoint directories."""
+    through the per-frame `frames_{t:05d}` checkpoint directories.
+    Several ranks serve only the warm-off batch dispatch: the warm path
+    runs its frames in turn, each started from the one before, so over
+    ranks every rank would run the whole sequence; it is refused."""
+    from .video.sequence import warm_mode
+
+    n_ranks = max(args.n_devices or 1,
+                  int(os.environ.get("WORLD_SIZE", "1") or 1))
+    if n_ranks > 1 and (args.warm or warm_mode()) != "off":
+        raise SystemExit(
+            f"video over {n_ranks} ranks needs --warm off: the warm path "
+            "runs its frames in turn, so every rank would run the whole "
+            "sequence; the ranks split the frames of the warm-off batch "
+            "dispatch only"
+        )
+    code = _in_world(args, args.n_devices or 1)
+    if code is not None:
+        return code
+    return _video(args)
+
+
+def _video(args) -> int:
     cfg, ckpt_dir, ckpt_ephemeral, instrument = _start(args)
     from .utils.progress import ProgressWriter
     from .video import set_warm_mode, synthesize_video
@@ -566,15 +752,20 @@ def cmd_video(args) -> int:
     if args.warm:
         set_warm_mode(args.warm)
     progress = ProgressWriter(args.progress)
+    # The mesh serves the warm-off batch dispatch (`cmd_video` refuses
+    # the warm path over several ranks).
+    mesh = _frames_mesh(args, cfg)
 
     def run(a, ap, frames, prog, resume_from, strict):
         return synthesize_video(
             a, ap, frames, cfg, resume_from=resume_from,
-            resume_strict=strict, progress=prog,
+            resume_strict=strict, progress=prog, mesh=mesh,
         )
 
     bps, names, failures, t0, tracer = _run_frames(
         args, cfg, ckpt_dir, ckpt_ephemeral, instrument, progress, run)
+    if not _is_rank0():
+        return 0
     _write_frames(args, names, bps, failures, progress)
     print(f"wrote {len(names)} frames to {args.out} "
           f"({time.perf_counter() - t0:.2f}s, warm={args.warm or 'on'})")
@@ -1377,7 +1568,10 @@ def _add_frames_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--ap", required=True)
     p.add_argument("--frames", required=True)
     p.add_argument("--out", required=True)
-    p.add_argument("--n-devices", type=int, default=None)
+    p.add_argument(
+        "--n-devices", type=int, default=None,
+        help="shard the frames over this many ranks (the command starts "
+        "them itself; video: with --warm off only)")
     p.add_argument(
         "--strict-frames", action="store_true",
         help="abort on the first unreadable or undecodable frame instead "
@@ -1398,14 +1592,22 @@ def main(argv=None) -> int:
     p.add_argument("--b", required=True)
     p.add_argument("--out", required=True)
     mode = p.add_mutually_exclusive_group()
-    mode.add_argument("--spatial", action="store_true",
-                      help="not ported yet (ROADMAP Queue 1 step 14)")
-    mode.add_argument("--sharded-a", action="store_true",
-                      help="not ported yet (ROADMAP Queue 1 step 14)")
-    p.add_argument("--n-devices", type=int, default=None)
-    p.add_argument("--bands", "--mesh-rows", dest="bands", type=int,
-                   default=None,
-                   help="not ported yet (ROADMAP Queue 1 step 14)")
+    mode.add_argument(
+        "--spatial", action="store_true",
+        help="shard B' rows over the ranks (row slabs with halos); "
+        "with --bands also A ownership bands (2-D bands x slabs mesh)")
+    mode.add_argument(
+        "--sharded-a", action="store_true",
+        help="band-shard the A side (lean tables and K1 planes) over "
+        "the ranks")
+    p.add_argument(
+        "--n-devices", type=int, default=None,
+        help="ranks of a --spatial / --sharded-a run (default: every "
+        "card, or 1 on the CPU); the command starts them itself")
+    p.add_argument(
+        "--bands", "--mesh-rows", dest="bands", type=int, default=None,
+        help="--spatial: A bands of the 2-D mesh (must divide the "
+        "device count; default: the mesh planner's choice)")
     _add_synth_flags(p)
     p.set_defaults(fn=cmd_synth)
 
@@ -1450,7 +1652,8 @@ def main(argv=None) -> int:
     )
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--n-devices", type=int, default=None,
-                   help="not ported yet (ROADMAP Queue 1 step 14)")
+                   help="not ported yet (ROADMAP Queue 1 step 14b, "
+                   "multi-device serving)")
     p.add_argument(
         "--max-batch", type=int, default=None, metavar="N",
         help="continuous-batching dispatch grain (default 1, the "

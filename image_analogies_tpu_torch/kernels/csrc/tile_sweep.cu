@@ -2,8 +2,8 @@
 // candidate offsets (kernel K1 of the port).
 //
 // Replaces: image_analogies_tpu/kernels/patchmatch_tile.py `_make_kernel`
-// (launched by `_tile_sweep_jit` through `tile_sweep`), for one A band,
-// with float32 A planes or, in the compressed-candidate mode, int8 A
+// (launched by `_tile_sweep_jit` through `tile_sweep`), over all of A or
+// one A band, with float32 A planes or, in the compressed-candidate mode, int8 A
 // planes on the static affine grid q = round(254 x - 127): the A load is
 // templated on the element type and an int8 value is dequantized to
 // (q + 127) * (1 / 254) in registers, the reference's formula, before
@@ -18,6 +18,11 @@
 //        read with edge-clamped coordinates (the planes arrive
 //        edge-padded by the halo, so no clamp is needed here);
 //   the recorded offset is (sy - ty0, sx - tx0) for every pixel;
+//   a band (row0, rows_own) owns the slots whose sy lies in
+//   [row0, row0 + rows_own): its planes start at A row row0 (minus the
+//   halo), A is read at sy - row0, and a slot outside the band is
+//   skipped like an invalid one (the reference's `ok` mask); the whole
+//   of A is the band (0, ha);
 //   slots 0-19 fold into a coherent running minimum seeded with the
 //   incoming state, slots 20-35 into an approximate one starting at +inf,
 //   both with a strict `<` in slot order; an invalid slot is skipped
@@ -122,6 +127,8 @@ struct Params {
   int n_chan, n_group0, ha, wa, a_h, a_w, b_h, b_w, n_ty, n_tx, tile_w;
   int taps0, dil0, taps1, dil1;
   int n_frames;          // the grid's z dimension
+  int band_row0;         // the A band: origin rows [row0, row0 + rows)
+  int band_rows;
   float coh_factor;
 };
 
@@ -175,21 +182,29 @@ __global__ void __launch_bounds__(NT, 2) tile_sweep_kernel(Params<TA> prm) {
     const int* cv = prm.cand_valid + cand_f + tile * K_TOTAL;
     const int* cy = prm.cand_y + cand_f + tile * K_TOTAL;
     const int* cx = prm.cand_x + cand_f + tile * K_TOTAL;
-    const bool v0 = cv[tid] > 0;
-    const bool v1 = tid < K_TOTAL - 32 && cv[32 + tid] > 0;
+    // Clamped origins; a slot counts only in the band that owns its sy.
+    const int sy0 = min(max(ty0 + cy[tid], 0), prm.ha - TILE_H);
+    const int sy1 =
+        tid < K_TOTAL - 32 ? min(max(ty0 + cy[32 + tid], 0), prm.ha - TILE_H)
+                           : 0;
+    const int lo = prm.band_row0;
+    const int hi = prm.band_row0 + prm.band_rows;
+    const bool v0 = cv[tid] > 0 && sy0 >= lo && sy0 < hi;
+    const bool v1 =
+        tid < K_TOTAL - 32 && cv[32 + tid] > 0 && sy1 >= lo && sy1 < hi;
     const unsigned m0 = __ballot_sync(0xffffffffu, v0);
     const unsigned m1 = __ballot_sync(0xffffffffu, v1);
     const unsigned below = (1u << tid) - 1u;
     if (v0) {
       const int pos = __popc(m0 & below);
       slot_k[pos] = tid;
-      slot_sy[pos] = min(max(ty0 + cy[tid], 0), prm.ha - TILE_H);
+      slot_sy[pos] = sy0 - lo;  // band-local
       slot_sx[pos] = min(max(tx0 + cx[tid], 0), prm.wa - prm.tile_w);
     }
     if (v1) {
       const int pos = __popc(m0) + __popc(m1 & below);
       slot_k[pos] = 32 + tid;
-      slot_sy[pos] = min(max(ty0 + cy[32 + tid], 0), prm.ha - TILE_H);
+      slot_sy[pos] = sy1 - lo;
       slot_sx[pos] = min(max(tx0 + cx[32 + tid], 0), prm.wa - prm.tile_w);
     }
     if (tid == 0) n_slots[0] = __popc(m0) + __popc(m1);
@@ -274,7 +289,7 @@ __global__ void __launch_bounds__(NT, 2) tile_sweep_kernel(Params<TA> prm) {
   // The separable window over plane `buf` and the two running minima.
   auto window_pass = [&](int j, int buf) {
     const int k = slot_k[j];
-    const int oy_o = slot_sy[j] - ty0;
+    const int oy_o = slot_sy[j] + prm.band_row0 - ty0;  // global
     const int ox_o = slot_sx[j] - tx0;
     // Row h * H + i of the plane is output row u = i - P of the thread.
     const float* p0 = acc + (buf * 2 * ROWS + h * H) * LANE + l + P;
@@ -421,11 +436,13 @@ Params<TA> make_params(
     const float* d_in, int* oy_out, int* ox_out, float* d_out,
     const float* weights, int n_chan, int n_group0, int ha, int wa, int a_h,
     int a_w, int b_h, int b_w, int n_ty, int n_tx, int tile_w, int taps0,
-    int dil0, int taps1, int dil1, int n_frames, float coh_factor) {
+    int dil0, int taps1, int dil1, int n_frames, int band_row0,
+    int band_rows, float coh_factor) {
   return Params<TA>{static_cast<const TA*>(a), b, cand_y, cand_x, cand_valid,
                     oy_in, ox_in, d_in, oy_out, ox_out, d_out, weights,
                     n_chan, n_group0, ha, wa, a_h, a_w, b_h, b_w, n_ty, n_tx,
-                    tile_w, taps0, dil0, taps1, dil1, n_frames, coh_factor};
+                    tile_w, taps0, dil0, taps1, dil1, n_frames, band_row0,
+                    band_rows, coh_factor};
 }
 
 }  // namespace
@@ -434,7 +451,9 @@ Params<TA> make_params(
 // `strip_rows` (8 or 16) is the wrapper's plan; `general` forces the
 // run-time tap loops where the fixed windows would apply.  `n_frames`
 // frames of B planes, candidate tables and state follow each other in
-// memory (one frame: the single-image sweep).
+// memory (one frame: the single-image sweep).  `band_row0` and
+// `band_rows` select the A band whose planes `a` points at (0 and ha:
+// all of A); the wrapper checks that the planes hold the band's rows.
 extern "C" int ia_tile_sweep(
     const void* a, const float* b, const int* cand_y, const int* cand_x,
     const int* cand_valid, const int* oy_in, const int* ox_in,
@@ -442,7 +461,8 @@ extern "C" int ia_tile_sweep(
     const float* weights, int n_chan, int n_group0, int ha, int wa, int a_h,
     int a_w, int b_h, int b_w, int n_ty, int n_tx, int tile_w, int halo,
     int taps0, int dil0, int taps1, int dil1, int a_int8, int strip_rows,
-    int general, int n_frames, float coh_factor, cudaStream_t stream) {
+    int general, int n_frames, int band_row0, int band_rows,
+    float coh_factor, cudaStream_t stream) {
   if (tile_w + 2 * halo != LANE) return (int)cudaErrorInvalidValue;
   if (n_frames < 1 || n_frames > 65535) return (int)cudaErrorInvalidValue;
   const bool fixed = !general && halo == 2 && taps0 == 5 && dil0 == 1 &&
@@ -451,7 +471,7 @@ extern "C" int ia_tile_sweep(
   make_params<TA>(a, b, cand_y, cand_x, cand_valid, oy_in, ox_in, d_in,      \
                   oy_out, ox_out, d_out, weights, n_chan, n_group0, ha, wa,  \
                   a_h, a_w, b_h, b_w, n_ty, n_tx, tile_w, taps0, dil0, taps1, \
-                  dil1, n_frames, coh_factor)
+                  dil1, n_frames, band_row0, band_rows, coh_factor)
   if (a_int8)
     return launch_halo(IA_PARAMS(signed char), halo, strip_rows, fixed,
                        stream);

@@ -103,6 +103,8 @@ _MAX_FRAMES = 65_535
 
 launches = LaunchCounter("tile_sweep")
 launches_int8 = LaunchCounter("tile_sweep_int8")
+# Launches that swept one A band (`band=`); each also counts above.
+launches_banded = LaunchCounter("tile_sweep_banded")
 
 # ---------------------------------------------------------------------------
 # Mode selection.  The reference's setters also drop its compiled level
@@ -279,24 +281,79 @@ def _edge_pad(planes: torch.Tensor, top, bottom, left, right) -> torch.Tensor:
     return F.pad(planes[None], (left, right, top, bottom), mode="replicate")[0]
 
 
+def band_rows(ha: int, n_bands: int) -> int:
+    """Rows of A each band owns (the last band may own fewer)."""
+    return -(-ha // n_bands)
+
+
+def band_bounds(ha: int, n_bands: int) -> list:
+    """The (row0, rows_own) of each band's sweep: band i owns the tile
+    origins of A rows [row0, row0 + rows_own).  The one band convention,
+    shared by the runners and the checks."""
+    rows_b = band_rows(ha, n_bands)
+    return [(i * rows_b, min(rows_b, ha - i * rows_b))
+            for i in range(n_bands)]
+
+
+def _channel_rows(src, flt, src_coarse, flt_coarse,
+                       rows: torch.Tensor) -> torch.Tensor:
+    """The channel planes of `channel_images` at A rows `rows` (C,
+    len(rows), wa) float32: an index clamped into A is the edge
+    padding, and a coarse plane's row r is its parent row r // 2."""
+    w = src.shape[1]
+    chans = [c.index_select(0, rows)
+             for c in _split_channels(src) + _split_channels(flt)]
+    if src_coarse is not None:
+        half = rows // 2
+        for img in (src_coarse, flt_coarse):
+            chans += [c.index_select(0, half).repeat_interleave(2, 1)[:, :w]
+                      for c in _split_channels(img)]
+    return torch.stack([c.float() for c in chans])
+
+
 def prepare_a_planes(src, flt, src_coarse, flt_coarse, specs,
-                     cand_dtype: Optional[str] = None) -> torch.Tensor:
+                     cand_dtype: Optional[str] = None,
+                     n_bands: Optional[int] = None,
+                     band: Optional[int] = None):
     """A-side planes (C, ha + 2P, wa + 2P), edge-padded: float32, or
     under the resolved `cand_dtype` "int8" the int8 grid
     clip(round(x * 254 - 127), -127, 127) (edge padding and pointwise
-    quantization commute)."""
+    quantization commute).
+
+    With `n_bands`, a tuple of `n_bands` band planes instead: band i
+    owns the origins of A rows [i * rows_b, (i + 1) * rows_b) (rows_b =
+    `band_rows`; `band_bounds` gives each band's sweep operand) and is
+    resident for TILE_H - 1 rows past them, so every origin it owns is
+    evaluated at its true position, none twice.  Each band holds rows_b
+    + TILE_H - 1 + 2P padded rows (one band: the whole planes); the
+    bottom is edge-padded past A, as the reference pads it.  With
+    `band` as well, that band's planes alone: every plane is gathered
+    from the rows it holds, so a rank of a band-sharded run never forms
+    the whole planes."""
     p = halo_for(specs)
-    planes = torch.stack(
-        [c.float() for c in channel_images(src, flt, src_coarse, flt_coarse)]
-    )
-    if len(planes) != len(specs):
-        raise ValueError(f"{len(planes)} planes for {len(specs)} specs")
-    planes = _edge_pad(planes, p, p, p, p)
-    if resolve_cand_dtype(cand_dtype) == "int8":
-        planes = torch.clamp(
-            torch.round(planes * _Q_SCALE - _Q_ZERO), -127.0, 127.0
-        ).to(torch.int8)
-    return planes.contiguous()
+    ha = src.shape[0]
+    k = n_bands or 1
+    rows_b = band_rows(ha, k)
+    span = rows_b + (TILE_H - 1 if k > 1 else 0) + 2 * p
+
+    def one(i):
+        rows = (torch.arange(span, device=src.device) + (i * rows_b - p)
+                ).clamp(0, ha - 1)
+        planes = _channel_rows(src, flt, src_coarse, flt_coarse, rows)
+        if len(planes) != len(specs):
+            raise ValueError(f"{len(planes)} planes for {len(specs)} specs")
+        planes = _edge_pad(planes, 0, 0, p, p)
+        if resolve_cand_dtype(cand_dtype) == "int8":
+            planes = torch.clamp(
+                torch.round(planes * _Q_SCALE - _Q_ZERO), -127.0, 127.0
+            ).to(torch.int8)
+        return planes.contiguous()
+
+    if n_bands is None:
+        return one(0)
+    if band is not None:
+        return one(band)
+    return tuple(one(i) for i in range(n_bands))
 
 
 def dequantize_planes(a_planes: torch.Tensor) -> torch.Tensor:
@@ -541,13 +598,36 @@ def prune_candidates(cand_y, cand_x, cand_valid, proj_b_tiles, qy, qx,
 # The sweep
 
 
-def _check_shapes(a_planes, b_planes, cand_y, off_y, specs, geom, ha, wa):
+def _band_rows_needed(band, ha: int, th: int, p: int) -> int:
+    """Padded A rows a band's planes must hold: the windows of every
+    origin the band owns (`prepare_a_planes(n_bands=)`)."""
+    row0, rows_own = band
+    if rows_own <= 0:
+        return th + 2 * p
+    return min(row0 + rows_own - 1, ha - th) - row0 + th + 2 * p
+
+
+def _check_shapes(a_planes, b_planes, cand_y, off_y, specs, geom, ha, wa,
+                  band=None):
     """The sweep's shape contract; returns the frame count F, or None
-    when the B side has no frame axis."""
+    when the B side has no frame axis.  With a `band` (row0, rows_own),
+    `a_planes` are that band's planes: at least the rows its owned
+    origins reach."""
     p, th, tw = geom.halo, geom.tile_h, geom.tile_w
     c = len(specs)
-    if tuple(a_planes.shape) != (c, ha + 2 * p, wa + 2 * p):
-        raise ValueError(f"a_planes {tuple(a_planes.shape)}")
+    if band is None:
+        if tuple(a_planes.shape) != (c, ha + 2 * p, wa + 2 * p):
+            raise ValueError(f"a_planes {tuple(a_planes.shape)}")
+    else:
+        row0, rows_own = (int(v) for v in band)
+        if row0 < 0 or row0 >= ha:
+            raise ValueError(f"band {tuple(band)} outside A's {ha} rows")
+        if (a_planes.ndim != 3 or a_planes.shape[0] != c
+                or a_planes.shape[2] != wa + 2 * p
+                or a_planes.shape[1] < _band_rows_needed(
+                    (row0, rows_own), ha, th, p)):
+            raise ValueError(f"band {tuple(band)} planes "
+                             f"{tuple(a_planes.shape)}")
     frames = b_planes.ndim == 4
     lead = tuple(b_planes.shape[:1]) if frames else ()
     if tuple(b_planes.shape) != lead + (
@@ -565,20 +645,26 @@ def _check_shapes(a_planes, b_planes, cand_y, off_y, specs, geom, ha, wa):
 
 def tile_sweep_plain(a_planes, b_planes, cand_y, cand_x, cand_valid,
                      off_y, off_x, dist, *, specs, geom: TileGeometry,
-                     ha: int, wa: int, coh_factor: float):
+                     ha: int, wa: int, coh_factor: float, band=None):
     """The plain PyTorch version of one sweep; returns the new compact
     (off_y int32, off_x int32, dist float32).  int8 A planes are
     dequantized first (`dequantize_planes`).  With a leading frame axis
     on the B planes, the candidate tables and the state (A is shared),
-    each frame is swept on its own and the results are stacked."""
+    each frame is swept on its own and the results are stacked.
+
+    `band` (row0, rows_own) sweeps one A band with its planes
+    (`prepare_a_planes(n_bands=)`): a slot counts only where the band
+    owns its clamped origin sy = clip(ty0 + oy, 0, ha - 64), which is
+    read at sy - row0 in the band's planes; the recorded offset stays
+    global (sy - ty0).  None: all of A."""
     n_f = _check_shapes(a_planes, b_planes, cand_y, off_y, specs, geom,
-                        ha, wa)
+                        ha, wa, band)
     if n_f is not None:
         outs = [
             tile_sweep_plain(
                 a_planes, b_planes[i], cand_y[i], cand_x[i], cand_valid[i],
                 off_y[i], off_x[i], dist[i], specs=specs, geom=geom, ha=ha,
-                wa=wa, coh_factor=coh_factor,
+                wa=wa, coh_factor=coh_factor, band=band,
             )
             for i in range(n_f)
         ]
@@ -611,10 +697,13 @@ def tile_sweep_plain(a_planes, b_planes, cand_y, cand_x, cand_valid,
     y_app = torch.zeros_like(y_coh)
     x_app = torch.zeros_like(x_coh)
     groups = spec_groups(tuple(specs))
+    row0, rows_own = (0, ha) if band is None else (int(v) for v in band)
+    sy_cap = a_planes.shape[1] - hp
     for k in range(K_TOTAL):
         sy = (ty0[:, None] + cand_y[..., k].long()).clamp(0, ha - th)
         sx = (tx0[None, :] + cand_x[..., k].long()).clamp(0, wa - tw)
-        dq = (b_t - windows(a_planes, sy, sx)) ** 2
+        sy_band = (sy - row0).clamp(0, sy_cap)
+        dq = (b_t - windows(a_planes, sy_band, sx)) ** 2
         d = None
         for sp, chans in groups:
             acc = dq[chans[0]]
@@ -632,7 +721,8 @@ def tile_sweep_plain(a_planes, b_planes, cand_y, cand_x, cand_valid,
                 term = wt * xs[..., o : o + th, :]
                 dg = term if dg is None else dg + term
             d = dg if d is None else d + dg
-        ok = (cand_valid[..., k] > 0)[:, :, None, None]
+        ok = (cand_valid[..., k] > 0) & (sy >= row0) & (sy < row0 + rows_own)
+        ok = ok[:, :, None, None]
         d = torch.where(ok, d, torch.full_like(d, float("inf")))
         oy_o = (sy - ty0[:, None]).to(torch.int32)[:, :, None, None]
         ox_o = (sx - tx0[None, :]).to(torch.int32)[:, :, None, None]
@@ -848,7 +938,7 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
                       off_y, off_x, dist, *, specs, geom: TileGeometry,
                       ha: int, wa: int, coh_factor: float,
                       general: bool = False,
-                      cand_budget: Optional[int] = None):
+                      cand_budget: Optional[int] = None, band=None):
     """The CUDA kernel on CUDA tensors; same contract as
     `tile_sweep_plain`, for float32 or int8 A planes (the int8 mode
     dequantizes in the kernel and counts in `launches_int8`).  `general`
@@ -856,7 +946,9 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
     take the compile-time instantiation.  A leading frame axis F on the
     B side is the grid's z dimension: one launch sweeps every frame,
     each block's work is the single-frame launch's, and the launch
-    counts once.  Launches on the current stream.
+    counts once.  `band` (row0, rows_own) are launch arguments, so one
+    compiled kernel sweeps every band; a band launch also counts in
+    `launches_banded`.  Launches on the current stream.
 
     Each launch books its candidate-window ledger beside its launch
     count: F x tiles x `cand_budget` (the prune's M; default all
@@ -864,13 +956,13 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
     `candidate_window_bytes_per_fetch`.  That is the launch's static
     bound: reading `cand_valid` back would cost a host sync a sweep."""
     n_f = _check_shapes(a_planes, b_planes, cand_y, off_y, specs, geom,
-                        ha, wa)
+                        ha, wa, band)
     if n_f is None:
         out = tile_sweep_kernel(
             a_planes, b_planes[None], cand_y[None], cand_x[None],
             cand_valid[None], off_y[None], off_x[None], dist[None],
             specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=coh_factor,
-            general=general, cand_budget=cand_budget,
+            general=general, cand_budget=cand_budget, band=band,
         )
         return tuple(t[0] for t in out)
     if not kernel_fits(specs):
@@ -897,6 +989,7 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
         if t.device != dev:
             raise ValueError("tile_sweep: tensors on different devices")
     rows = sweep_plan(c, p)
+    row0, rows_own = (0, ha) if band is None else (int(v) for v in band)
     _, desc = window_weights(specs)
     weights = _device_weights(tuple(specs), dev)
     n0, taps0, dil0 = desc[0]
@@ -912,10 +1005,12 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
         c, n0, ha, wa, a_planes.shape[1], a_planes.shape[2],
         b_planes.shape[2], b_planes.shape[3], n_ty, n_tx, tw, p,
         taps0, dil0, taps1, dil1, int(int8), rows, int(general), n_f,
-        float(coh_factor), stream_ptr(a_planes),
+        row0, rows_own, float(coh_factor), stream_ptr(a_planes),
     )
     check(err, "ia_tile_sweep")
     (launches_int8 if int8 else launches).add()
+    if band is not None:
+        launches_banded.add()
     book_launch(n_f * n_ty * n_tx * (cand_budget or K_TOTAL) * (th // rows),
                 c, rows, p, "int8" if int8 else "bf16")
     return oy_o, ox_o, d_o
@@ -924,14 +1019,16 @@ def tile_sweep_kernel(a_planes, b_planes, cand_y, cand_x, cand_valid,
 def tile_sweep(a_planes, b_planes, cand_y, cand_x, cand_valid, off_y,
                off_x, dist, *, specs, geom, ha, wa, coh_factor,
                plain: bool = False, cand_dtype: Optional[str] = None,
-               cand_budget: Optional[int] = None):
+               cand_budget: Optional[int] = None, band=None):
     """One sweep: the kernel for CUDA tensors, the plain version for CPU
     tensors, or the plain version on either device when `plain` (the
     explicit `pallas_mode="interpret"`).  The B side may carry a leading
     frame axis (one launch for all frames).  Raises when the A planes'
     dtype does not match the resolved `cand_dtype` (int8 planes for
     "int8", float32 for "bf16").  `cand_budget`, the prune's M, prices
-    the kernel's candidate-window ledger (`tile_sweep_kernel`)."""
+    the kernel's candidate-window ledger (`tile_sweep_kernel`).
+    `band` (row0, rows_own) sweeps one band's planes (`band_bounds`);
+    None sweeps all of A."""
     mode = resolve_cand_dtype(cand_dtype)
     want = torch.int8 if mode == "int8" else torch.float32
     if a_planes.dtype != want:
@@ -944,11 +1041,12 @@ def tile_sweep(a_planes, b_planes, cand_y, cand_x, cand_valid, off_y,
         return tile_sweep_kernel(
             a_planes, b_planes, cand_y, cand_x, cand_valid, off_y, off_x,
             dist, specs=specs, geom=geom, ha=ha, wa=wa,
-            coh_factor=coh_factor, cand_budget=cand_budget,
+            coh_factor=coh_factor, cand_budget=cand_budget, band=band,
         )
     return tile_sweep_plain(
         a_planes, b_planes, cand_y, cand_x, cand_valid, off_y, off_x, dist,
         specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=coh_factor,
+        band=band,
     )
 
 

@@ -324,25 +324,9 @@ def make_em_step(cfg: SynthConfig, level: int, has_coarse: bool,
             raw = RawPlanes(src_b, flt_b, src_b_c if has_coarse else None,
                             flt_b_c if has_coarse else None, a_planes, plan)
         if lean:
-            from .patchmatch import tile_patchmatch_lean
-
-            with scope("tlm_assemble"):
-                f_b = _stack_frames([
-                    assemble_features_lean(src_b[i], flt_b[i], cfg,
-                                           coarse(src_b_c, i),
-                                           coarse(flt_b_c, i))
-                    for i in frames
-                ])
-            ha, wa = copy_a.shape[:2]
-            with scope("tlm_match"):
-                py, px, dist = tile_patchmatch_lean(
-                    f_b, f_a, nnf[0], nnf[1], draws, raw=raw, cfg=cfg,
-                    level=level, plain=cfg.pallas_mode == "interpret",
-                    ha=ha, wa=wa, polish_iters=polish_iters,
-                )
-            with scope("tlm_render"):
-                return (py, px), dist, _stack_frames(
-                    [_gather_planes(copy_a, py[i], px[i]) for i in frames])
+            return lean_em_step(cfg, level, has_coarse, polish_iters, src_b,
+                                flt_b, src_b_c, flt_b_c, f_a, copy_a, nnf,
+                                draws, raw)
 
         def features(i):
             f = assemble_features(src_b[i], flt_b[i], cfg,
@@ -361,6 +345,46 @@ def make_em_step(cfg: SynthConfig, level: int, has_coarse: bool,
                 [_gather_image(copy_a, nnf[i]) for i in frames])
 
     return em_step
+
+
+def lean_em_step(cfg: SynthConfig, level: int, has_coarse: bool,
+                 polish_iters, src_b, flt_b, src_b_c, flt_b_c, f_a,
+                 copy_a, nnf, draws, raw: RawPlanes, *, dist_fn=None,
+                 bounds=None, sweep_merge=None):
+    """One lean PatchMatch EM step over a leading frame axis of the B
+    side: bf16 B tables assembled slab by slab, `tile_patchmatch_lean`
+    on the (py, px) field `nnf`, and the render.  The one body of the
+    single-device lean path (`make_em_step`) and of the band-sharded
+    runners (parallel/sharded_a.py, the 2-D spatial runner), which pass
+    `f_a` as their band's slice of the A table, `raw.a_planes` as their
+    band's planes and the three band hooks (`dist_fn`, `bounds`,
+    `sweep_merge`; see `tile_patchmatch_lean`), so the sharded runners
+    are bit-identical to this path where the reference pins it.
+    Returns ((py, px), dist, bp), each with the frame axis."""
+    from .patchmatch import tile_patchmatch_lean
+
+    frames = range(src_b.shape[0])
+
+    def coarse(x, i):
+        return x[i] if has_coarse else None
+
+    with scope("tlm_assemble"):
+        f_b = _stack_frames([
+            assemble_features_lean(src_b[i], flt_b[i], cfg,
+                                   coarse(src_b_c, i), coarse(flt_b_c, i))
+            for i in frames
+        ])
+    ha, wa = copy_a.shape[:2]
+    with scope("tlm_match"):
+        py, px, dist = tile_patchmatch_lean(
+            f_b, f_a, nnf[0], nnf[1], draws, raw=raw, cfg=cfg,
+            level=level, plain=cfg.pallas_mode == "interpret",
+            ha=ha, wa=wa, polish_iters=polish_iters, dist_fn=dist_fn,
+            bounds=bounds, sweep_merge=sweep_merge,
+        )
+    with scope("tlm_render"):
+        return (py, px), dist, _stack_frames(
+            [_gather_planes(copy_a, py[i], px[i]) for i in frames])
 
 
 def _feature_table_bytes(h: int, w: int, ha: int, wa: int,
@@ -449,7 +473,8 @@ class LevelPlan(NamedTuple):
 def plan_level(cfg: SynthConfig, level: int, src_a_l, flt_a_l,
                has_coarse: bool, h: int, w: int, prev_nnf=None,
                table_bytes: Optional[int] = None,
-               brute_lean: bool = True) -> LevelPlan:
+               brute_lean: bool = True,
+               eligible_shape=None) -> LevelPlan:
     """The `LevelPlan` of one level, by the reference's rules.  The tile
     plan exists for PatchMatch under pallas_mode "auto" / "interpret" on
     tile-eligible shapes.  A PatchMatch level is lean when it has a tile
@@ -462,7 +487,10 @@ def plan_level(cfg: SynthConfig, level: int, src_a_l, flt_a_l,
 
     `plan_frames` passes the estimate of a frame stack (one B table a
     resident frame); the batch and video runners also pass
-    `brute_lean=False` (their brute levels stay standard).  The reference's `work_scale` fed only
+    `brute_lean=False` (their brute levels stay standard), and the
+    spatial runner `eligible_shape`, the (rows, cols) of the slab its
+    step sees, against which the tile plan is made (the byte estimate
+    stays the global tables').  The reference's `work_scale` fed only
     its `fuse` rule, which the port drops (`LevelPlan`), so it has no
     counterpart here."""
     from ..kernels.patchmatch_tile import plan_channels
@@ -474,7 +502,8 @@ def plan_level(cfg: SynthConfig, level: int, src_a_l, flt_a_l,
     if cfg.matcher == "patchmatch" and tile_path(cfg):
         n_src = 1 if src_a_l.ndim == 2 else src_a_l.shape[-1]
         n_flt = 1 if flt_a_l.ndim == 2 else flt_a_l.shape[-1]
-        tile = plan_channels(n_src, n_flt, cfg, has_coarse, h, w, ha, wa)
+        eh, ew = eligible_shape if eligible_shape is not None else (h, w)
+        tile = plan_channels(n_src, n_flt, cfg, has_coarse, eh, ew, ha, wa)
     lean = (
         brute_lean and table_bytes > cfg.brute_lean_bytes
         if cfg.matcher == "brute"
@@ -533,12 +562,16 @@ def prologue(a, ap, frames, cfg: SynthConfig, levels: int, b_stats=None):
 
 
 def plan_frames(cfg: SynthConfig, level: int, levels: int, pyr, prev_nnf,
-                brute_lean: bool = True) -> LevelPlan:
+                brute_lean: bool = True,
+                n_frames: Optional[int] = None) -> LevelPlan:
     """`plan_level` of one level of a `prologue`, the tables' estimate
-    counting one B table a resident frame.  The batch and video runners
-    pass `brute_lean=False` (their brute levels stay standard)."""
+    counting one B table a resident frame (`n_frames`, default the
+    prologue's; the batch runner on a mesh passes its whole chunk's).
+    The batch and video runners pass `brute_lean=False` (their brute
+    levels stay standard)."""
     pyr_src_a, pyr_flt_a, pyr_src_b = pyr[:3]
     n_f, h, w = pyr_src_b[level].shape[:3]
+    n_f = n_frames or n_f
     ha, wa = pyr_src_a[level].shape[:2]
     return plan_level(
         cfg, level, pyr_src_a[level], pyr_flt_a[level], level < levels - 1,
@@ -633,8 +666,8 @@ def _run_level(cfg, level, levels, pyr, prev_nnf, prev_bp, plan, frame_idx,
     return nnf, dist, bp
 
 
-def level_eta_cost_units(cfg: SynthConfig, shapes,
-                         a_hw=None) -> Dict[str, float]:
+def level_eta_cost_units(cfg: SynthConfig, shapes, a_hw=None,
+                         runner: str = "single") -> Dict[str, float]:
     """The reference's modeled RELATIVE cost of every pyramid level,
     {str(level): units}, as its single-image and batch runners price
     them (its `runner` argument; the two price alike): per pixel,
@@ -645,8 +678,10 @@ def level_eta_cost_units(cfg: SynthConfig, shapes,
     step.  It prices relative cost only (the video's warm-cost ratio is
     a ratio of two of its sums), so the port keeps the reference's
     numbers and its aux equals the reference's; no time on the card is
-    derived from it.  The reference's sharded runners add a collective
-    term; they are not ported."""
+    derived from it.  The band-sharded runners ("sharded_a",
+    "spatial-banded") add the collective term the reference adds: the
+    level's all-reduces (`parallel.comms.sharded_a_allreduce_count`)
+    times the reference's per-merge bytes."""
     from ..kernels.patchmatch_tile import (
         K_TOTAL,
         candidate_dma_bytes_per_fetch,
@@ -665,6 +700,16 @@ def level_eta_cost_units(cfg: SynthConfig, shapes,
         else:
             moved, _ = candidate_dma_bytes_per_fetch(n_chan, 8)
             cost = cfg.em_iters * cfg.pm_iters * K_TOTAL * px * (moved / 8.0)
+        if runner in ("sharded_a", "spatial-banded") and a_hw is not None:
+            from ..parallel.comms import (
+                sharded_a_allreduce_count,
+                sharded_a_band_merge_bytes,
+            )
+
+            ah = max(1, int(a_hw[0]) // 2 ** level)
+            aw = max(1, int(a_hw[1]) // 2 ** level)
+            cost += (sharded_a_allreduce_count(cfg, ah, aw)
+                     * sharded_a_band_merge_bytes(cfg, h, w)["bytes_per_merge"])
         units[str(level)] = cost
     return units
 
@@ -685,12 +730,14 @@ def level_energy(dist: torch.Tensor) -> float:
 
 def record_prologue(tracer, pyr_raw_b, levels: int, t0: float,
                     cfg: SynthConfig, a_hw=None,
-                    runner: str = "single") -> None:
+                    runner: str = "single",
+                    mesh_plan: Optional[dict] = None) -> None:
     """Sync the prologue and record its span, then the `run_plan` mark:
     levels, per-level shapes and the modeled per-level cost units the
     supervisor's watchdog calibrates its deadlines from.  Shared by the
-    three runners; `pyr_raw_b` carries the leading frame axis.  A
-    disabled tracer returns at once (no sync)."""
+    runners; `pyr_raw_b` carries the leading frame axis.  `mesh_plan`
+    (the 2-D spatial runner) is the parallel/plan2d.py verdict, recorded
+    as it is.  A disabled tracer returns at once (no sync)."""
     if not tracer.enabled:
         return
     _device_sync(pyr_raw_b[levels - 1])
@@ -704,18 +751,80 @@ def record_prologue(tracer, pyr_raw_b, levels: int, t0: float,
         em_iters=cfg.em_iters,
         matcher=cfg.matcher,
         runner=runner,
-        eta_cost_units=level_eta_cost_units(cfg, shapes, a_hw),
+        eta_cost_units=level_eta_cost_units(cfg, shapes, a_hw, runner),
+        **({"mesh_plan": mesh_plan} if mesh_plan else {}),
     )
 
 
+def shard_sync_walls(level_t0: float, device, group) -> List[float]:
+    """Every rank's level wall (ms since its level clock started), its
+    device synchronised first, gathered to every rank of `group` in rank
+    order: the straggler watch's raw signal.  Called by every rank of
+    the group (it is a collective), by the multi-device runners when
+    their tracer is enabled."""
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = torch.tensor([(time.perf_counter() - level_t0) * 1000.0],
+                        dtype=torch.float64, device=device)
+    parts = [torch.empty_like(wall)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, wall, group=group)
+    return [round(float(p.item()), 3) for p in parts]
+
+
 def record_level_span(tracer, cfg: SynthConfig, level_t0: float,
-                      level: int, h, w, nnf_energy: float):
+                      level: int, h, w, nnf_energy: Optional[float],
+                      shard_walls: Optional[List[float]] = None,
+                      shard_axis: Optional[str] = None,
+                      extra_shard_walls=None, **attrs):
     """A timed `level` span recorded after the fact, with its declared
-    `em_iter` children: the batch and video runners' form (their level
-    wall is clocked around one synced level).  The single-image runner
-    records the same structure with a context-managed span and
-    `_record_level_telemetry`.  One device, so none of the reference's
-    per-shard walls."""
+    `em_iter` children: the batch, video and multi-device runners' form
+    (their level wall is clocked around one synced level).  The
+    single-image runner records the same structure with a
+    context-managed span and `_record_level_telemetry`.
+
+    With `shard_walls` (`shard_sync_walls`, one wall a rank of
+    `shard_axis`) the level also publishes the reference's straggler
+    gauges, `ia_shard_level_wall_ms{level, shard, axis}` and
+    `ia_shard_imbalance_ratio{level, axis}` (max / median), and carries
+    both on the span (`shard_walls_ms`, `shard_imbalance`);
+    `extra_shard_walls` ({axis: walls}) adds further axes as
+    `shard_walls_ms_<axis>` / `shard_imbalance_<axis>`."""
+    wall_sets = []
+    if shard_walls:
+        wall_sets.append((shard_axis or "shard", shard_walls, True))
+    for ax, walls in (extra_shard_walls or {}).items():
+        if walls:
+            wall_sets.append((ax, walls, False))
+    reg = tracer.registry if tracer.registry is not None else get_registry()
+    for axis, walls, primary in wall_sets:
+        srt = sorted(walls)
+        n = len(srt)
+        med = (srt[n // 2] if n % 2
+               else (srt[n // 2 - 1] + srt[n // 2]) / 2.0)
+        ratio = round(max(walls) / med, 4) if med > 0 else 1.0
+        if primary:
+            attrs["shard_walls_ms"] = walls
+            attrs["shard_imbalance"] = ratio
+        else:
+            attrs[f"shard_walls_ms_{axis}"] = walls
+            attrs[f"shard_imbalance_{axis}"] = ratio
+        wall_g = reg.gauge(
+            "ia_shard_level_wall_ms",
+            "per-shard completion wall per pyramid level (ms since "
+            "level start; straggler watch)",
+        )
+        for i, wall in enumerate(walls):
+            wall_g.set(wall, labels={
+                "level": str(level), "shard": str(i), "axis": axis,
+            })
+        reg.gauge(
+            "ia_shard_imbalance_ratio",
+            "max/median per-shard level wall (1.0 = balanced; the "
+            "sentinel flags sustained skew)",
+        ).set(ratio, labels={"level": str(level), "axis": axis})
     sp = tracer.record(
         "level",
         round((time.perf_counter() - level_t0) * 1000, 3),
@@ -723,6 +832,7 @@ def record_level_span(tracer, cfg: SynthConfig, level_t0: float,
         shape=[int(h), int(w)],
         em_iters=cfg.em_iters,
         nnf_energy=nnf_energy,
+        **attrs,
     )
     for em in range(cfg.em_iters):
         tracer.annotate("em_iter", parent=sp, em=em)

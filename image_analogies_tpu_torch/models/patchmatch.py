@@ -588,6 +588,9 @@ def tile_patchmatch_lean(
     wa: int,
     polish_iters: Optional[int] = None,
     prune_tabs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    dist_fn=None,
+    bounds=None,
+    sweep_merge=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The tile path on (N, D) bf16 tables and a (py, px) plane-pair
     field: `pm_iters` K1 sweeps in the raw-plane metric, a merge with the
@@ -601,8 +604,23 @@ def tile_patchmatch_lean(
     dtype, PCA prune, restart mode) and the polish engine are resolved
     once per call.  `plain` runs the kernels' plain versions on either
     device (pallas_mode="interpret").  The returned distances are in the
-    bf16-table metric.  One A band (`n_bands == 1`).  Returns
-    (py, px, dist).
+    bf16-table metric.  Returns (py, px, dist).
+
+    A bands.  `raw.a_planes` is the whole A's planes, or a tuple of band
+    planes (`prepare_a_planes(n_bands=)`) swept in turn with carried
+    state, each against its `bounds` entry (default `band_bounds`).
+    The band-sharded runners (parallel/sharded_a.py, the 2-D spatial
+    runner) pass their own band and three hooks, as the reference's
+    `lean_em_step` does:
+      - `dist_fn(f_b_tab) -> (idx -> dist)`: the feature-metric
+        distances (a masked local gather merged across the bands) in
+        place of `candidate_dist_lean` on the tables; `f_a_tab` is then
+        the rank's own slice.  Such callers keep the full candidate
+        set (no prune: a local basis would rank against the wrong
+        rows) and the sequential polish cascade on their `dist_fn`;
+      - `bounds`: each band's (row0, rows_own);
+      - `sweep_merge(oy, ox, d) -> (oy, ox, d)`: after every sweep's
+        bands, the cross-band argmin merge.
 
     Frames.  With a leading frame axis F on `f_b_tab` (F, N, D), on
     `py` / `px` (F, H, W), on `raw`'s B images and on the B side of
@@ -620,6 +638,7 @@ def tile_patchmatch_lean(
             ha=ha, wa=wa, polish_iters=polish_iters,
             prune_tabs=None if prune_tabs is None
             else (prune_tabs[0][None], prune_tabs[1]),
+            dist_fn=dist_fn, bounds=bounds, sweep_merge=sweep_merge,
         )
         return py[0], px[0], dist[0]
 
@@ -636,20 +655,28 @@ def tile_patchmatch_lean(
     )
     cand_dtype, polish_mode = pt.resolve_cand_dtype(), _POLISH_MODE
     coarse_restarts = pt._RESTART_MODE == "coarse"
-    prune = pt.resolve_prune()
+    default_dist = dist_fn is None
+    prune = pt.resolve_prune() if default_dist else None
     b_prune, a_prune = prune_tabs or (f_b_tab, f_a_tab)
     prune_states = [
         _prune_setup(prune, b_prune[i], a_prune, geom, h, w)
         for i in range(n_f)
     ]
+    if default_dist:
+        def dist_fn(f_b):
+            return lambda idx: candidate_dist_lean(f_b, f_a_tab, idx)
 
-    def dist_fn(i):
-        return lambda idx: candidate_dist_lean(f_b_tab[i], f_a_tab, idx)
+    dists = [dist_fn(f_b_tab[i]) for i in range(n_f)]
+    a_bands = (raw.a_planes if isinstance(raw.a_planes, tuple)
+               else (raw.a_planes,))
+    if bounds is None:
+        bounds = (pt.band_bounds(ha, len(a_bands))
+                  if isinstance(raw.a_planes, tuple) else (None,))
 
     py = py.long().clamp(0, ha - 1)
     px = px.long().clamp(0, wa - 1)
     dist0 = torch.stack([
-        dist_fn(i)((py[i] * wa + px[i]).reshape(-1)).reshape(h, w)
+        dists[i]((py[i] * wa + px[i]).reshape(-1)).reshape(h, w)
         for i in range(n_f)
     ])
 
@@ -691,23 +718,26 @@ def tile_patchmatch_lean(
                 )
             tables.append((cand_y, cand_x, cand_valid))
         cand_y, cand_x, cand_valid = (torch.stack(c) for c in zip(*tables))
-        oy, ox, d = pt.tile_sweep(
-            raw.a_planes, b_planes, cand_y, cand_x, cand_valid, oy, ox, d,
-            specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=coh,
-            plain=plain, cand_dtype=cand_dtype,
-            cand_budget=prune[1] if prune else None,
-        )
+        for planes, band in zip(a_bands, bounds):
+            oy, ox, d = pt.tile_sweep(
+                planes, b_planes, cand_y, cand_x, cand_valid, oy, ox, d,
+                specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=coh,
+                plain=plain, cand_dtype=cand_dtype,
+                cand_budget=prune[1] if prune else None, band=band,
+            )
+        if sweep_merge is not None:
+            oy, ox, d = sweep_merge(oy, ox, d)
     ky = (qy + oy[:, :h, :w].long()).clamp(0, ha - 1)
     kx = (qx + ox[:, :h, :w].long()).clamp(0, wa - 1)
     # The sweep state is dead from here; free it before the polish.
     del b_planes, oy, ox, d, prune_states
     outs = [
         _merge_and_polish(
-            py[i], px[i], dist0[i], ky[i], kx[i], draws[i], dist_fn(i),
+            py[i], px[i], dist0[i], ky[i], kx[i], draws[i], dists[i],
             f_b_tab[i], f_a_tab, cfg=cfg, plain=plain, ha=ha, wa=wa,
             coh=coh, pm_iters=pm_iters, polish_iters=polish_iters,
             polish_random=polish_random, cand_dtype=cand_dtype,
-            polish_mode=polish_mode,
+            polish_mode=polish_mode, default_dist=default_dist,
         )
         for i in range(n_f)
     ]
@@ -718,11 +748,14 @@ def _merge_and_polish(py, px, dist0, ky, kx, draws: SweepDraws, dist_fn,
                       f_b_tab, f_a_tab, *, cfg: SynthConfig, plain: bool,
                       ha: int, wa: int, coh: float, pm_iters: int,
                       polish_iters: int, polish_random: int,
-                      cand_dtype: str, polish_mode: str):
+                      cand_dtype: str, polish_mode: str,
+                      default_dist: bool = True):
     """One frame's tail of the tile path: the exact-metric merge of the
     kernel's match (ky, kx) into the incoming field (py, px; distances
     dist0), the polish from slot `pm_iters` of `draws`, and the kappa
-    pass.  Returns (py, px, dist)."""
+    pass.  A caller's own `dist_fn` (not `default_dist`) keeps the
+    sequential cascade on it in "stream" mode, as the reference does.
+    Returns (py, px, dist)."""
     h, w = py.shape
     dev = py.device
     # Exact-metric merge: adopt the kernel's match only where it wins.
@@ -736,12 +769,14 @@ def _merge_and_polish(py, px, dist0, ky, kx, draws: SweepDraws, dist_fn,
     offsets = sweep_offsets(draws.gen(pm_iters, dev), polish_iters,
                             sweep_radii(ha, wa, polish_random), h, w)
     if polish_mode in ("sequential", "stream"):
-        gf = _polish_gather_fn(f_a_tab, plain, cand_dtype, polish_mode)
+        polish_dist = dist_fn
+        if default_dist:
+            gf = _polish_gather_fn(f_a_tab, plain, cand_dtype, polish_mode)
+            polish_dist = (lambda idx: candidate_dist_lean(  # noqa: E731
+                f_b_tab, f_a_tab, idx, gather_fn=gf))
         py, px, dist = patchmatch_sweeps_lean(
             f_b_tab, f_a_tab, py, px, offsets, ha=ha, wa=wa,
-            coh_factor=coh,
-            dist_fn=lambda idx: candidate_dist_lean(
-                f_b_tab, f_a_tab, idx, gather_fn=gf),
+            coh_factor=coh, dist_fn=polish_dist,
         )
     else:
         py, px, dist = polish_sweeps_planes(

@@ -16,18 +16,26 @@ stack (`frame_indices` overrides it).  Checkpoints use the single-image
 writer with the reference's batch fingerprint and `frames_{i:05d}`
 chunk subdirectories, so either package resumes the other's.
 
+With a `mesh` (parallel/mesh.py; SPMD, every rank of the mesh calls
+the runner with the same inputs) the frames shard over the "batch"
+ranks: the chunk is padded with its last frame to a multiple of the
+ranks (and resumed state re-padded the same way), each rank runs its
+block of frames with the A side built on the rank itself, and the
+outputs are gathered to every rank.  The remap statistics are the whole
+stack's, computed on every rank, and an EM step issues no collective
+(`parallel.comms.batch_em_collectives`); the per-level checkpoints
+gather the whole chunk's state to rank 0, which writes it without the
+padding, so a checkpoint resumes onto any number of ranks.
+
 Dropped from the reference, as TPU or not-yet-ported mechanics:
-  - the device mesh, `NamedSharding` and the padding of the frame count
-    to the mesh's grain (one device pads nothing; multi-device runs are
-    ROADMAP Queue 1 step 14), so there is no `mesh` argument;
-  - the serving tier's executable persist hook (`_PersistWrap`): its
-    disk tier is ROADMAP Queue 1 step 13b;
+  - the serving tier's executable persist hook (`_PersistWrap`): the
+    port's warm tier keeps an index of shapes (serving/excache.py);
   - `fa_external`, `fuse`, `_SAFE_EXEC_DIST_ELEMS` and the forcing of
     brute runs to one frame per step: TPU execution-size rules, dropped
-    as the single-image runner drops them (outputs do not depend on the
-    chunking, so no result changes);
-  - the per-shard completion walls of the level spans (one device); a
-    lean tracer skips the level's energy readback, as the reference's.
+    for good as the single-image runner drops them (outputs do not
+    depend on the chunking, so no result changes).
+A lean tracer skips the level's energy readback and the shard walls,
+as the reference's does.
 The reference's telemetry and faults are kept: `progress` gets the
 `prologue` span, the `run_plan` mark and one `level` span a level with
 its `em_iter` children (one device sync a level when enabled), and the
@@ -65,6 +73,7 @@ from ..runtime.faults import fire as _fault_fire
 from ..telemetry.spans import as_tracer
 from ..utils.io import load_image
 from ..utils.profiling import scope
+from .mesh import BATCH_AXIS
 
 
 def _as_tensor(x, dev) -> torch.Tensor:
@@ -113,6 +122,7 @@ def synthesize_batch(
     frame_indices=None,
     return_nnf: bool = False,
     progress=None,
+    mesh=None,
     _b_stats=None,
     _frame_offset: int = 0,
     _n_stack: Optional[int] = None,
@@ -137,12 +147,23 @@ def synthesize_batch(
     reference's fingerprint ((F, H, W[, C], whole-stack length, chunk
     offset[, frame indices])).  `resume_strict` raises on an unusable
     one.  `progress`: a ProgressWriter or `telemetry.Tracer` (module
-    docstring).  `_b_stats`, `_frame_offset` and `_n_stack` carry the
-    whole stack's statistics, the chunk's offset and the stack's length
-    into the chunks."""
+    docstring; on a mesh, every rank's or none).  `mesh`: a one-axis
+    ("batch") DeviceMesh to shard the frames over (module docstring);
+    a rank outside it returns None.  `_b_stats`, `_frame_offset` and
+    `_n_stack` carry the whole stack's statistics, the chunk's offset
+    and the stack's length into the chunks."""
     cfg = cfg or SynthConfig()
     tracer = as_tracer(progress)
     dev = resolve_device(cfg)
+    if mesh is not None:
+        from .mesh import in_mesh
+
+        if tuple(mesh.mesh_dim_names) != (BATCH_AXIS,):
+            raise ValueError(f"batch mesh must have a single "
+                             f"'{BATCH_AXIS}' axis, got "
+                             f"{tuple(mesh.mesh_dim_names)}")
+        if not in_mesh(mesh):
+            return None
     if frames_per_step is not None and frames_per_step < 1:
         raise ValueError("frames_per_step must be >= 1")
     frames = _as_tensor(frames, dev)
@@ -182,8 +203,8 @@ def synthesize_batch(
                 resume_from=(os.path.join(resume_from, f"frames_{i:05d}")
                              if resume_from else None),
                 resume_strict=resume_strict, frame_indices=idx,
-                return_nnf=return_nnf, progress=tracer, _b_stats=_b_stats,
-                _frame_offset=i, _n_stack=n,
+                return_nnf=return_nnf, progress=tracer, mesh=mesh,
+                _b_stats=_b_stats, _frame_offset=i, _n_stack=n,
             )
             if return_nnf:
                 res, chunk_nnf = res
@@ -200,45 +221,127 @@ def synthesize_batch(
                  else list(range(_frame_offset, _frame_offset + n)))
     fp_shape = _batch_fingerprint_shape(frames, n_stack, _frame_offset,
                                         frame_indices)
+    shard = _Shard(mesh, n)
+    frame_idx = shard.indices(frame_idx)
     start = levels - 1
     nnf = bp = None
     resumed = resume_prologue(resume_from, levels, cfg, fp_shape,
                               strict=resume_strict, progress=tracer)
     if resumed is not None:
         start, nnf, bp, _ = resumed
-        nnf = torch.as_tensor(nnf, device=dev).long()
-        bp = _as_tensor(bp, dev)
+        nnf = shard.local(torch.as_tensor(nnf, device=dev).long())
+        bp = shard.local(_as_tensor(bp, dev))
         if start < 0:
             # Every level was checkpointed: only the chroma is needed.
-            yiq_b = (rgb_to_yiq(frames) if cfg.color_mode == "luminance"
+            frames_l = shard.local(frames)
+            yiq_b = (rgb_to_yiq(frames_l) if cfg.color_mode == "luminance"
                      and frames.ndim == 4 else None)
-            out = _finalize_batch(bp, yiq_b, frames, cfg)
-            return (out, nnf_host(nnf)) if return_nnf else out
+            out = shard.gather(_finalize_batch(bp, yiq_b, frames_l, cfg))
+            return ((out, nnf_host(shard.gather(nnf))) if return_nnf
+                    else out)
 
     prologue_t0 = time.perf_counter()
+    frames_l = shard.local(frames)
     with scope("tlm_prologue"):
-        pyr = prologue(a, ap, frames, cfg, levels, _b_stats)
+        pyr = prologue(a, ap, frames_l, cfg, levels, _b_stats)
     record_prologue(tracer, pyr[4], levels, prologue_t0, cfg=cfg,
                     a_hw=tuple(a.shape[:2]), runner="batch")
     for level in range(start, -1, -1):
         _fault_fire("level", level)
         level_t0 = time.perf_counter()
-        plan = plan_frames(cfg, level, levels, pyr, nnf, brute_lean=False)
+        # The lean rule counts the chunk's frames, whatever the ranks.
+        plan = plan_frames(cfg, level, levels, pyr, nnf, brute_lean=False,
+                           n_frames=n)
         _fault_fire("kernel", level)
         nnf, dist, bp = run_level(cfg, level, levels, pyr, nnf, bp, plan,
                                   frame_idx)
         if tracer.enabled:
             # A lean tracer (the serving daemon's per-request one) keeps
-            # the level span and skips the energy readback, a sync.
+            # the level span and skips the energy readback and the shard
+            # walls, syncs both.
             h, w = pyr[2][level].shape[1:3]
+            walls = None
+            if shard.group is not None and not tracer.lean:
+                from ..models.analogy import shard_sync_walls
+
+                walls = shard_sync_walls(level_t0, dev, shard.group)
             record_level_span(
                 tracer, cfg, level_t0, level, h, w,
-                None if tracer.lean else level_energy(dist))
+                None if tracer.lean else shard.energy(dist),
+                shard_walls=walls, shard_axis=BATCH_AXIS)
         if cfg.save_level_artifacts:
-            _save_level(cfg.save_level_artifacts, level, nnf, dist, bp, cfg,
-                        fp_shape)
-    out = _finalize_batch(bp, pyr[5], frames, cfg)
-    return (out, nnf_host(nnf)) if return_nnf else out
+            state = [shard.gather(x) for x in (
+                nnf if isinstance(nnf, tuple) else (nnf,))]
+            dist_g, bp_g = shard.gather(dist), shard.gather(bp)
+            if shard.rank == 0:
+                _save_level(cfg.save_level_artifacts, level,
+                            tuple(state) if len(state) == 2 else state[0],
+                            dist_g, bp_g, cfg, fp_shape)
+    out = shard.gather(_finalize_batch(bp, pyr[5], frames_l, cfg))
+    if return_nnf:
+        nnf = (tuple(shard.gather(p) for p in nnf) if isinstance(nnf, tuple)
+               else shard.gather(nnf))
+        return out, nnf_host(nnf)
+    return out
+
+
+class _Shard:
+    """A chunk's frames over the "batch" ranks of a mesh (or all on one
+    device without one): the padded block this rank runs, and the
+    gathers back to the whole chunk, padding trimmed."""
+
+    def __init__(self, mesh, n: int):
+        self.n = n
+        self.mesh = mesh
+        self.group = None
+        self.rank, self.size = 0, 1
+        if mesh is not None:
+            from .mesh import axis_group, axis_rank, axis_size
+
+            self.group = axis_group(mesh, BATCH_AXIS)
+            self.rank = axis_rank(mesh, BATCH_AXIS)
+            self.size = axis_size(mesh, BATCH_AXIS)
+        self.n_pad = (-n) % self.size
+        self.per = (n + self.n_pad) // self.size
+
+    def indices(self, idx: list) -> list:
+        """This rank's frame identities: the padding repeats the last."""
+        idx = list(idx) + [idx[-1]] * self.n_pad
+        return idx[self.rank * self.per : (self.rank + 1) * self.per]
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a whole-chunk tensor, padded with its
+        last frame (resumed state is re-padded the same way)."""
+        if self.group is None:
+            return x
+        from .mesh import batch_sharding
+
+        if self.n_pad:
+            x = torch.cat([x] + [x[-1:]] * self.n_pad)
+        return batch_sharding(x, self.mesh)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole chunk from every rank's block, padding trimmed."""
+        if self.group is None:
+            return x
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts)[: self.n]
+
+    def energy(self, dist_l: torch.Tensor) -> float:
+        """The level's mean distance over the whole padded chunk."""
+        if self.group is None:
+            return level_energy(dist_l)
+        import torch.distributed as dist
+
+        t = torch.stack([dist_l.double().sum(),
+                         torch.tensor(float(dist_l.numel()),
+                                      dtype=torch.float64,
+                                      device=dist_l.device)])
+        dist.all_reduce(t, group=self.group)
+        return float(t[0] / t[1])
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,324 @@
+"""Device meshes over `torch.distributed`, and the launcher of ranks.
+
+The reference is single-controller: one process holds a
+`jax.sharding.Mesh` and `shard_map` places each shard's work.  The port
+is SPMD: one process per rank, every rank runs the same runner on its
+own shard, and the cross-rank traffic is explicit `torch.distributed`
+calls at named sites (parallel/comms.py).  A mesh is a
+`torch.distributed.device_mesh.DeviceMesh` with the reference's axis
+names ("batch", "space", "bands", "slabs").
+
+The backend follows the tensors' device, chosen by the caller: NCCL for
+CUDA tensors, gloo for CPU tensors (several CPU processes stand in for
+the reference's 8 virtual devices).  `device_type` defaults to "cuda",
+as the port's entry points do, and a CUDA mesh or launch raises on a
+machine without a card; the CPU is asked for with device_type="cpu".
+Nothing switches backend or device when something fails.
+
+`spawn` starts `n` ranks (start method "spawn", rendezvous on a free
+127.0.0.1 port, a collective timeout so a hung rank fails instead of
+hanging its caller), runs a function on each and returns rank 0's
+result, re-raising any rank's exception.  `initialize_multihost` joins
+a `torchrun` world from its environment.  The reference's `shard_map`
+version shim has no counterpart: there is no shard_map.
+"""
+
+from __future__ import annotations
+
+import datetime
+import logging
+import os
+import pickle
+import socket
+import time
+import traceback
+from typing import Any, Callable, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+BATCH_AXIS = "batch"
+SPACE_AXIS = "space"
+BANDS_AXIS = "bands"
+SLABS_AXIS = "slabs"
+
+# A collective that waits longer than this fails its rank (gloo and
+# NCCL both honour the process group's timeout).
+DEFAULT_TIMEOUT_S = 300.0
+
+log = logging.getLogger("image_analogies_tpu_torch")
+
+
+def backend_for(device_type: str) -> str:
+    """The process-group backend for tensors of `device_type`."""
+    return "nccl" if device_type == "cuda" else "gloo"
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return int(s.getsockname()[1])
+
+
+def _init_world(backend: str, world_size: int, rank: int, port: int,
+                timeout_s: float) -> None:
+    dist.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{port}",
+        world_size=world_size, rank=rank,
+        timeout=datetime.timedelta(seconds=timeout_s),
+    )
+
+
+def _require_device(device_type: str) -> None:
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "a CUDA mesh was asked for, but torch.cuda.is_available() is "
+            "False; pass device_type='cpu' for gloo ranks on the CPU")
+
+
+def world_size() -> int:
+    """Ranks of the current world (1 when none is initialized)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def world_rank() -> int:
+    """This process's rank in the current world (0 when none)."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def make_mesh(
+    n_devices: Optional[int] = None,
+    axis_names: Sequence[str] = (BATCH_AXIS,),
+    shape: Optional[Tuple[int, ...]] = None,
+    device_type: str = "cuda",
+):
+    """A `DeviceMesh` over the first `n_devices` ranks of the world
+    (default: all), `shape` splitting them over named axes, e.g.
+    shape=(2, 2), axis_names=("bands", "slabs").  With no world
+    initialized, a one-rank world of `backend_for(device_type)` is
+    started on 127.0.0.1, so a single process runs the runners as a
+    mesh of one.  Raises when more ranks are asked for than the world
+    has, and for a "cuda" mesh without a card."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    _require_device(device_type)
+    if not dist.is_initialized():
+        if n_devices not in (None, 1):
+            raise ValueError(f"requested {n_devices} devices, have 1")
+        _init_world(backend_for(device_type), 1, 0, _free_port(),
+                    DEFAULT_TIMEOUT_S)
+    have = dist.get_world_size()
+    n = have if n_devices is None else int(n_devices)
+    if n > have or n < 1:
+        raise ValueError(f"requested {n} devices, have {have}")
+    shape = tuple(shape) if shape is not None else (n,)
+    if int(torch.tensor(shape).prod()) != n:
+        raise ValueError(f"mesh shape {shape} does not hold {n} devices")
+    if len(shape) != len(tuple(axis_names)):
+        raise ValueError(f"{len(shape)} mesh axes named {tuple(axis_names)}")
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
+                      mesh_dim_names=tuple(axis_names))
+
+
+def initialize_multihost(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    backend: str = "gloo",
+    timeout_s: float = DEFAULT_TIMEOUT_S,
+) -> bool:
+    """Join a multi-process world: with explicit arguments at
+    `tcp://coordinator_address`, else from a `torchrun` environment
+    (`env://`: WORLD_SIZE, RANK, MASTER_ADDR, MASTER_PORT).  Returns
+    True when a world was joined (or already was), False when there is
+    no cluster environment (a single process: the runners then make a
+    mesh of one).  An explicit spec that fails raises."""
+    if num_processes is not None and num_processes <= 1:
+        return False
+    if dist.is_initialized():
+        return True
+    timeout = datetime.timedelta(seconds=timeout_s)
+    if coordinator_address or num_processes or process_id is not None:
+        if not (coordinator_address and num_processes
+                and process_id is not None):
+            raise ValueError(
+                "an explicit world needs coordinator_address, "
+                "num_processes and process_id"
+            )
+        dist.init_process_group(
+            backend, init_method=f"tcp://{coordinator_address}",
+            world_size=int(num_processes), rank=int(process_id),
+            timeout=timeout,
+        )
+        return True
+    env = os.environ
+    if all(k in env for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR",
+                              "MASTER_PORT")):
+        if int(env["WORLD_SIZE"]) <= 1:
+            return False
+        dist.init_process_group(backend, init_method="env://",
+                                timeout=timeout)
+        return True
+    log.info("no cluster environment detected; running single-process")
+    return False
+
+
+def make_hybrid_mesh(dcn_axis: str = BATCH_AXIS,
+                     ici_axis: str = SPACE_AXIS, device_type: str = "cuda"):
+    """A 2-D mesh with the slower axis outermost: (hosts, ranks per
+    host) when `torchrun`'s LOCAL_WORLD_SIZE says the world spans
+    several hosts (frames across hosts, halos inside one), else
+    (1, world) — the reference's layout recipe, with hosts in place of
+    TPU slices."""
+    n = world_size() if dist.is_initialized() else 1
+    per_host = int(os.environ.get("LOCAL_WORLD_SIZE", n) or n)
+    if per_host < n and n % per_host == 0:
+        shape = (n // per_host, per_host)
+    else:
+        shape = (1, n)
+    return make_mesh(n, axis_names=(dcn_axis, ici_axis), shape=shape,
+                     device_type=device_type)
+
+
+# ---------------------------------------------------------------------------
+# Axis helpers: the reference's shardings, as what one rank holds.
+
+
+def axis_group(mesh, axis: str):
+    """The process group of `axis` that this rank belongs to."""
+    return mesh.get_group(mesh_dim=axis)
+
+
+def axis_size(mesh, axis: str) -> int:
+    return int(mesh.shape[list(mesh.mesh_dim_names).index(axis)])
+
+
+def axis_rank(mesh, axis: str) -> int:
+    """This rank's coordinate along `axis`."""
+    return int(mesh.get_local_rank(mesh_dim=axis))
+
+
+def in_mesh(mesh) -> bool:
+    """Whether this rank is one of the mesh's (a mesh over fewer ranks
+    than the world leaves the others out)."""
+    return mesh.get_coordinate() is not None
+
+
+def batch_sharding(x: torch.Tensor, mesh, axis: str = BATCH_AXIS):
+    """This rank's block of `x`'s leading axis, split evenly over
+    `axis` (the reference's `NamedSharding(mesh, P(axis))`)."""
+    n, r = axis_size(mesh, axis), axis_rank(mesh, axis)
+    if x.shape[0] % n:
+        raise ValueError(f"leading axis {x.shape[0]} does not split over "
+                         f"{n} ranks")
+    per = x.shape[0] // n
+    return x[r * per : (r + 1) * per]
+
+
+def replicated(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The whole tensor: every rank holds it (`P()`)."""
+    return x
+
+
+# ---------------------------------------------------------------------------
+# The launcher.
+
+
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, tuple):
+        return tuple(_to_cpu(o) for o in obj)
+    if isinstance(obj, list):
+        return [_to_cpu(o) for o in obj]
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    return obj
+
+
+def _rank_main(rank: int, fn: Callable, n: int, backend: str,
+               device_type: str, devices, port: int, args: tuple,
+               queue, timeout_s: float) -> None:
+    """One spawned rank: join the world, run `fn(*args)`, report."""
+    try:
+        if device_type == "cuda":
+            torch.cuda.set_device(devices[rank] if devices else rank)
+        _init_world(backend, n, rank, port, timeout_s)
+        try:
+            out = fn(*args)
+            # Pickled to bytes here: a tensor put on the queue as it is
+            # travels as a shared-memory handle, gone once this process
+            # exits.
+            queue.put((rank, "ok",
+                       pickle.dumps(_to_cpu(out)) if rank == 0 else None))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        queue.put((rank, "error", traceback.format_exc()))
+
+
+def spawn(fn: Callable, n: int, backend: Optional[str] = None,
+          device_type: str = "cuda", devices=None, args: tuple = (),
+          timeout_s: float = DEFAULT_TIMEOUT_S) -> Any:
+    """Run `fn(*args)` on `n` new ranks of a fresh world and return rank
+    0's result (tensors moved to the CPU).  `fn` must be importable by
+    name (start method "spawn").  Rank r runs on `cuda:devices[r]`
+    (default `cuda:r`) when `device_type` is "cuda"; the backend
+    defaults to `backend_for(device_type)`.  Any rank's exception, or a
+    rank that dies without reporting, raises here after every rank has
+    stopped; "cuda" ranks without a card raise before any starts."""
+    import torch.multiprocessing as mp
+
+    if n < 1:
+        raise ValueError(f"{n} ranks")
+    _require_device(device_type)
+    backend = backend or backend_for(device_type)
+    ctx = mp.get_context("spawn")
+    queue = ctx.SimpleQueue()
+    port = _free_port()
+    procs = [
+        ctx.Process(target=_rank_main,
+                    args=(r, fn, n, backend, device_type, devices, port,
+                          args, queue, timeout_s),
+                    name=f"ia-rank-{r}")
+        for r in range(n)
+    ]
+    for p in procs:
+        p.start()
+    results, errors = {}, {}
+    deadline = time.monotonic() + 4 * timeout_s
+    try:
+        while len(results) + len(errors) < n:
+            if not queue.empty():
+                rank, status, payload = queue.get()
+                (results if status == "ok" else errors)[rank] = payload
+                if errors:
+                    break
+                continue
+            dead = [r for r, p in enumerate(procs)
+                    if p.exitcode is not None and p.exitcode != 0
+                    and r not in results and r not in errors]
+            if dead and queue.empty():
+                for r in dead:
+                    errors[r] = (f"rank {r} exited with code "
+                                 f"{procs[r].exitcode} without reporting")
+                break
+            if time.monotonic() > deadline:
+                errors[-1] = f"ranks did not finish within {4 * timeout_s} s"
+                break
+            time.sleep(0.02)
+    finally:
+        if errors:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors:
+        detail = "\n".join(f"--- rank {r} ---\n{tb}"
+                           for r, tb in sorted(errors.items()))
+        raise RuntimeError(f"{len(errors)} of {n} ranks failed:\n{detail}")
+    return pickle.loads(results[0])

@@ -157,7 +157,7 @@ def find_request(path: str, request_id: str
 
 
 # Lifecycle order of every phase any access record can carry.  A
-# REPLICA record (serving/daemon.py) carries the ingest..encode subset;
+# REPLICA record (serving/daemon.py) carries the accept..write subset;
 # a ROUTER record (serving/router.py) carries pick/proxy/respond.  The
 # two sets are disjoint per record, so one ordered tuple serves both
 # readers — and the fleet waterfall (serving/fleettrace.py) relies on
@@ -167,9 +167,13 @@ def find_request(path: str, request_id: str
 # are the port's: the reference's replica clock starts at enqueue and
 # stops before the payload, which left 18 % of a routed 1024^2
 # request's wall outside every named phase on an H100 (PERF.md).
+# `accept` (the accepted connection's wait for its handler thread) and
+# `write` (the answer's write, reported by `GET /request` only: it
+# follows the line) close the rest of the replica's wall.
 PHASE_ORDER = (
-    "pick_ms", "ingest_ms", "queue_ms", "compile_ms", "restore_ms",
-    "execute_ms", "demux_ms", "encode_ms", "proxy_ms", "respond_ms",
+    "pick_ms", "accept_ms", "ingest_ms", "queue_ms", "compile_ms",
+    "restore_ms", "execute_ms", "demux_ms", "encode_ms", "write_ms",
+    "proxy_ms", "respond_ms",
 )
 
 

@@ -116,6 +116,7 @@ from __future__ import annotations
 
 import base64
 import dataclasses
+import functools
 import json
 import logging
 import os
@@ -163,6 +164,8 @@ from .queueing import (
 LUMA_BUCKET = 32.0
 
 REQUEST_TIMEOUT_S = 600.0
+# Requests whose answer's write `GET /request` still reports.
+_WRITE_MEMO = 4096
 
 def _request_id_from_headers(headers) -> str:
     """The request's id: the client's `X-Request-Id` when present and
@@ -467,6 +470,15 @@ class SynthDaemon:
         self._archive_interval_s = float(archive_interval_s)
         self._incident_min_interval_s = float(incident_min_interval_s)
         self._archive_last_t = -float("inf")
+        # Set, under `_archive_lock`, with the final snapshot: no
+        # record may follow a boot's final one (`history` reads a
+        # boot's `final` from its last snapshot), and a sampler tick
+        # already past the drain check still takes the lock.
+        self._archive_lock = threading.Lock()
+        self._archive_sealed = False
+        # request_id -> the answer's write (ms), newest _WRITE_MEMO.
+        self._write_ms: "OrderedDict[str, float]" = OrderedDict()
+        self._write_lock = threading.Lock()
         self._dispatch_seq = 0  # client-dispatch ordinal (fault keys)
         # request_id -> {"sha256", "shape"} for replayed requests; the
         # takeover check reads it from GET /journal to assert replay
@@ -536,6 +548,11 @@ class SynthDaemon:
 
         # The SLO engine's raw material: one observation per request
         # at response time, labelled with outcome and cache verdict.
+        self._h_write = r.histogram(
+            "ia_serve_write_ms",
+            "the answer's write to the client socket (ms), after the "
+            "access-log line: the tail of the request's wall",
+        )
         self._h_duration = r.histogram(
             REQUEST_DURATION_METRIC,
             "end-to-end request latency (ms) by route/outcome/cache — "
@@ -873,9 +890,16 @@ class SynthDaemon:
         `route_request` tree and this one join by id."""
         rid = _request_id_from_headers(headers)
         tctx = _trace_context_from_headers(headers)
-        # The request's clock starts when its request line arrived,
-        # before the body was read (the live server's stamp).
-        t_in = (ctx or {}).get("t_received") or time.monotonic()
+        # The request's clock starts when its connection was accepted,
+        # before the handler's thread started (the live server's
+        # stamps; a later request on a kept-alive connection starts at
+        # its request line), and `accept_ms` is that wait.  The
+        # answer's write is timed after it (`_note_write`).
+        ctx = ctx if ctx is not None else {}
+        t_recv = ctx.get("t_received") or time.monotonic()
+        t_in = ctx.get("t_accepted") or t_recv
+        accept_ms = (t_recv - t_in) * 1000.0
+        ctx["after_send"] = functools.partial(self._note_write, rid)
         bytes_in = len(body) if body else 0
         try:
             manifest = _parse_manifest(body)
@@ -923,8 +947,7 @@ class SynthDaemon:
             req.trace_hop = tctx.get("hop")
         if deadline_ms is not None:
             req.deadline_t = t_in + deadline_ms / 1000.0
-        if ctx is not None:
-            req.alive = ctx.get("alive")
+        req.alive = ctx.get("alive")
         req.span("queued")
         # Requests books FIRST (the serving sentinel check's ordering
         # contract), then exactly one of admitted/shed.
@@ -984,7 +1007,7 @@ class SynthDaemon:
             self._outstanding += 1
         try:
             return self._await_response(
-                rid, req, t_in, bytes_in, tctx
+                rid, req, t_in, bytes_in, tctx, accept_ms
             )
         finally:
             with self._outstanding_lock:
@@ -992,7 +1015,8 @@ class SynthDaemon:
 
     def _await_response(self, rid: str, req: ServeRequest,
                         t_in: float, bytes_in: int,
-                        tctx: Optional[Dict[str, Any]] = None):
+                        tctx: Optional[Dict[str, Any]] = None,
+                        accept_ms: float = 0.0):
         """The admitted request's wait-and-respond tail, under the
         drain machinery's outstanding-responses counter (graceful
         drain waits for this to return before snapshotting state and
@@ -1016,6 +1040,7 @@ class SynthDaemon:
                 rid, req, "timeout", 504,
                 (time.monotonic() - t_in) * 1000.0, bytes_in,
                 len(payload), trace=tctx, t_in=t_in, t_done=t_done,
+                accept_ms=accept_ms,
             )
             return 504, payload, "application/json"
         t_done = time.monotonic()
@@ -1028,7 +1053,7 @@ class SynthDaemon:
             self._book_response(
                 rid, req, outcome, code, (time.monotonic() - t_in) * 1000.0,
                 bytes_in, len(payload), trace=tctx, t_in=t_in,
-                t_done=t_done,
+                t_done=t_done, accept_ms=accept_ms,
             )
 
         if req.status == "cancelled":
@@ -1071,15 +1096,19 @@ class SynthDaemon:
                        bytes_in: int, bytes_out: int,
                        trace: Optional[Dict[str, Any]] = None,
                        t_in: Optional[float] = None,
-                       t_done: Optional[float] = None) -> None:
+                       t_done: Optional[float] = None,
+                       accept_ms: float = 0.0) -> None:
         """Response-time bookkeeping, one call per exit path: the
         request-duration observation (always — it is the SLO engine's
         raw material) and the access-log line (observability only).
-        `total_ms` runs from the request's arrival to its payload; an
-        admitted request's line splits it into ingest (arrival ->
-        enqueue: body, decode, admission, journal), the lifecycle
-        phases to `t_done`, and encode (the payload), so the phases
-        tile the total a router observes around this replica.
+        `total_ms` runs from the request's arrival (its connection's
+        accept) to its payload; an admitted request's line splits it
+        into accept (accept -> the handler's thread at the request
+        line), ingest (-> enqueue: body, decode, admission, journal),
+        the lifecycle phases to `t_done`, and encode (the payload); the
+        write that follows is `write_ms` (`_note_write`), which `GET
+        /request` adds to the phases and to the total, so they tile the
+        wall a router observes around this replica.
         Also the journal's `done` mark — a response write IS what
         retires a journal entry (cancellation marks happen at the
         dispatcher, and drain-stranded requests skip the mark via
@@ -1123,8 +1152,9 @@ class SynthDaemon:
                 # The wall anchor moves back to the arrival with the
                 # total it anchors.
                 entry["t0"] = round(req.t0 - (req.enqueue_t - t_in), 6)
+                entry["accept_ms"] = round(accept_ms, 3)
                 entry["ingest_ms"] = round(
-                    (req.enqueue_t - t_in) * 1000.0, 3)
+                    (req.enqueue_t - t_in) * 1000.0 - accept_ms, 3)
                 entry.update(_phase_attribution(
                     req, (t_done - req.enqueue_t) * 1000.0))
                 entry["encode_ms"] = round(max(
@@ -1132,6 +1162,16 @@ class SynthDaemon:
             else:
                 entry.update(_phase_attribution(req, total_ms))
         self.access.log(entry)
+
+    def _note_write(self, rid: str, write_ms: float) -> None:
+        """The answer's write (the live server times it after the
+        handler returned): `ia_serve_write_ms`, and the request's
+        `write_ms` for `GET /request` (the newest `_WRITE_MEMO`)."""
+        self._h_write.observe(write_ms)
+        with self._write_lock:
+            self._write_ms[rid] = round(write_ms, 3)
+            while len(self._write_ms) > _WRITE_MEMO:
+                self._write_ms.popitem(last=False)
 
     def _route_slo(self, _body):
         """GET /slo: grade the declarative objectives over the sliding
@@ -1183,6 +1223,7 @@ class SynthDaemon:
         try:
             now = time.monotonic()
             if (self._archive_interval_s > 0
+                    and not self._archive_sealed
                     and now - self._archive_last_t
                     >= self._archive_interval_s):
                 self._archive_last_t = now
@@ -1201,7 +1242,7 @@ class SynthDaemon:
             return False
         if anomaly_report is None and self.anomaly is not None:
             anomaly_report = self.anomaly.evaluate()
-        return self.archive.append("snapshot", {
+        return self._archive_append("snapshot", {
             "final": bool(final),
             "obs_window": (self.obs.window()
                            if self.obs is not None else None),
@@ -1218,7 +1259,20 @@ class SynthDaemon:
                 "raw": len(self._observed_raw_shapes),
                 "bucketed": len(self._observed_shapes),
             },
-        })
+        }, seal=final)
+
+    def _archive_append(self, kind: str, payload: Dict[str, Any],
+                        seal: bool = False) -> bool:
+        """Append one archive record unless the boot's final
+        snapshot is already written; `seal` marks this record as that
+        final one.  False when nothing was appended."""
+        with self._archive_lock:
+            archive = self.archive
+            if self._archive_sealed or archive is None:
+                return False
+            if seal:
+                self._archive_sealed = True
+            return archive.append(kind, payload)
 
     def _maybe_capture_incident(self, anomaly_report=None) -> \
             Optional[str]:
@@ -1250,8 +1304,8 @@ class SynthDaemon:
         inc_id = self.incidents.capture(
             trigger, self._incident_bundle(slo_report, anomaly_report)
         )
-        if inc_id is not None and self.archive is not None:
-            self.archive.append("incident", {
+        if inc_id is not None:
+            self._archive_append("incident", {
                 "id": inc_id, "trigger": trigger,
             })
         return inc_id
@@ -1365,6 +1419,13 @@ class SynthDaemon:
         entry = None
         if self.access is not None:
             entry = find_request(self.access.path, rid)
+        with self._write_lock:
+            write_ms = self._write_ms.get(rid)
+        if entry is not None and write_ms is not None:
+            # The write follows the logged total; it joins the clock
+            # here, so the phases, write included, tile the total.
+            entry = {**entry, "write_ms": write_ms,
+                     "total_ms": round(entry["total_ms"] + write_ms, 3)}
         if entry is None:
             return 404, _json_bytes({
                 "error": f"request id {rid!r} not found"

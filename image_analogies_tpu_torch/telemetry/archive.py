@@ -443,6 +443,29 @@ def load_incident(archive_dir: str,
     return doc if isinstance(doc, dict) else None
 
 
+# One sequence for every store of the process: two boots in one
+# process that capture within one wall second would otherwise both
+# number their first bundle 001, and the later would replace the
+# earlier on disk.
+_INCIDENT_SEQ_LOCK = threading.Lock()
+_INCIDENT_SEQ = 0
+
+
+def _next_incident_id(dirpath: str, ts: float) -> str:
+    """`inc-<UTC second>-<pid>-<n>`, with `n` unique in the process
+    and past any bundle of the same second and pid already in
+    `dirpath` (a recycled pid)."""
+    global _INCIDENT_SEQ
+    stamp = time.strftime('%Y%m%dT%H%M%S', time.gmtime(ts))
+    with _INCIDENT_SEQ_LOCK:
+        while True:
+            _INCIDENT_SEQ += 1
+            inc_id = f"inc-{stamp}-{os.getpid()}-{_INCIDENT_SEQ:03d}"
+            if not os.path.exists(os.path.join(dirpath,
+                                               f"{inc_id}.json")):
+                return inc_id
+
+
 class IncidentStore:
     """Atomic incident-bundle writer with per-trigger rate limiting
     and a disk-budget janitor.
@@ -485,12 +508,8 @@ class IncidentStore:
                 return None
             self._last_by_kind[kind] = now
             self.captured += 1
-            n = self.captured
         ts = time.time()
-        inc_id = (
-            f"inc-{time.strftime('%Y%m%dT%H%M%S', time.gmtime(ts))}"
-            f"-{os.getpid()}-{n:03d}"
-        )
+        inc_id = _next_incident_id(self.dir, ts)
         doc = {
             "schema_version": ARCHIVE_SCHEMA_VERSION,
             "kind": "incident_bundle",

@@ -184,6 +184,13 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # noqa: D102
         pass
 
+    def setup(self) -> None:
+        # The instant the connection was accepted, before this handler's
+        # thread existed: the first request on the connection starts
+        # its clock there.
+        self.t_accepted = self.server.take_accept_time(self.request)
+        super().setup()
+
     def _send(self, code: int, body: bytes, ctype: str,
               headers: Optional[Dict[str, str]] = None) -> None:
         self.send_response(code)
@@ -213,6 +220,7 @@ class _Handler(BaseHTTPRequestHandler):
         if handler is None:
             return False
         arity = live._route_arity.get((method, path), 1)
+        ctx = None
         if arity >= 3:
             conn = self.connection
             ctx = {
@@ -220,7 +228,10 @@ class _Handler(BaseHTTPRequestHandler):
                 "client": self.client_address,
                 "query": dict(query or {}),
                 "t_received": t_received,
+                "t_accepted": self.t_accepted,
             }
+            # Only the connection's first request waited in the accept.
+            self.t_accepted = None
             out = handler(body, dict(self.headers.items()), ctx)
         elif arity >= 2:
             out = handler(body, dict(self.headers.items()))
@@ -228,7 +239,12 @@ class _Handler(BaseHTTPRequestHandler):
             out = handler(body)
         code, payload, ctype = out[0], out[1], out[2]
         headers = out[3] if len(out) > 3 else None
+        t_write = time.monotonic()
         self._send(code, payload, ctype, headers)
+        after = (ctx or {}).get("after_send")
+        if after is not None:
+            # The answer's write, timed for the handler that asked.
+            after((time.monotonic() - t_write) * 1000.0)
         return True
 
     def do_GET(self) -> None:  # noqa: N802 (http.server API)
@@ -300,6 +316,22 @@ class _Server(ThreadingHTTPServer):
     # of a burst of simultaneous clients past it (the serving daemon's
     # overload arrivals), which then reconnect a second later.
     request_queue_size = 128
+
+    def __init__(self, *args, **kwargs):
+        self._accepted: Dict[Any, float] = {}
+        self._accepted_lock = threading.Lock()
+        super().__init__(*args, **kwargs)
+
+    def process_request(self, request, client_address):
+        # Stamped on the accepting thread, before the handler's thread
+        # starts: that start is part of the request's wall.
+        with self._accepted_lock:
+            self._accepted[request] = time.monotonic()
+        super().process_request(request, client_address)
+
+    def take_accept_time(self, request) -> Optional[float]:
+        with self._accepted_lock:
+            return self._accepted.pop(request, None)
 
 
 class LiveTelemetryServer:

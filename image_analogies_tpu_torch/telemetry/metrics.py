@@ -14,8 +14,10 @@ and the bytes of each launch, where the wrapper starts its kernel.  A
 byte series and its structural twin (`ia_candidate_dma_bytes_total` and
 `ia_candidate_dma_fetches_total`, the polish and coarse pairs alike) are
 booked as one unit (`MetricsRegistry.unit`), which the expositions wait
-on: a live scrape never reads one without the other.  Left out until
-the multi-device slice: the collective-site counters.
+on: a live scrape never reads one without the other.  The collective
+counters of the multi-device runners count executed collectives too,
+on both sides of the sentinel's comms check (`count_collectives`,
+`count_expected_collectives`).
 """
 
 from __future__ import annotations
@@ -600,6 +602,33 @@ def count_coarse_dma_rows(n_rows: int, k: int, itemsize: int) -> None:
         "row pricing (sentinel joins this against "
         "coarse_dma_bytes_per_row)",
     ).inc(n_rows, labels={"k": str(k), "itemsize": str(itemsize)})
+
+
+def count_collectives(n: int, axis: str, kind: str = "all_reduce") -> None:
+    """The OBSERVED side of the comms ledger: called where a runner
+    issues its collectives (parallel/sharded_a.py `_band_merge` and
+    `_sharded_dist`, parallel/spatial.py's re-slab exchange) with the
+    number it issues there.  Executed calls: the port runs eagerly, so
+    a site inside a loop counts every iteration (the reference counts
+    traced sites)."""
+    get_registry().counter(
+        "ia_collectives_total",
+        "cross-rank collectives executed in the runners' EM steps, by "
+        "{axis, kind} (sentinel holds this to the parallel/comms.py "
+        "model)",
+    ).inc(n, labels={"axis": axis, "kind": kind})
+
+
+def count_expected_collectives(n: int, axis: str) -> None:
+    """The comms model's prediction for a sharded level or EM step,
+    booked by the runner beside the work it predicts
+    (`parallel.comms.sharded_a_allreduce_count` and friends).  The
+    sentinel's comms check is observed == expected, per axis."""
+    get_registry().counter(
+        "ia_collectives_expected_total",
+        "collectives the parallel/comms.py model predicts for the "
+        "runners' EM steps, by {axis}",
+    ).inc(n, labels={"axis": axis})
 
 
 def count_kernel_launch(kernel: str) -> None:

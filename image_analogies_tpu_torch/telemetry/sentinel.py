@@ -10,9 +10,10 @@ coarse_dma_bytes_per_row`).  Each check recomputes a model's expectation
 from the structural counters the instrumented sites book beside the
 observed series (fetch and row counts with their pricing labels) and
 holds the observed series to it, so a call site whose accounting drifts
-from the shared model fails a machine-readable verdict.  One device
-runs no collective and records no shard walls, so `comms_model` and
-`straggler_skew` grade skipped, as the reference's do on such runs.
+from the shared model fails a machine-readable verdict.  The
+multi-device runners (parallel/) book the collective ledger and the
+per-shard walls; a single-device run has neither, so `comms_model` and
+`straggler_skew` grade skipped there, as the reference's do.
 
 Checks (each -> ok | degraded | violated | skipped):
 
@@ -31,8 +32,8 @@ Checks (each -> ok | degraded | violated | skipped):
                         PCA pre-prune's projected-row ledger)
   comms_model           ia_collectives_total{axis} ==
                         ia_collectives_expected_total{axis} (the
-                        reference's multi-device site model; skipped
-                        on one device), exactly per axis
+                        parallel/comms.py model, executed calls;
+                        skipped on one device), exactly per axis
   energy_series         no NaN/Inf/negative in the per-level NNF
                         energy series (spans + ia_nnf_energy gauge);
                         values above the declared ENERGY_MAX envelope
@@ -377,11 +378,13 @@ def check_coarse_dma(metrics: Optional[dict]) -> Dict:
 
 
 def check_comms(metrics: Optional[dict]) -> Dict:
-    """Observed collective-site ledger vs the parallel/comms.py site
-    model, per mesh axis — exact equality.  Both series are booked at
-    trace time inside the same traced bodies, so they skip together on
-    jit cache hits; any imbalance means a collective was added or
-    removed without the model (or the model without the code)."""
+    """Observed collective ledger vs the parallel/comms.py model, per
+    mesh axis — exact equality.  The port books both series as it
+    executes (the runners' collective sites, and the model's count
+    beside the work it predicts); any imbalance means a collective was
+    added or removed without the model (or the model without the
+    code).  The details keep the reference's words, so both packages'
+    verdicts compare equal."""
     obs = _counter_values(metrics, "ia_collectives_total")
     exp = _counter_values(metrics, "ia_collectives_expected_total")
     if not obs and not exp:

@@ -31,8 +31,11 @@ streams and frames (`ia_video_streams_total`, `ia_video_frames_total
 gauge; the `xfer`, `level`, `kernel` and `ckpt` fault points fire where
 the reference's do.
 
-Dropped from the reference: the device mesh and its padding rows (one
-device; ROADMAP Queue 1 step 14) and the per-shard level walls.
+With the seam off, a `mesh` (parallel/mesh.py, "batch" axis; every
+rank calls with the same inputs) goes to the batch runner, whose
+one-frame chunks then pad to the ranks as the reference's do; the warm
+path runs its frames in turn on every rank, as the reference's runs
+them on one device.
 """
 
 from __future__ import annotations
@@ -550,6 +553,7 @@ def synthesize_video(
     resume_strict: bool = False,
     return_aux: bool = False,
     progress=None,
+    mesh=None,
 ):
     """Stylized B' for a frame SEQUENCE ((F, H, W[, 3])) against one style
     pair, warm-started frame to frame (module docstring), on
@@ -564,7 +568,8 @@ def synthesize_video(
     `synthesize_batch(frames_per_step=1)`, every frame cold.  Both modes
     write and resume the same `frames_{t:05d}` checkpoint layout
     (`cfg.save_level_artifacts`, `resume_from`).  `progress`: a
-    ProgressWriter or `telemetry.Tracer` (module docstring)."""
+    ProgressWriter or `telemetry.Tracer` (module docstring).  `mesh`:
+    the warm-off dispatch's batch mesh (module docstring)."""
     cfg = cfg or SynthConfig()
     dev = resolve_device(cfg)
     frames = _as_tensor(frames, dev)
@@ -576,7 +581,7 @@ def synthesize_video(
         res = synthesize_batch(
             a, ap, frames, cfg, frames_per_step=1, resume_from=resume_from,
             resume_strict=resume_strict, return_nnf=return_aux,
-            progress=progress,
+            progress=progress, mesh=mesh,
         )
         out, nnf = res if return_aux else (res, None)
         flick = _set_flicker(out)

@@ -182,6 +182,71 @@ def test_fleet_imports_without_the_reference_package():
     assert out.stdout.strip() == "ok"
 
 
+_PARALLEL = ("parallel/mesh.py", "parallel/comms.py", "parallel/plan2d.py",
+             "parallel/sharded_a.py", "parallel/spatial.py")
+
+
+@pytest.mark.parametrize("rel", _PARALLEL)
+def test_multi_device_modules_are_checked(rel):
+    """The multi-device runners' modules are among the files held to no
+    JAX import below."""
+    assert (PORT / rel) in set(PORT.rglob("*.py"))
+    assert not {"jax", "image_analogies_tpu"} & set(
+        _imported_roots(PORT / rel))
+
+
+def test_multi_device_modules_import_without_the_reference_package():
+    """The five `parallel/` modules in a fresh process with JAX and the
+    JAX package unimportable; the planner runs and a one-rank gloo mesh
+    is made there, leaving CUDA uninitialised."""
+    code = (
+        "import sys; sys.modules['jax'] = None; "
+        "sys.modules['image_analogies_tpu'] = None; "
+        "import torch; "
+        "from image_analogies_tpu_torch.parallel import mesh, comms, "
+        "plan2d, sharded_a, spatial; "
+        "from image_analogies_tpu_torch.config import SynthConfig; "
+        "p = plan2d.plan_mesh_shape(4, (256, 256), (512, 512), "
+        "SynthConfig(device='cpu')); "
+        "m = mesh.make_mesh(1, axis_names=('bands',), device_type='cpu'); "
+        "assert mesh.axis_size(m, 'bands') == 1; "
+        "torch.distributed.destroy_process_group(); "
+        "assert not torch.cuda.is_initialized(); "
+        "assert not {m.split('.')[0] for m in sys.modules "
+        "if sys.modules[m] is not None} & {'jax', 'image_analogies_tpu'}; "
+        "print('ok', p.n_bands * p.n_slabs)"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok 4"
+
+
+def test_banded_tile_wrapper_cpu_goes_plain_and_counts_nothing():
+    pt.launches.reset()
+    pt.launches_banded.reset()
+    specs = pt.channel_specs(1, 1, SynthConfig(device="cpu"), False)
+    h = w = ha = wa = 128
+    geom = pt.tile_geometry(h, w, specs)
+    img = [torch.rand(h, w) for _ in range(4)]
+    bands = pt.prepare_a_planes(img[0], img[1], None, None, specs,
+                                n_bands=2)
+    b_planes = pt.prepare_b_planes(img[2], img[3], None, None, geom)
+    cand = torch.zeros(geom.n_ty, geom.n_tx, pt.K_TOTAL, dtype=torch.int32)
+    z = torch.zeros(geom.n_ty * 64, geom.n_tx * geom.tile_w,
+                    dtype=torch.int32)
+    d = torch.full(z.shape, float("inf"))
+    kw = dict(specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=1.0)
+    for planes, band in zip(bands, pt.band_bounds(ha, 2)):
+        args = (planes, b_planes, cand, cand, cand + 1, z, z, d)
+        pt.tile_sweep(*args, band=band, **kw)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            pt.tile_sweep_kernel(*args, band=band, **kw)
+    assert pt.launches.count == 0 and pt.launches_banded.count == 0
+
+
 def test_native_library_builds_apart_from_the_reference():
     """The port builds native/ann.cpp into its own directory, never the
     reference's native/build/."""

@@ -1136,13 +1136,13 @@ class TestRequestTracing:
         assert warm[0]["t0"] > 0
 
     def test_phase_attribution_within_5pct(self, daemon_scenario):
-        """ingest+queue+compile+execute+demux+encode explain the
+        """accept+ingest+queue+compile+execute+demux+encode explain the
         measured end-to-end latency of the warm request to within 5 %
-        (the port's clock runs from the request's arrival to its
-        payload; the reference's from enqueue to done, without ingest
-        and encode).  (The reference also asks the warm prologue to be
-        a tenth of the cold one, its jit compile; the port compiles
-        nothing per shape.)"""
+        (the port's clock runs from the connection's accept to its
+        payload; the reference's from enqueue to done, without accept,
+        ingest and encode).  (The reference also asks the warm prologue
+        to be a tenth of the cold one, its jit compile; the port
+        compiles nothing per shape.)"""
         from image_analogies_tpu_torch.serving.accesslog import (
             phase_fields,
         )
@@ -1153,7 +1153,8 @@ class TestRequestTracing:
         ]
         phases = phase_fields(warm)
         assert [p for p, _ in phases] == [
-            "ingest", "queue", "compile", "execute", "demux", "encode",
+            "accept", "ingest", "queue", "compile", "execute", "demux",
+            "encode",
         ]
         attributed = sum(ms for _, ms in phases)
         assert attributed == pytest.approx(
