@@ -99,7 +99,7 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 PHASES = ("k1", "k2", "k3", "k1i8", "headline", "compressed", "config1",
           "quality", "profile", "lean", "batch", "video", "cli", "telemetry",
-          "serve", "fleet", "multi")
+          "serve", "fleet", "multi", "serve_multi")
 HEADLINE = dict(levels=5, matcher="patchmatch", em_iters=2, pm_iters=6,
                 pm_polish_iters=1, device="cuda")
 
@@ -4349,6 +4349,292 @@ def phase_multi(dev, smi, case, l2_rate, size=MULTI_SIZE,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Multi-device serving (`serve --n-devices N`, serving/ranks.py) on the
+# serve cell's frames and knobs.
+
+SERVE_MULTI_SWEEP = ((1, 4), (4, 2))
+SERVE_MULTI_KILL_BURST = 4
+
+
+def serve_multi_world(a, ap, dev, work_dir, **daemon_kw):
+    """This process as rank 0 of two gloo ranks on cuda:0 (the follower
+    spawned, as the multi phase's gloo arm is), the in-process daemon at
+    grain 4 over them, its files in `work_dir`: (daemon, mesh, registry,
+    previous registry)."""
+    import os
+
+    from image_analogies_tpu_torch.config import SynthConfig
+    from image_analogies_tpu_torch.parallel.mesh import start_world
+    from image_analogies_tpu_torch.serving.daemon import SynthDaemon
+    from image_analogies_tpu_torch.serving.ranks import ServingMesh, follow
+    from image_analogies_tpu_torch.telemetry.metrics import (
+        MetricsRegistry,
+        set_registry,
+    )
+
+    devices = [0, 0] if dev.type == "cuda" else None
+    if dev.type == "cuda":
+        # Rank 0's peak from here on, not the earlier phases'.
+        torch.cuda.reset_peak_memory_stats()
+    followers = start_world(2, follow, backend="gloo", device_type=dev.type,
+                            devices=devices, timeout_s=600.0)
+    mesh = ServingMesh(followers, a, ap, device_type=dev.type,
+                       timeout_s=600.0)
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
+    cfg = SynthConfig(levels=5, matcher="patchmatch", em_iters=2, kappa=2.0,
+                      device=dev.type)
+    d = SynthDaemon(a, ap, cfg, registry=reg, mesh=mesh,
+                    max_batch=SERVE_GRAIN, max_wait_ms=25.0,
+                    max_queue_depth=SERVE_QUEUE_DEPTH, obs_interval_s=0,
+                    work_dir=work_dir, **daemon_kw)
+    os.makedirs(work_dir, exist_ok=True)
+    return d.start(), mesh, reg, prev
+
+
+def multi_sweep(url, bodies, refs, tag):
+    """SERVE_MULTI_SWEEP against one daemon, every 200 bit-equal to the
+    library's grain-4 dispatch."""
+    points = []
+    for clients, per in SERVE_MULTI_SWEEP:
+        point = serve_point(url, clients, per, bodies, refs,
+                            f"{tag}-c{clients}")
+        point.pop("routed_to")
+        point.pop("routes")
+        if point["completed"] != point["requests"]:
+            raise AssertionError(f"serve_multi {tag}: {point}")
+        points.append(point)
+    return points
+
+
+def phase_serve_multi(dev, smi, serve=None, size=SERVE_SIZE,
+                      kill_size=KILL_SIZE):
+    """Multi-device serving on the card, on the serve cell's frames and
+    knobs (config 5's `npr_frames(8, size)`, 5 levels, PatchMatch, em 2,
+    kappa 2, grain 4): (a) `serve --n-devices 1` over NCCL at world size
+    1, a CLI process with a warmup at size^2, swept 1 x 4 and 4 x 2;
+    (b) two gloo ranks on cuda:0 (this process rank 0, the daemon in it),
+    the same sweeps at 2 frames a rank, K1 captured from rank 0's first
+    2-frame launch and held against its plain version, then a drain that
+    ends both ranks with exit 0; (c) at kill_size^2, two gloo ranks with
+    a state dir, the follower SIGKILLed during a 4-client burst (answers
+    200 or 503 with Retry-After, /healthz 503, drained), then `serve
+    --takeover` at world size 1 replaying every journaled request
+    bit-identically.  Every 200 answer equals `library_dispatch` bit for
+    bit; K1 launches are counted per rank per dispatch; walls, p50/p99
+    and frames/s stand beside the serve phase's single daemon."""
+    import os
+    import shutil
+    import signal
+    import threading
+
+    from image_analogies_tpu_torch.config import SynthConfig
+    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+    from image_analogies_tpu_torch.serving.accesslog import read_entries
+    from image_analogies_tpu_torch.serving.journal import journal_path
+    from image_analogies_tpu_torch.telemetry.metrics import set_registry
+    from image_analogies_tpu_torch.utils.examples import npr_frames
+    from image_analogies_tpu_torch.utils.io import (
+        load_image,
+        save_image,
+        to_uint8,
+    )
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "serve_multi_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rec = {"phase": "serve_multi", "nvidia_smi": smi, "size": size,
+           "grain": SERVE_GRAIN}
+    a0, ap0, frames = npr_frames(n_frames=8, size=size)
+    save_image(f"{work}/A.png", a0)
+    save_image(f"{work}/Ap.png", ap0)
+    a, ap = load_image(f"{work}/A.png"), load_image(f"{work}/Ap.png")
+    frames_u8 = [to_uint8(f) for f in frames]
+    cfg = SynthConfig(levels=5, matcher="patchmatch", em_iters=2, kappa=2.0,
+                      device=dev.type)
+    refs = SERVE_MEMO.get("refs") or [
+        library_dispatch(a, ap, as_float(f), cfg) for f in frames_u8]
+    bodies = [serve_body(f) for f in frames_u8]
+    want_k1 = batch_k1_launches(cfg, size, SERVE_GRAIN // 2,
+                                SERVE_GRAIN // 2)
+    with open(f"{work}/warmup.json", "w") as f:
+        json.dump({"schema_version": 1, "kind": "serve_warmup", "entries": [
+            {"height": size, "width": size}]}, f)
+    if serve:
+        rec["single_daemon"] = [
+            {k: p[k] for k in ("clients", "requests", "p50_ms", "p99_ms",
+                               "frames_per_s", "server_wall_ms_median")}
+            for p in serve["record"]["sweep"]]
+
+    # (a) `serve --n-devices 1`: one NCCL rank, the CLI's world.
+    proc, url, rec["ws1_startup_s"] = serve_up(work, "ws1", [
+        "--a", f"{work}/A.png", "--ap", f"{work}/Ap.png",
+        "--device", dev.type, "--n-devices", "1",
+        "--max-batch", str(SERVE_GRAIN), "--max-wait-ms", "25",
+        "--max-queue-depth", str(SERVE_QUEUE_DEPTH),
+        "--warmup", f"{work}/warmup.json", *SERVE_KNOBS])
+    try:
+        rec["ws1_sweep"] = multi_sweep(url, bodies, refs, "ws1")
+        serving = json.loads(http_get(url + "/serving")[1])
+    finally:
+        rc = stop(proc)
+    ranks = serving["ranks"]
+    rec["ws1_ranks"] = ranks
+    if rc != 0 or serving["devices"] != 1 or ranks["backend"] != (
+            "nccl" if dev.type == "cuda" else "gloo"):
+        raise AssertionError(f"serve --n-devices 1: exit {rc}, {ranks}")
+    if ranks["k1_launches_last_dispatch"] != [
+            batch_k1_launches(cfg, size, SERVE_GRAIN, SERVE_GRAIN)]:
+        raise AssertionError(f"serve --n-devices 1: K1 {ranks}")
+    emit({"phase": "serve_multi", "part": "ws1", "sweep": rec["ws1_sweep"],
+          "startup_s": rec["ws1_startup_s"],
+          "k1_launches_per_dispatch": ranks["k1_launches_last_dispatch"],
+          "peak_bytes": ranks["peak_bytes"]})
+
+    # (b) Two gloo ranks on one card, 2 frames a rank.
+    t = time.perf_counter()
+    d, mesh, reg, prev = serve_multi_world(a, ap, dev, f"{work}/gloo2")
+    rec["gloo2_world_s"] = time.perf_counter() - t
+    try:
+        t = time.perf_counter()
+        d.warmup([{"height": size, "width": size, "channels": 3}])
+        rec["gloo2_warmup_s"] = time.perf_counter() - t
+        for counter in (pt.launches, pt.launches_int8):
+            counter.reset()
+        warm_launches = sum(mesh.k1_launches)
+        with capture_first(pt, "tile_sweep", lambda *a_, **k: (
+                a_[1].ndim == 4 and a_[1].shape[0] == SERVE_GRAIN // 2
+                and k["ha"] == size)) as seen:
+            rec["gloo2_sweep"] = multi_sweep(d.url, bodies, refs, "gloo2")
+        snap = mesh.snapshot()
+        rec["gloo2_ranks"] = snap
+        # Every rank's launches over the sweeps (the warmup's before).
+        rec["k1_launches"] = sum(snap["k1_launches"]) - warm_launches
+        rec["k1_launches_rank0_counter"] = pt.launches.count
+        if (snap["k1_launches_last_dispatch"] != [want_k1, want_k1]
+                or (dev.type == "cuda" and min(snap["k1_launches"]) == 0)):
+            raise AssertionError(f"two gloo ranks: K1 {snap}, want "
+                                 f"{want_k1} a rank a dispatch")
+        d.begin_drain(reason="sigterm")
+        if not d.drained.wait(120):
+            raise AssertionError("two gloo ranks: the drain did not end")
+    finally:
+        d.stop()
+        rec["gloo2_exit_codes"] = mesh.close()
+        set_registry(prev)
+    if rec["gloo2_exit_codes"] != [0]:
+        raise AssertionError(f"two gloo ranks: follower exit "
+                             f"{rec['gloo2_exit_codes']}")
+    if seen:
+        args, kw, _ = seen[0]
+        kw = {k: kw[k] for k in ("specs", "geom", "ha", "wa", "coh_factor")}
+        rec["k1_frames"] = k1_frames_row(args, kw)
+    elif dev.type == "cuda":
+        raise AssertionError("two gloo ranks: no 2-frame K1 launch seen")
+    emit({"phase": "serve_multi", "part": "gloo2",
+          "sweep": rec["gloo2_sweep"], "world_s": rec["gloo2_world_s"],
+          "warmup_s": rec["gloo2_warmup_s"],
+          "k1_launches_per_rank_per_dispatch":
+              rec["gloo2_ranks"]["k1_launches_last_dispatch"],
+          "peak_bytes": rec["gloo2_ranks"]["peak_bytes"],
+          "k1_frames": rec.get("k1_frames")})
+
+    # (c) A follower SIGKILLed mid-burst at kill_size^2, then a takeover.
+    n = kill_size
+    save_image(f"{work}/A{n}.png", a0[:n, :n])
+    save_image(f"{work}/Ap{n}.png", ap0[:n, :n])
+    a_n, ap_n = load_image(f"{work}/A{n}.png"), load_image(f"{work}/Ap{n}.png")
+    small = [np.ascontiguousarray(f[:n, :n])
+             for f in frames_u8[:SERVE_MULTI_KILL_BURST]]
+    small_refs = [library_dispatch(a_n, ap_n, as_float(f), cfg)
+                  for f in small]
+    state = f"{work}/kill_state"
+    d, mesh, reg, prev = serve_multi_world(a_n, ap_n, dev, f"{work}/kill",
+                                           state_dir=state)
+    results = {}
+    try:
+        pid = mesh.followers.pids[0]
+
+        def client(i):
+            results[i] = serve_post(d.url, small[i], rid=f"kill-{i}")
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(small))]
+        for th in threads:
+            th.start()
+        deadline = time.perf_counter() + 300
+        while d._inflight < 1:
+            if time.perf_counter() > deadline:
+                raise AssertionError("kill arm: nothing went in flight")
+            time.sleep(0.002)
+        os.kill(pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        for th in threads:
+            th.join(300)
+        rec["kill_answered_s"] = time.perf_counter() - t_kill
+        drained = d.drained.wait(120)
+        health = d.health()
+        code_h, _ = http_get(d.url + "/healthz", 30)
+        lost = d.world_lost
+    finally:
+        d.stop()
+        rec["kill_exit_codes"] = mesh.close()
+        set_registry(prev)
+    codes = {i: r[0] for i, r in results.items()}
+    rec["kill_codes"] = codes
+    if not (drained and lost and code_h == 503
+            and health["verdict"] == "violated"):
+        raise AssertionError(f"kill arm: drained {drained}, lost {lost}, "
+                             f"/healthz {code_h}")
+    for i, (code, body, hdrs, _) in results.items():
+        if code == 200:
+            if not np.array_equal(served_image(body), small_refs[i]):
+                raise AssertionError(f"kill arm: answer {i} differs")
+        elif code != 503 or int(hdrs.get("Retry-After", 0)) < 1:
+            raise AssertionError(f"kill arm: {i} answered {code}")
+    entries = list(read_entries(journal_path(state)))
+    pending = ({e["request_id"] for e in entries if e["kind"] == "req"}
+               - {e["request_id"] for e in entries if e["kind"] == "mark"})
+    journaled_503 = {f"kill-{i}" for i, c in codes.items() if c == 503
+                     and "lost a rank" in results[i][1].get("error", "")}
+    if pending != journaled_503:
+        raise AssertionError(f"kill arm: pending {pending}, 503s "
+                             f"{journaled_503}")
+    proc, url, _ = serve_up(work, "takeover", [
+        "--a", f"{work}/A{n}.png", "--ap", f"{work}/Ap{n}.png",
+        "--device", dev.type, "--n-devices", "1",
+        "--max-batch", str(SERVE_GRAIN), "--max-wait-ms", "25",
+        "--takeover", state, *SERVE_KNOBS])
+    try:
+        deadline = time.perf_counter() + 300
+        while True:
+            journal = json.loads(http_get(url + "/journal")[1])
+            if set(journal["replayed"]) >= pending:
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"takeover: {journal}")
+            time.sleep(0.05)
+    finally:
+        rc = stop(proc)
+    for rid in pending:
+        if journal["replayed"][rid]["sha256"] != sha(
+                small_refs[int(rid.split("-")[1])]):
+            raise AssertionError(f"takeover: {rid} replayed differently")
+    if rc != 0:
+        raise AssertionError(f"takeover exited {rc}")
+    rec.update(kill_pending=sorted(pending), kill_replayed=len(pending),
+               kill_acknowledged_lost=0, kill_health=code_h)
+    emit({"phase": "serve_multi", "part": "kill",
+          **{k: rec[k] for k in ("kill_codes", "kill_answered_s",
+                                 "kill_exit_codes", "kill_pending",
+                                 "kill_health")}})
+    emit(rec)
+    shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4443,6 +4729,8 @@ def main(argv=None) -> int:
         if "fleet" in phases else {}
     multi = run("multi", phase_multi, dev, smi, case, l2_rate) \
         if "multi" in phases else {}
+    serve_multi = run("serve_multi", phase_serve_multi, dev, smi, serve) \
+        if "serve_multi" in phases else {}
     PHASE_T0[0] = script_t0
     emit({"phase": "timing", "seconds_by_phase": seconds,
           "build_s": build_s})
@@ -4593,6 +4881,21 @@ def main(argv=None) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None,
+        })
+    if serve_multi.get("k1_frames"):
+        # K1 with the frame axis on multi-device serving: rank 0's first
+        # 2-frame launch (grain 4 over two ranks), held against the
+        # plain version, beside the launches every rank booked over the
+        # two-rank arm's sweeps.
+        row = serve_multi["k1_frames"]
+        kernels_line.append({
+            "name": "tile_sweep_frames_serve_multi", "route": "cuda",
+            "source": "image_analogies_tpu_torch/kernels/csrc/tile_sweep.cu",
+            "replaces": "image_analogies_tpu/kernels/patchmatch_tile.py:888",
+            "launches": serve_multi["k1_launches"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
         })
     print(smi, flush=True)
     emit({"kernels": kernels_line})

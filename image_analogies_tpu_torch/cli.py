@@ -206,30 +206,6 @@ def _add_synth_flags(p: argparse.ArgumentParser) -> None:
     )
 
 
-# Flags of parts not ported yet: (attribute, flag, the ROADMAP step).
-_UNPORTED = ()
-
-
-# serve's: (attribute, flag, the ROADMAP step, its off value).
-_SERVE_UNPORTED = (
-    ("n_devices", "--n-devices", "step 14b (multi-device serving)", None),
-)
-
-
-def _refuse_unported(args, table=None) -> None:
-    """Stop before any image loads when a flag of an unported part was
-    given: it is never ignored."""
-    if table is None:
-        table = tuple(row + (None,) for row in _UNPORTED)
-    for attr, flag, step, off in table:
-        value = getattr(args, attr, None)
-        if value is not None and value is not False and value != off:
-            raise SystemExit(
-                f"{flag} is not ported to the PyTorch package yet: "
-                f"ROADMAP Queue 1 {step}"
-            )
-
-
 def _config_from(args):
     from .config import SynthConfig
 
@@ -307,15 +283,14 @@ def _apply_cand_compression(args) -> None:
 
 
 def _start(args):
-    """What every synthesis command does first: refuse unported flags,
-    install the compression modes, configure, and decide whether the run
+    """What every synthesis command does first: install the compression
+    modes, configure, and decide whether the run
     is instrumented (a progress stream, a telemetry directory, the
     sentinel, the live exporter or the supervisor; `--profile` alone is
     not).  On a rank other than 0 of a multi-rank run, the run keeps
     rank 0's instrumentation (the shard walls are collectives) but
     writes no progress stream, telemetry or profile.  Returns (cfg,
     ckpt_dir, ckpt_ephemeral, instrument)."""
-    _refuse_unported(args)
     _apply_cand_compression(args)
     cfg = _config_from(args)
     instrument = bool(
@@ -337,10 +312,18 @@ def _is_rank0() -> bool:
 
 
 def _default_ranks(args) -> int:
-    """`--n-devices`, else every card for a CUDA run, else 1."""
+    """`--n-devices`, else every card for a CUDA run, else 1.  A CUDA
+    run asking for more ranks than the machine has cards stops."""
     if args.n_devices is not None:
         if args.n_devices < 1:
             raise SystemExit(f"--n-devices {args.n_devices}: need >= 1")
+        if args.device == "cuda":
+            import torch
+
+            have = torch.cuda.device_count()
+            if args.n_devices > have:
+                raise SystemExit(f"--n-devices {args.n_devices}: requested "
+                                 f"{args.n_devices} devices, have {have}")
         return args.n_devices
     if args.device == "cuda":
         import torch
@@ -780,23 +763,85 @@ def cmd_serve(args) -> int:
     accounting, continuous batching and admission control, on the same
     HTTP server and telemetry surface (/metrics, /healthz, live.json)
     every traced run uses.  On `--device` (default cuda: a machine
-    without a card stops here, it never falls back to the CPU)."""
-    _refuse_unported(args, _SERVE_UNPORTED)
-    _apply_cand_compression(args)
-    import dataclasses
-    import signal
+    without a card stops here, it never falls back to the CPU).
 
+    `--n-devices N` (default: every card of a CUDA run; one card, or the
+    CPU, is one process) makes this process rank 0 of a world of N
+    ranks whose sessionless dispatches run over all of them
+    (serving/ranks.py); under `torchrun` the world is joined, rank 0
+    serves and the others follow.  Exit 0 after a drain that ended
+    every rank with 0; nonzero when the world lost a rank (after a
+    drain that kept the journal for `--takeover`) or a rank did not end
+    cleanly."""
+    _apply_cand_compression(args)
     from .models.analogy import resolve_device
-    from .serving.daemon import SynthDaemon
-    from .serving.excache import load_warmup_manifest
-    from .utils.io import load_image
-    from .utils.profiling import telemetry_session
 
     cfg = _config_from(args)
     try:
         resolve_device(cfg)
     except RuntimeError as e:
         raise SystemExit(f"serve: {e}")
+    followers = _serve_world(args)
+    if followers is not None:
+        from .parallel.mesh import world_rank
+
+        if world_rank() != 0:
+            # A `torchrun` rank other than 0 follows rank 0's dispatches.
+            import torch.distributed as dist
+
+            from .serving.ranks import follow
+
+            follow()
+            dist.destroy_process_group()
+            return 0
+    try:
+        return _serve(args, cfg, followers)
+    except BaseException:
+        if followers is not None:
+            followers.kill()
+        raise
+
+
+def _serve_world(args):
+    """The world of a multi-device `serve`: its `Followers` (ranks
+    1..n-1 started here, rank 0 being this process; none under
+    `torchrun`, whose world is joined), or None for the single-process
+    daemon (no `--n-devices` on the CPU or on a one-card machine)."""
+    from .parallel.mesh import (
+        Followers,
+        backend_for,
+        initialize_multihost,
+        start_world,
+    )
+    from .serving.ranks import follow
+
+    if int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
+        if args.device == "cuda":
+            import torch
+
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        initialize_multihost(backend=backend_for(args.device))
+        return Followers()
+    n = _default_ranks(args)
+    if args.n_devices is None and n == 1:
+        return None
+    try:
+        return start_world(n, follow, device_type=args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"serve: --n-devices {n}: {e}")
+
+
+def _serve(args, cfg, followers) -> int:
+    """`serve` on rank 0 (or alone): the daemon, until it drains."""
+    import dataclasses
+    import signal
+
+    from .parallel.mesh import DEFAULT_TIMEOUT_S
+    from .serving.daemon import SynthDaemon
+    from .serving.excache import load_warmup_manifest
+    from .utils.io import load_image
+    from .utils.profiling import telemetry_session
+
     if cfg.save_level_artifacts:
         # The daemon owns per-dispatch checkpoint dirs (retry-with-
         # resume inside one dispatch); a shared user path would make
@@ -849,6 +894,19 @@ def cmd_serve(args) -> int:
                 f"{len(lattice_plan.rejected)} candidate(s) rejected)",
                 flush=True,
             )
+    mesh = None
+    if followers is not None:
+        from .serving.ranks import ServingMesh
+
+        # The data group's timeout is the dispatch's bound: a rank whose
+        # peer failed waits no longer than that in a collective.
+        try:
+            mesh = ServingMesh(
+                followers, a, ap, device_type=args.device,
+                timeout_s=args.dispatch_deadline_s or DEFAULT_TIMEOUT_S,
+            )
+        except RuntimeError as e:
+            raise SystemExit(f"serve: {e}")
     # Daemon-lifetime telemetry session: no device trace over an
     # unbounded lifetime; artifacts and the flight recorder go to
     # --trace-dir.  SIGTERM is re-bound to a drain below.
@@ -887,6 +945,7 @@ def cmd_serve(args) -> int:
             lattice=lattice_plan,
             archive_dir=args.archive_dir,
             archive_interval_s=args.archive_interval_s,
+            mesh=mesh,
         )
         try:
             daemon.start()
@@ -937,6 +996,16 @@ def cmd_serve(args) -> int:
             print("serve: interrupted, draining")
         finally:
             daemon.stop()
+            codes = mesh.close() if mesh is not None else []
+    if daemon.world_lost is not None:
+        print(f"serve: the serving world lost a rank "
+              f"({daemon.world_lost}); drained, the journal kept for "
+              "serve --takeover", file=sys.stderr)
+        return 1
+    if any(c != 0 for c in codes):
+        print(f"serve: ranks 1..{len(codes)} exited with {codes}",
+              file=sys.stderr)
+        return 1
     return 0
 
 

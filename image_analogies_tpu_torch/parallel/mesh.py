@@ -18,9 +18,14 @@ Nothing switches backend or device when something fails.
 `spawn` starts `n` ranks (start method "spawn", rendezvous on a free
 127.0.0.1 port, a collective timeout so a hung rank fails instead of
 hanging its caller), runs a function on each and returns rank 0's
-result, re-raising any rank's exception.  `initialize_multihost` joins
-a `torchrun` world from its environment.  The reference's `shard_map`
-version shim has no counterpart: there is no shard_map.
+result, re-raising any rank's exception.  `start_world` is for a
+command that does not finish, the serving daemon: the calling process
+becomes rank 0 of a world that lives as long as it does, its other ranks
+child processes that run a function until it returns (no deadline; they
+end on their own when rank 0 is gone), so the caller's pid, lockfile and
+signals keep their meaning.  `initialize_multihost` joins a `torchrun`
+world from its environment.  The reference's `shard_map` version shim
+has no counterpart: there is no shard_map.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import logging
 import os
 import pickle
 import socket
+import threading
 import time
 import traceback
 from typing import Any, Callable, Optional, Sequence, Tuple
@@ -322,3 +328,168 @@ def spawn(fn: Callable, n: int, backend: Optional[str] = None,
                            for r, tb in sorted(errors.items()))
         raise RuntimeError(f"{len(errors)} of {n} ranks failed:\n{detail}")
     return pickle.loads(results[0])
+
+
+# ---------------------------------------------------------------------------
+# A world that lives as long as its rank 0.
+
+# How often a follower checks that rank 0 still exists, and how often
+# rank 0 checks its followers (seconds).
+_WATCH_S = 0.2
+
+
+def _watch_parent(parent_pid: int) -> None:
+    """End this process when its parent, rank 0, is gone (the parent's
+    death re-parents the child): a follower stuck in a collective must
+    not hold its card after its rank 0 was killed."""
+    def loop():
+        while os.getppid() == parent_pid:
+            time.sleep(_WATCH_S)
+        os._exit(1)
+
+    threading.Thread(target=loop, name="ia-rank-parent-watch",
+                     daemon=True).start()
+
+
+def _follower_main(rank: int, fn: Callable, n: int, backend: str,
+                   device_type: str, devices, port: int, args: tuple,
+                   timeout_s: float, parent_pid: int) -> None:
+    """One follower of `start_world`: join the world, run `fn(*args)`,
+    leave.  An exception ends the process with a nonzero code."""
+    _watch_parent(parent_pid)
+    if device_type == "cuda":
+        torch.cuda.set_device(devices[rank] if devices else rank)
+    _init_world(backend, n, rank, port, timeout_s)
+    try:
+        fn(*args)
+    finally:
+        dist.destroy_process_group()
+
+
+class Followers:
+    """Ranks 1..n-1 of a world whose rank 0 is this process: child
+    processes started by `start_world` (none for a world of one, or
+    when the world was joined under `torchrun`, whose ranks are not
+    children)."""
+
+    def __init__(self, procs=()):
+        self.procs = list(procs)
+        self._quiet = threading.Event()
+
+    @property
+    def pids(self) -> list:
+        return [p.pid for p in self.procs]
+
+    def dead(self) -> list:
+        """(rank, exit code) of every follower that has ended."""
+        return [(r, p.exitcode) for r, p in enumerate(self.procs, start=1)
+                if p.exitcode is not None]
+
+    def watch(self, on_exit: Callable[[int, Optional[int]], None]) -> None:
+        """Call `on_exit(rank, exitcode)` from a watcher thread when a
+        follower ends before `join` was asked for."""
+        if not self.procs:
+            return
+
+        def loop():
+            while not self._quiet.wait(_WATCH_S):
+                dead = self.dead()
+                if dead:
+                    if not self._quiet.is_set():
+                        on_exit(*dead[0])
+                    return
+
+        threading.Thread(target=loop, name="ia-rank-watch",
+                         daemon=True).start()
+
+    def join(self, timeout_s: float = 60.0) -> list:
+        """Wait for every follower to end (killing one that outlives
+        `timeout_s`); returns their exit codes, rank 1 first."""
+        self._quiet.set()
+        deadline = time.monotonic() + timeout_s
+        for p in self.procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+            if p.is_alive():
+                p.kill()
+                p.join()
+        return [p.exitcode for p in self.procs]
+
+    def kill(self) -> None:
+        self._quiet.set()
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+    def guard(self, fn: Callable[[], Any], what: str) -> Any:
+        """`fn()`, run on a helper thread while this one watches the
+        followers: one that exits first fails it at once (the others
+        are killed) instead of leaving rank 0 in a collective until its
+        timeout."""
+        if not self.procs:
+            return fn()
+        box: dict = {}
+
+        def run():
+            try:
+                box["out"] = fn()
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                box["error"] = e
+
+        t = threading.Thread(target=run, name="ia-rank-0-guarded",
+                             daemon=True)
+        t.start()
+        while t.is_alive():
+            t.join(_WATCH_S)
+            dead = self.dead()
+            if dead and t.is_alive():
+                self.kill()
+                raise RuntimeError(f"{what}: " + ", ".join(
+                    f"rank {r} exited with code {c}" for r, c in dead))
+        if "error" in box:
+            raise box["error"]
+        return box.get("out")
+
+
+def start_world(n: int, fn: Callable, args: tuple = (),
+                backend: Optional[str] = None, device_type: str = "cuda",
+                devices=None,
+                timeout_s: float = DEFAULT_TIMEOUT_S) -> Followers:
+    """Make this process rank 0 of a fresh world of `n` ranks that lasts
+    until it ends: ranks 1..n-1 are child processes (start method
+    "spawn") that join the world, run `fn(*args)` and leave when it
+    returns; rank 0 joins here and returns their `Followers`.  Rank r
+    runs on `cuda:devices[r]` (default `cuda:r`) when `device_type` is
+    "cuda" (rank 0's device is set here).  A follower that exits before
+    the world forms raises here at once, and the others are killed;
+    `timeout_s` bounds the forming and is the default group's collective
+    timeout.  Each follower ends itself when this process is gone.
+    `fn` must be importable by name."""
+    import torch.multiprocessing as mp
+
+    if n < 1:
+        raise ValueError(f"{n} ranks")
+    _require_device(device_type)
+    backend = backend or backend_for(device_type)
+    port = _free_port()
+    ctx = mp.get_context("spawn")
+    procs = [
+        ctx.Process(target=_follower_main,
+                    args=(r, fn, n, backend, device_type, devices, port,
+                          args, timeout_s, os.getpid()),
+                    name=f"ia-rank-{r}")
+        for r in range(1, n)
+    ]
+    for p in procs:
+        p.start()
+    followers = Followers(procs)
+    if device_type == "cuda":
+        torch.cuda.set_device(devices[0] if devices else 0)
+    try:
+        followers.guard(
+            lambda: _init_world(backend, n, 0, port, timeout_s),
+            "the world did not form")
+    except BaseException:
+        followers.kill()
+        raise
+    return followers

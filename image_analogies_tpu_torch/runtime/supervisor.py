@@ -39,7 +39,9 @@ so a breached one is abandoned; its abort token makes the injected hang
 and the next level boundary raise `LevelAborted`, and the supervisor
 waits up to `abort_grace_s` for it to unwind.  A retry first waits for
 the device work already queued (`_settle_device`).  The reference's
-module, copied, with the serving daemon's `DispatchDeadline`.
+module, copied, with the serving daemon's `DispatchDeadline` and
+`AttemptFatal` (a failure no retry heals: a multi-rank serving world
+that lost a rank, serving/ranks.py).
 """
 
 from __future__ import annotations
@@ -67,6 +69,12 @@ WATCHDOG_SLACK = 4.0
 class SupervisorGaveUp(RuntimeError):
     """Retries and ladder exhausted; the flight dump is the
     post-mortem.  Carries the last attempt's error as __cause__."""
+
+
+class AttemptFatal(RuntimeError):
+    """An attempt failure no retry can heal (a serving world that lost
+    a rank): `supervise` re-raises it at once, as it does a strict
+    resume's `ResumeError`."""
 
 
 class AbortToken:
@@ -513,11 +521,11 @@ def supervise(
                 raise error
             from ..models.analogy import ResumeError
 
-            if isinstance(error, ResumeError):
+            if isinstance(error, (ResumeError, AttemptFatal)):
                 # A strict-resume failure is a CONFIG error, not a
                 # transient fault: retrying would recompute from
                 # scratch and exit 0 — the exact outcome the flag
-                # exists to forbid.
+                # exists to forbid.  A fatal one cannot heal.
                 raise error
             if error is not None:
                 # The failed attempt's frames hold its tensors (a whole

@@ -40,8 +40,19 @@ co-tenants.  Two constructions enforce it:
 Static batch grain: every dispatch is padded (last frame repeated) to
 exactly `max_batch` frames, so one request shape is one dispatch shape
 and the executable cache's "repeat shape = hit" claim holds.  The
-ballast rows are trimmed before demux.  The default grain is 1: there
-is one device (the reference's default is its mesh's device count).
+ballast rows are trimmed before demux.  The default grain is the
+mesh's rank count (1 without one), as the reference's is its mesh's
+device count.
+
+Multi-device (serving/ranks.py, `serve --n-devices N`): with a `mesh`
+(a `ServingMesh`, this process being rank 0 of its world) every
+sessionless dispatch runs over all ranks, the frames split over the
+"batch" axis, the other ranks following rank 0's dispatches through the
+mesh's channel; warmup goes through the same channel, one dispatch at a
+time.  Session frames stay solo on rank 0.  A world that loses a rank
+answers the batch in flight and every later sessionless batch 503 with
+Retry-After (their journal entries kept for a takeover), turns /healthz
+503 and drains; `serve` then exits nonzero.
 
 Failure containment: each dispatch runs under
 `runtime/supervisor.supervise` with `tracer=None` (exception-retry
@@ -319,6 +330,7 @@ class SynthDaemon:
         archive_dir: Optional[str] = None,
         archive_interval_s: float = 30.0,
         incident_min_interval_s: float = 60.0,
+        mesh=None,
     ):
         from ..models.analogy import resolve_device
         from ..telemetry.anomaly import AnomalyDetector
@@ -333,9 +345,15 @@ class SynthDaemon:
         self.registry = registry
         self.tracer = tracer
         self.flight = flight
+        # The serving world (serving/ranks.ServingMesh), or None: one
+        # process on one device.
+        self.mesh = mesh
+        # Why the mesh lost a rank, once it has (the daemon drains).
+        self.world_lost: Optional[str] = None
+        if max_batch is None:
+            max_batch = mesh.size if mesh is not None else 1
         self.policy = BatchingPolicy(
-            max_batch=1 if max_batch is None else max_batch,
-            max_wait_ms=max_wait_ms,
+            max_batch=max_batch, max_wait_ms=max_wait_ms,
         )
         self.admission = AdmissionController(
             max_depth=max_queue_depth, registry=registry
@@ -686,6 +704,8 @@ class SynthDaemon:
             # request path), so /healthz and the status gauges are at
             # most one interval stale.
             self.obs.start_sampler(on_tick=self._obs_tick)
+        if self.mesh is not None:
+            self.mesh.on_lost(self._on_world_lost)
         self._completer = threading.Thread(
             target=self._completer_loop, name="ia-serve-complete",
             daemon=True,
@@ -748,6 +768,11 @@ class SynthDaemon:
     @property
     def url(self) -> str:
         return self.live.url
+
+    @property
+    def devices(self) -> int:
+        """The ranks a sessionless dispatch runs on."""
+        return self.mesh.size if self.mesh is not None else 1
 
     # -------------------------------------------------------- warmup
     def warmup(self, entries: List[Dict[str, Any]]) -> List[Dict]:
@@ -1066,6 +1091,18 @@ class SynthDaemon:
             })
             book("cancelled", 499, payload)
             return 499, payload, "application/json"
+        if req.status == "unavailable":
+            # The serving world lost a rank: the entry stays in the
+            # journal for the takeover, and the client may retry there.
+            retry = max(1.0, round(self.drain_deadline_s, 1))
+            payload = _json_bytes({
+                "status": "unavailable", "request_id": rid,
+                "error": req.error, "retry_after_s": retry,
+                "spans": req.spans, **tctx,
+            })
+            book("unavailable", 503, payload)
+            return (503, payload, "application/json",
+                    {"Retry-After": str(int(np.ceil(retry)))})
         if req.status != "ok":
             payload = _json_bytes({
                 "status": "failed", "request_id": rid,
@@ -1348,7 +1385,7 @@ class SynthDaemon:
             "boot_id": (self.archive.boot_id
                         if self.archive is not None else None),
             "backend": self.cfg.device,
-            "devices": 1,
+            "devices": self.devices,
             "config": dataclasses.asdict(self.cfg),
             "policy": {
                 "max_batch": self.policy.max_batch,
@@ -1453,6 +1490,10 @@ class SynthDaemon:
         queue_depth + inflight and reads the drain state and state_dir
         (the migration source) from here."""
         snap = {
+            "devices": self.devices,
+            "backend": self.cfg.device,
+            "ranks": (self.mesh.snapshot()
+                      if self.mesh is not None else None),
             "queue_depth": len(self.queue),
             "inflight": self._inflight,
             "backlog": self._backlog,
@@ -1906,9 +1947,30 @@ class SynthDaemon:
         registry."""
         from ..telemetry.sentinel import evaluate_health
 
-        return evaluate_health(
+        health = evaluate_health(
             metrics=self.registry.to_dict(), context="serving"
         )
+        if self.world_lost is not None:
+            health["checks"].append({
+                "name": "serving_ranks", "status": "violated",
+                "provenance": "measured", "expected": self.devices,
+                "observed": None,
+                "detail": f"serving world lost: {self.world_lost}; "
+                          "draining for a takeover",
+            })
+            health["counts"]["violated"] += 1
+            health["verdict"] = "violated"
+        return health
+
+    def _on_world_lost(self, reason: str) -> None:
+        """The mesh lost a rank (serving/ranks.py): /healthz turns 503
+        and the daemon drains; `serve` exits nonzero after."""
+        self.world_lost = reason
+        self.registry.counter(
+            "ia_serve_world_lost_total",
+            "serving worlds that lost a rank (the daemon drains)",
+        ).inc()
+        self.begin_drain(reason="rank-lost")
 
     # ---------------------------------------------------- dispatcher
     def _note_pipeline(self, delta: int) -> None:
@@ -2227,6 +2289,7 @@ class SynthDaemon:
         settles inline before propagating."""
         from ..parallel.batch import synthesize_batch
         from ..runtime.supervisor import SupervisorGaveUp, supervise
+        from .ranks import WorldLost
 
         if batch[0].session is not None:
             self._execute_session(batch, kind=kind)
@@ -2238,7 +2301,7 @@ class SynthDaemon:
         run_tracer = None
         out = None
         ok = False
-        gaveup = None
+        gaveup = lost = None
 
         def settle():
             try:
@@ -2247,6 +2310,13 @@ class SynthDaemon:
                     for req in batch:
                         if kind == "client":
                             self._c_completed.inc()
+                elif lost is not None:
+                    for req in batch:
+                        req.status = "unavailable"
+                        req.error = f"serving world lost a rank: {lost}"
+                        req.journal_keep = True
+                        if kind == "client":
+                            self._c_failed.inc()
                 elif gaveup is not None:
                     for req in batch:
                         req.status = "failed"
@@ -2298,6 +2368,11 @@ class SynthDaemon:
                 run_tracer = Tracer(lean=True)
 
             def attempt(resume_from):
+                if self.mesh is not None:
+                    return self.mesh.run(
+                        frames, cfg, resume_from=resume_from,
+                        b_stats=b_stats, progress=run_tracer,
+                    )
                 return synthesize_batch(
                     self.a, self.ap, frames, cfg,
                     progress=run_tracer,
@@ -2325,6 +2400,8 @@ class SynthDaemon:
                 ok = True
             except SupervisorGaveUp as e:
                 gaveup = e
+            except WorldLost as e:
+                lost = e
             if ok and self.disk is not None:
                 # Sealed only after a successful dispatch: a failed one
                 # never claims a warm shape.

@@ -6,18 +6,19 @@ the brute PNG against the JAX CLI's on the same assets (uint8 arrays
 equal except at rounding boundaries), the PatchMatch PNG against the
 port's library call bit for bit, `video` writing one frame per input
 and naming each in its progress stream, the telemetry directory, a
-supervised run healing a fault, the flags of unported parts
-stopping the run with their ROADMAP step, and the step-12 flags
-(`--health`, `--metrics-port`) running, the health epilogue on every
-runner; `serve --device cpu` in its own process answering a request,
-draining on SIGTERM and exiting 0, `trace --trace-dir` reconstructing
-that request within 5 %, and serve's and trace's unported flags
-stopping at startup."""
+supervised run healing a fault, and the step-12 flags (`--health`,
+`--metrics-port`) running, the health epilogue on every runner; `serve
+--device cpu` in its own process answering a request, draining on
+SIGTERM and exiting 0, `trace --trace-dir` reconstructing that request
+within 5 %, and `serve --n-devices 2 --device cpu` answering the
+library's grain-2 dispatch over two ranks."""
 
+import base64
 import json
 import os
 import subprocess
 import sys
+import urllib.request
 
 import numpy as np
 import pytest
@@ -316,16 +317,59 @@ def test_video_over_ranks_needs_warm_off(assets, tmp_path, monkeypatch,
     assert not os.path.exists(outdir)
 
 
-@pytest.mark.parametrize("flags,step", [
-    (["--n-devices", "2"], "step 14b"),
-])
-def test_serve_unported_flags_stop_with_their_step(assets, flags, step):
-    with pytest.raises(SystemExit) as exc:
-        _run(["serve", "--a", os.path.join(assets, "npr_A.png"),
-              "--ap", os.path.join(assets, "npr_Ap.png"),
-              "--device", "cpu"] + flags)
-    assert "not ported" in str(exc.value.code)
-    assert step in str(exc.value.code)
+def test_serve_over_two_cpu_ranks(assets, tmp_path):
+    """`serve --n-devices 2 --device cpu`: rank 0 serves, a follower
+    runs each dispatch with it; the answer is the library's grain-2
+    dispatch bit for bit, /serving reports 2 devices, and SIGTERM drains
+    both ranks to exit 0."""
+    import signal
+    import time
+
+    from image_analogies_tpu_torch.parallel.batch import synthesize_batch
+    from image_analogies_tpu_torch.serving.daemon import _luma_bucket
+
+    td = tmp_path / "td"
+    frame = to_uint8(load_image(os.path.join(assets, "npr_frame_0.png")))
+    frame = np.ascontiguousarray(frame[:32, :32])
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "image_analogies_tpu_torch.cli", "serve",
+         "--a", os.path.join(assets, "npr_A.png"),
+         "--ap", os.path.join(assets, "npr_Ap.png"), "--device", "cpu",
+         "--n-devices", "2", "--levels", "2", "--em-iters", "1",
+         "--pm-iters", "2", "--port", "0", "--max-wait-ms", "5",
+         "--trace-dir", str(td)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    try:
+        deadline = time.monotonic() + 120.0
+        while not (td / "live.json").exists():
+            assert proc.poll() is None, proc.communicate()
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        url = json.loads((td / "live.json").read_text())["url"]
+        code, resp = _serve_post(url, frame, "two-ranks-1")
+        with urllib.request.urlopen(url + "/serving", timeout=30) as r:
+            serving = json.loads(r.read())
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+    assert code == 200 and resp["batch_size"] == 1
+    assert serving["devices"] == 2 and serving["ranks"]["size"] == 2
+    assert serving["policy"]["max_batch"] == 2
+    f = frame.astype(np.float32) / 255.0
+    want = synthesize_batch(
+        load_image(os.path.join(assets, "npr_A.png")),
+        load_image(os.path.join(assets, "npr_Ap.png")), np.stack([f, f]),
+        SynthConfig(device="cpu", levels=2, em_iters=1, pm_iters=2),
+        frame_indices=[0, 0], _b_stats=_luma_bucket(f))[0].numpy()
+    got = np.frombuffer(base64.b64decode(resp["image_b64"]),
+                        np.float32).reshape(resp["shape"])
+    np.testing.assert_array_equal(got, want)
 
 
 def test_serve_without_a_card_refuses(assets, monkeypatch):
@@ -433,9 +477,19 @@ def test_module_entry_point_runs_without_cuda(assets, tmp_path):
     )
     assert res.returncode == 0, res.stderr
     assert os.path.exists(out)
-    res = subprocess.run(
-        [sys.executable, "-m", "image_analogies_tpu_torch.cli", "serve",
-         "--a", "x", "--ap", "x", "--n-devices", "2"],
-        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    # `serve --n-devices 2` on cuda (the default) without a card stops
+    # at its device check, before any rank starts or CUDA initialises.
+    code = (
+        "import sys, torch\nfrom image_analogies_tpu_torch import cli\n"
+        "try:\n    cli.main(sys.argv[1:])\n"
+        "except SystemExit as e:\n    print(e.code)\n"
+        "assert not torch.cuda.is_initialized()"
     )
-    assert res.returncode != 0 and "step 14b" in res.stderr
+    res = subprocess.run(
+        [sys.executable, "-c", code, "serve", "--a", "x", "--ap", "x",
+         "--n-devices", "2"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": ROOT},
+    )
+    assert res.returncode == 0, res.stderr
+    assert "no CUDA device" in res.stdout

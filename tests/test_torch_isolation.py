@@ -425,3 +425,47 @@ def test_dispatch_rule():
     assert kernels.tile_path(cfg)
     assert not kernels.tile_path(SynthConfig(device="cpu", pallas_mode="off"))
     assert kernels.on_cuda(torch.zeros(1, device="meta")) is False
+
+
+@pytest.mark.parametrize("path", [
+    PORT / "serving" / "ranks.py", PORT / "parallel" / "mesh.py",
+    ROOT / "tests" / "torch_serve_workers.py",
+], ids=["serving/ranks.py", "parallel/mesh.py", "torch_serve_workers.py"])
+def test_multi_device_serving_modules_are_checked(path):
+    """Multi-device serving's channel, its launcher and the tests'
+    follower module import neither JAX nor the JAX package (the
+    followers start from a fresh import of them)."""
+    assert path.exists()
+    assert not {"jax", "image_analogies_tpu"} & set(_imported_roots(path))
+
+
+def test_multi_device_serving_runs_without_the_reference_package():
+    """A serving world of one gloo rank in a fresh process with JAX and
+    the JAX package unimportable: one dispatch through the channel,
+    CUDA left uninitialised."""
+    code = (
+        "import sys; sys.modules['jax'] = None; "
+        "sys.modules['image_analogies_tpu'] = None; "
+        "import numpy as np, torch; torch.set_num_threads(1); "
+        "from image_analogies_tpu_torch.config import SynthConfig; "
+        "from image_analogies_tpu_torch.parallel.mesh import start_world; "
+        "from image_analogies_tpu_torch.serving.ranks import ServingMesh, "
+        "follow; "
+        "a, ap, b = np.random.default_rng(0).random((3, 16, 16, 3))"
+        ".astype(np.float32); "
+        "m = ServingMesh(start_world(1, follow, device_type='cpu'), a, ap, "
+        "device_type='cpu'); "
+        "out = m.run(np.stack([b]), SynthConfig(device='cpu', levels=1, "
+        "matcher='brute', em_iters=1)); "
+        "assert m.close() == [] and out.shape == (1, 16, 16, 3); "
+        "assert not torch.cuda.is_initialized(); "
+        "assert not {m.split('.')[0] for m in sys.modules "
+        "if sys.modules[m] is not None} & {'jax', 'image_analogies_tpu'}; "
+        "print('ok')"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

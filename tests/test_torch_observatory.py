@@ -471,8 +471,15 @@ def obs_daemon():
             headers={"X-Request-Id": "obs-pin-1"})
         with urllib.request.urlopen(req, timeout=300) as resp:
             assert resp.status == 200
-        deadline = time.monotonic() + 10.0
-        while len(d.obs) < 3 and time.monotonic() < deadline:
+        # The tests read a window whose newest snapshot was taken after
+        # the completion: the ring held 3 snapshots long before the
+        # answer, and under load the sampler may not tick again before
+        # a test reads it.  The second tick after the answer began after
+        # it (the first may have been sampling while the answer went).
+        ticks = d.obs.window()["ticks_total"]
+        deadline = time.monotonic() + 30.0
+        while (d.obs.window()["ticks_total"] < ticks + 2
+               or len(d.obs) < 3) and time.monotonic() < deadline:
             time.sleep(0.02)
         yield d, (a, ap)
     finally:

@@ -1,0 +1,28 @@
+"""Follower functions of the multi-rank serving tests
+(tests/test_torch_serve_multi.py).
+
+`parallel.mesh.start_world` starts followers with the "spawn" start
+method, so each imports the function it runs by name: they live here,
+in a module that imports only torch and the port, never JAX or a test
+module that imports it."""
+
+import torch
+
+from image_analogies_tpu_torch.runtime import faults
+from image_analogies_tpu_torch.serving.ranks import follow
+
+
+def follower(fault_plan=None) -> None:
+    """A serving follower on one intra-op thread, with `fault_plan`
+    armed in this rank alone."""
+    torch.set_num_threads(1)
+    if fault_plan:
+        faults.set_fault_plan(fault_plan)
+    follow()
+
+
+def exit_at_once() -> None:
+    """A follower that dies before it follows (exit code 3)."""
+    import os
+
+    os._exit(3)
