@@ -64,7 +64,8 @@ batch and video runners' isolation and gates, and prints one JSON line
 per phase, each with its `seconds` (also appended to
 `chiprun_out/chip_smoke.jsonl`, with the serve phase's SERVE record in
 `chiprun_out/serve_record.json` and the fleet phase's records, each
-through its tools/check_*.py validator, in `chiprun_out/fleet_*.json`).  The line before the last is the
+held to its tools/check_*.py validator's checks, in
+`chiprun_out/fleet_*.json`).  The line before the last is the
 `kernels` summary; the last is `{"ok": true, "device": {...}}`.  Any
 failed phase raises, so the script exits non-zero and prints no result
 line; so does a machine without a CUDA device.
@@ -770,6 +771,7 @@ def profile_call(fn, arm):
 
     from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
 
+    t_call = time.perf_counter()
     fn()  # warm
     booked0 = pt.launches.count + pt.launches_int8.count
     with profile(activities=[ProfilerActivity.CPU,
@@ -813,6 +815,9 @@ def profile_call(fn, arm):
                 for t, k, n in rows[:12]],
         "host_top": [{"name": k[:90], "self_cpu_ms": t / 1e3, "calls": n}
                      for t, k, n in host[:8]],
+        # The whole call: the warm run, the traced one, the trace's
+        # processing.
+        "call_s": time.perf_counter() - t_call,
     }
     emit(rec)
     return rec
@@ -1259,9 +1264,7 @@ def phase_lean(dev, smi, script_t0, sizes=(2048, 4096, 1024)):
     rec["bp_std_2048"] = check_output(lean2, ex2[2].shape, "2048^2 lean")
     rec.update(wall_s_median_2048=statistics.median(walls),
                walls_s_2048=walls, peak_gib_2048=peak, launches_2048=launches)
-    prof = profile_call(lambda: run_synth(ex2, cfg), "lean_2048")
-    rec["profile_2048"] = {k: prof[k] for k in (
-        "wall_s", "device_busy_ms", "device_idle_share", "device_events")}
+    emit({"phase": "lean", "part": "2048"})
 
     # Checkpoints and a resume from level 1 (standard) into level 0 (lean).
     ckpt = BUILD_DIR.parent / "lean_ckpt"
@@ -1289,6 +1292,7 @@ def phase_lean(dev, smi, script_t0, sizes=(2048, 4096, 1024)):
             f"resumed / checkpointing B' differ from the uninterrupted B' "
             f"by {rec['resume_max_abs_diff']} / "
             f"{rec['checkpointing_run_max_abs_diff']}")
+    emit({"phase": "lean", "part": "resume"})
 
     # The same config forced onto the standard path.
     std_cfg = dataclasses.replace(cfg, feature_bytes_budget=1 << 40)
@@ -1302,6 +1306,7 @@ def phase_lean(dev, smi, script_t0, sizes=(2048, 4096, 1024)):
         raise AssertionError(
             "2048^2 lean B' differs from the standard path's by "
             f"{rec['max_abs_diff_2048_lean_vs_standard']}")
+    emit({"phase": "lean", "part": "standard"})
 
     # The lean-brute oracle: K2 bf16 on every level (one B band each).
     or_cfg = SynthConfig(levels=6, matcher="brute", em_iters=2,
@@ -1318,10 +1323,13 @@ def phase_lean(dev, smi, script_t0, sizes=(2048, 4096, 1024)):
                   k2=or_cfg.clamp_levels((big, big)) * or_cfg.em_iters)
     rec.update(wall_s_oracle_2048=walls[0], peak_gib_oracle_2048=peak,
                k2_launches_oracle_2048=launches["k2"])
+    emit({"phase": "lean", "part": "oracle"})
     f_b, f_a, *_ = seen1[0][0]
     rec["k2_2048_oracle_level1"] = lean_k2_row(f_b, f_a, seen1[0][2])
+    emit({"phase": "lean", "part": "k2_level1"})
     f_b, f_a, *_ = seen[0][0]
     rec["k2_2048_oracle_level0"] = lean_k2_level0(f_b, f_a, seen[0][2])
+    emit({"phase": "lean", "part": "k2_level0"})
     del seen, seen1, f_b, f_a
     p_lean, p_std = psnr(lean2, oracle), psnr(std2, oracle)
     rec.update(psnr_2048_lean_vs_oracle=p_lean,
@@ -1363,6 +1371,7 @@ def phase_lean(dev, smi, script_t0, sizes=(2048, 4096, 1024)):
     args, _, out = k3_seen[0]
     rec["k3_2048_compressed_first_launch"] = lean_k3_row(args, out)
     del k1_seen, k3_seen, args, out
+    emit({"phase": "lean", "part": "compressed"})
     del lean2, std2, oracle, comp, saved, resumed
 
     # 4096^2: levels 0 and 1 lean; K1's first level-0 sweep captured.
@@ -1390,6 +1399,7 @@ def phase_lean(dev, smi, script_t0, sizes=(2048, 4096, 1024)):
     rec["k1_4096_first_sweep"] = lean_k1_row(
         one_frame(args), kw, (huge, huge), "K1 f32 on the 4096^2 lean level")
     del seen, args
+    emit({"phase": "lean", "part": "4096"})
 
     # Lean brute against standard brute at 1024^2.
     ex1 = super_resolution(small)
@@ -1547,6 +1557,7 @@ def phase_batch(dev, smi):
                peak_gib=peak, k1_launches_per_run=launches[0],
                k1_launches_one_per_frame=batch_k1_launches(cfg, size, n, 1),
                bp_std=check_output(out4, frames.shape, "config 5"))
+    emit({"phase": "batch", "part": "walls"})
 
     # The oracle: brute at one frame a step (K2 f32 on every level).
     from image_analogies_tpu_torch.kernels import nn_brute
@@ -1561,6 +1572,7 @@ def phase_batch(dev, smi):
     if not rec["psnr_db"] >= CONFIG5_MIN_PSNR:
         raise AssertionError(f"config 5 PSNR {rec['psnr_db']} < "
                              f"{CONFIG5_MIN_PSNR} dB")
+    emit({"phase": "batch", "part": "oracle"})
 
     # Isolation: chunking (same plans at 1 and 2 frames a step), and a
     # batched frame keyed as frame 0 against its solo run.
@@ -1589,12 +1601,10 @@ def phase_batch(dev, smi):
             raise AssertionError(f"config 5: frame {i} keyed as frame 0 "
                                  "differs from its solo run")
     rec["isolation"] = "fps 1 == fps 2; frame_indices=[0]*8 == solo runs"
+    emit({"phase": "batch", "part": "isolation"})
 
     rec["k1_frames"] = k1_frames_row(args, kw)
-    prof = profile_call(lambda: run_batch(a, ap, frames, cfg,
-                                          frames_per_step=fps), "config5")
-    rec["profile"] = {k: prof[k] for k in (
-        "wall_s", "device_busy_ms", "device_idle_share", "device_events")}
+    emit({"phase": "batch", "part": "k1_frames"})
     rec["phase_wall_s"] = time.perf_counter() - t_phase
     emit(rec)
     return rec
@@ -1629,9 +1639,10 @@ def make_scene(size: int, frames: int, seed: int):
     return a, ap, np.repeat(b[None], frames, axis=0)
 
 
-def stream_pass(dev, a, ap, stack, cfg, warm):
-    """One frame-at-a-time pass through `VideoStream`: (outputs, per-frame
-    walls, the stream)."""
+def stream_pass(dev, a, ap, stack, cfg, warm, steps=None):
+    """One frame-at-a-time pass through `VideoStream` over the frames
+    `steps` of `stack` (default: all; the remap statistics are always the
+    whole stack's): (outputs, per-frame walls, the stream)."""
     from image_analogies_tpu_torch.parallel.batch import stack_stats
     from image_analogies_tpu_torch.video import (
         VideoStream,
@@ -1648,7 +1659,7 @@ def stream_pass(dev, a, ap, stack, cfg, warm):
                 torch.as_tensor(np.asarray(stack, np.float32), device=dev),
                 cfg))
         outs, walls = [], []
-        for t in range(stack.shape[0]):
+        for t in range(stack.shape[0]) if steps is None else steps:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             outs.append(stream.step(stack[t]))
@@ -1662,7 +1673,8 @@ def stream_pass(dev, a, ap, stack, cfg, warm):
 def phase_video(dev, smi):
     """The video bench's four passes at 1024^2, 8 static frames: cold
     (warm off), warm (tau 0), warm_tau (tau 0.1) and the brute oracle
-    (warm off), with tools/check_video.py's gates raised on, and warm
+    (warm off; frames 0 and 7 stepped, equal, standing for all), with
+    tools/check_video.py's gates raised on, and warm
     frame 0 and the warm-off pass held bit for bit against
     `synthesize_batch(frames_per_step=1)`."""
     import dataclasses
@@ -1671,11 +1683,7 @@ def phase_video(dev, smi):
     from image_analogies_tpu_torch.config import SynthConfig
     from image_analogies_tpu_torch.kernels import nn_brute
     from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
-    from image_analogies_tpu_torch.video import (
-        flicker_metric,
-        set_warm_mode,
-        warm_mode,
-    )
+    from image_analogies_tpu_torch.video import flicker_metric
 
     t_phase = time.perf_counter()
     n, size = VIDEO_FRAMES, VIDEO_SIZE
@@ -1686,13 +1694,24 @@ def phase_video(dev, smi):
                       "tau": VIDEO_TAU}}
     stream_pass(dev, a, ap, stack[:2], cfg, "on")  # warm-up
     passes = {}
+    # The scene is one B repeated and the brute oracle draws nothing, so
+    # its frames are equal: the oracle pass steps the first frame and the
+    # last (held equal bit for bit), and the others take the first's.
+    oracle_steps = (0, n - 1)
     for name, c, warm in (
             ("cold", cfg, "off"), ("warm", cfg, "on"),
             ("warm_tau", dataclasses.replace(cfg, tau=VIDEO_TAU), "on"),
             ("oracle", dataclasses.replace(cfg, matcher="brute"), "off")):
         pt.launches.reset()
         nn_brute.launches.reset()
-        out, walls, stream = stream_pass(dev, a, ap, stack, c, warm)
+        steps = oracle_steps if name == "oracle" else None
+        out, walls, stream = stream_pass(dev, a, ap, stack, c, warm, steps)
+        if steps is not None:
+            if not torch.equal(out[0], out[-1]):
+                raise AssertionError(
+                    f"video oracle: frames {steps} differ by "
+                    f"{float((out[0] - out[-1]).abs().max())}")
+            out = out[[0] * n]
         check_output(out, stack.shape, f"video {name}")
         passes[name] = out
         rec[name] = {
@@ -1703,7 +1722,9 @@ def phase_video(dev, smi):
             "run_units": stream.run_units, "cold_units": stream.cold_units,
             "k1_launches": pt.launches.count,
             "k2_launches": nn_brute.launches.count,
+            "frames_stepped": list(steps or range(n)),
         }
+    emit({"phase": "video", "part": "passes"})
     warm = rec["warm"]
     warm["warm_cost_ratio"] = warm["run_units"] / warm["cold_units"]
     p_cold = [psnr(passes["cold"][t], passes["oracle"][t]) for t in range(n)]
@@ -1726,20 +1747,6 @@ def phase_video(dev, smi):
         fails.append(f"mean_delta_db {rec['quality']['mean_delta_db']}")
     if not rec["flicker"]["warm_tau"] < rec["flicker"]["independent"]:
         fails.append(f"flicker {rec['flicker']}")
-    # Where a frame's time goes: one warm (tau 0) and one cold frame of a
-    # primed stream under the profiler.
-    for name, mode in (("warm", "on"), ("cold", "off")):
-        _, _, stream = stream_pass(dev, a, ap, stack[:1], cfg, "on")
-        prev = warm_mode()
-        set_warm_mode(mode)
-        try:
-            prof = profile_call(lambda: stream.step(stack[1]),
-                                f"video_{name}_frame")
-        finally:
-            set_warm_mode(prev)
-        rec[f"profile_{name}_frame"] = {k: prof[k] for k in (
-            "wall_s", "device_busy_ms", "device_idle_share",
-            "device_events")}
     ref = synthesize_batch(a, ap, stack, cfg, frames_per_step=1)
     if not torch.equal(passes["warm"][0], ref[0]):
         fails.append("warm frame 0 differs from the batch runner's")
@@ -2058,12 +2065,13 @@ def phase_cli(dev, smi, l2_rate, sizes=(1024, 512, 256)):
         extra = [] if arm == "plain" else ["--supervise"]
         if plan:
             extra += ["--trace-dir", tdir]
-        run_cli(synth_args(dirs[big], "super_resolution", out,
-                           *CLI_HEADLINE, "--device", device, "--progress",
-                           prog, *extra),
-                env={"IA_FAULT_PLAN": plan} if plan else None)
+        proc_wall, _ = run_cli(synth_args(
+            dirs[big], "super_resolution", out, *CLI_HEADLINE, "--device",
+            device, "--progress", prog, *extra),
+            env={"IA_FAULT_PLAN": plan} if plan else None)
         chaos[arm] = {"wall_s": cli_done_wall(prog),
-                      "walls_ms": cli_level_walls(prog)}
+                      "walls_ms": cli_level_walls(prog),
+                      "process_wall_s": proc_wall}
         if not np.array_equal(png(out), want):
             raise AssertionError(f"chaos {arm}: B' differs from the "
                                  "unfaulted run")
@@ -3052,24 +3060,142 @@ FLEET_BURST = ((1000, 900), (1, 1), (768, 768), (512, 700), (1023, 769),
 FLEET_BYPASS = (1100, 1024)
 FLEET_OVERHEAD_PAIRS = 4
 KILL_SIZE, KILL_BURST = 256, 8
-# Validator gates that measure a mechanism the port does not have:
-# printed with their values, never asserted (PERF.md section 6).
+# Validator gates this script does not hold, printed with their values
+# and never asserted (PERF.md sections 4 and 6): check_router's
+# weak-scaling protocol, not run (replicas sharing one card cannot
+# scale), and check_serve_persist's 10x, a mechanism the port does not
+# have (no compile to persist).
 UNASSERTED_GATES = {
-    "check_router.py": ("scaling_factor",),
+    "check_router.py": ("protocol.mode", "protocol.clients_per_replica",
+                        "single: missing", "fleet: missing",
+                        "scaling_factor None"),
     "check_serve_persist.py": ("10x",),
 }
-# Runs a tools/check_*.py validator on a machine without JAX: the ones
-# that pool records import the JAX package's jax-free modules (check_obs
-# its observatory), whose package __init__ imports jax, so the package
-# is entered as a bare namespace.
-_VALIDATOR_BOOT = (
-    "import os, runpy, sys, types; "
-    "pkg = types.ModuleType('image_analogies_tpu'); "
-    "pkg.__path__ = [os.path.join(os.getcwd(), 'image_analogies_tpu')]; "
-    "sys.modules['image_analogies_tpu'] = pkg; "
-    "tool = sys.argv[1]; sys.argv = sys.argv[1:]; "
-    "runpy.run_path(tool, run_name='__main__')"
-)
+# tools/check_obs.py's record checks, with the port's observatory doing
+# the re-merge (the tool imports the reference's): the obs record's
+# schema, every live replica's duration family, SLO report and window,
+# the fleet SLO bit-equal to pooling the replicas' registries again and
+# grading them, and the observatory's overhead under the 2 % budget.
+OBS_DURATION_METRIC = "ia_request_duration_ms"
+OBS_WINDOW_STATUSES = ("ok", "single_snapshot", "no_data")
+OBS_OVERHEAD_BUDGET_FRAC = 0.02
+
+
+def obs_window_violations(window, where):
+    """tools/check_obs.py's structural check of one replica's window."""
+    if window is None:
+        return []
+    if not isinstance(window, dict):
+        return [f"{where}: window is not an object"]
+    errs = []
+    if window.get("kind") != "obs_window":
+        errs.append(f"{where}: window.kind {window.get('kind')!r}")
+    status = window.get("status")
+    if status not in OBS_WINDOW_STATUSES:
+        return errs + [f"{where}: window.status {status!r}"]
+    if status == "no_data":
+        errs += [f"{where}: no_data window has non-empty {section}"
+                 for section in ("counters", "gauges", "histograms")
+                 if window.get(section)]
+    if status != "ok" and any(
+            cell.get("rate_per_s") is not None
+            for fam in (window.get("counters") or {}).values()
+            for cell in fam.values()):
+        errs.append(f"{where}: {status} window carries a counter rate")
+    return errs
+
+
+def obs_violations(record):
+    """The violations of an `obs --out` record (empty: valid), as
+    tools/check_obs.py's `validate_obs` finds them."""
+    from image_analogies_tpu_torch.serving.observatory import (
+        fleet_slo,
+        merge_registries,
+    )
+
+    def num(v):
+        return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+    if not isinstance(record, dict):
+        return ["record is not a JSON object"]
+    errs = []
+    if record.get("schema_version") != 1:
+        errs.append(f"schema_version {record.get('schema_version')!r} != 1")
+    if record.get("kind") != "obs":
+        errs.append(f"kind {record.get('kind')!r} != 'obs'")
+    rnd = record.get("round")
+    if not (num(rnd) and rnd >= 19):
+        errs.append(f"round {rnd!r} is not a round >= 19")
+    replicas = record.get("replicas")
+    if not isinstance(replicas, list) or len(replicas) < 2:
+        return errs + [f"replicas: need >= 2 scraped replicas, got "
+                       f"{replicas!r:.200}"]
+    live = []
+    for i, rep in enumerate(replicas):
+        where = f"replicas[{i}]"
+        if not isinstance(rep, dict) or not rep.get("url"):
+            errs.append(f"{where}: missing url")
+            continue
+        if rep.get("error"):
+            continue
+        live.append(rep)
+        metrics = rep.get("metrics")
+        if not isinstance(metrics, dict):
+            errs.append(f"{where}: missing metrics")
+            continue
+        if not (metrics.get(OBS_DURATION_METRIC) or {}).get("values"):
+            errs.append(f"{where}: no {OBS_DURATION_METRIC} observations")
+        slo = rep.get("slo")
+        if not isinstance(slo, dict) or slo.get("kind") != "slo":
+            errs.append(f"{where}: missing /slo report")
+        errs += obs_window_violations(rep.get("window"), where)
+    if len(live) < 2:
+        return errs + [f"fewer than 2 live replicas ({len(live)})"]
+    fleet = record.get("fleet")
+    if not isinstance(fleet, dict):
+        return errs + ["missing fleet section"]
+    if fleet.get("replicas_live") != len(live):
+        errs.append(f"fleet.replicas_live {fleet.get('replicas_live')!r} "
+                    f"!= {len(live)} live replicas present")
+    committed = fleet.get("slo")
+    if committed != fleet_slo(merge_registries([r["metrics"]
+                                                for r in live])):
+        errs.append("fleet.slo is NOT bit-equal to re-merging the "
+                    "per-replica histograms and re-grading")
+    else:
+        errs += [f"fleet objective {obj.get('name')}: error budget "
+                 f"exhausted (burn {obj.get('burn_rate')})"
+                 for obj in (committed or {}).get("objectives", [])
+                 if obj.get("status") == "exhausted"]
+    overhead = record.get("observatory_overhead_frac")
+    if not num(overhead):
+        errs.append(f"observatory_overhead_frac {overhead!r} is not a "
+                    "number")
+    elif not 0.0 <= overhead < OBS_OVERHEAD_BUDGET_FRAC:
+        errs.append(f"observatory_overhead_frac {overhead} outside "
+                    f"[0, {OBS_OVERHEAD_BUDGET_FRAC})")
+    return errs
+
+
+def check_obs(record, out_dir):
+    """Write `record` to chiprun_out/fleet_obs.json and hold it to
+    `obs_violations`: its summary line in tools/check_obs.py's form, or
+    an AssertionError naming the violations."""
+    import os
+
+    path = os.path.join(out_dir, "fleet_obs.json")
+    with open(path, "w") as f:
+        json.dump(record, f, indent=1)
+    errs = obs_violations(record)
+    if errs:
+        raise AssertionError(f"check_obs: {path}: {len(errs)} "
+                             "violation(s): " + "; ".join(errs))
+    fleet = record["fleet"]
+    return (f"check_obs: {path} OK — {fleet['replicas_live']} replicas, "
+            f"fleet verdict {(fleet.get('slo') or {}).get('verdict')}, "
+            f"overhead {record['observatory_overhead_frac']}")
+
+
 # `route` in its own process, which must exit with CUDA uninitialised.
 _ROUTE_NO_CUDA = (
     "import sys, torch; from image_analogies_tpu_torch import cli; "
@@ -3093,8 +3219,7 @@ def run_validator(name, record, out_dir):
     with open(path, "w") as f:
         json.dump(record, f, indent=1)
     res = subprocess.run(
-        [sys.executable, "-c", _VALIDATOR_BOOT,
-         os.path.join(root, "tools", name), path],
+        [sys.executable, os.path.join(root, "tools", name), path],
         cwd=root, capture_output=True, text=True, timeout=120)
     lines = [ln.strip() for ln in res.stdout.splitlines() if ln.strip()]
     found = [ln[2:] for ln in lines if ln.startswith("- ")]
@@ -3470,26 +3595,27 @@ def phase_fleet(dev, smi, serve=None):
          hits; three held against the library's dispatch of the padded
          frame, cropped), a 1100 x 1024 frame as an honest miss equal to
          the exact dispatch; the record through tools/check_lattice.py;
-      3. warm join: a third replica on the warm dir restores the sealed
-         shapes (`disk`), joins by POST /replicas/add mid-burst, and its
-         first routed request takes at most 2x the fleet's warm p99; a
-         one-client and a three-client point for the weak-scaling
-         figure;
+      3. warm join: a lone routed request (traced in 5.); a third
+         replica on the warm dir restores the sealed shapes (`disk`),
+         joins by POST /replicas/add mid-burst, and its first routed
+         request takes at most 2x the fleet's warm p99 (the routed
+         sweep's 4-client point);
       4. affinity and drain: a session of 3 frames; after frame 2 POST
          /drain_replica on its replica while a request is in flight
          there, and a second (in-process, traced) router with a stale
          view re-routes a draining 503; frame 3 on the adopter equals
          `VideoStream` stepped by hand; the traced router against an
          untraced one over the same replicas (overhead);
-      5. `obs --targets D` (through tools/check_obs.py with the
-         observatory's measured overhead) and `trace --fleet D` on a
-         routed request (coverage >= 0.95);
+      5. `obs --targets D` (held to tools/check_obs.py's checks by
+         `check_obs`, the port's observatory re-merging, with the
+         observatory's measured overhead) and `trace --fleet D` on the
+         lone routed request (coverage >= 0.95);
       6. `kill_arm` at 256^2 behind the same router; the ARCHIVE record
          through tools/check_archive.py.
     The trace, router and persist records go through
     tools/check_fleet_trace.py, check_router.py and
-    check_serve_persist.py; the latter two's weak-scaling and 10x gates
-    are printed, not asserted.  `serve` is this call's serve phase
+    check_serve_persist.py; the latter two's weak-scaling (not run: no
+    throughput pair) and 10x gates are printed, not asserted.  `serve` is this call's serve phase
     record, for the single-daemon figures beside the routed ones."""
     import os
     import shutil
@@ -3677,10 +3803,11 @@ def phase_fleet(dev, smi, serve=None):
                               "waste": lat["mean_bucket_waste_frac"]}
         emit({"phase": "fleet", "part": "lattice", **rec["lattice_arm"]})
 
-        # ---- 3. the warm join, and the weak-scaling pair.
-        single = serve_point(router_url, 1, 2, bodies, refs, "w1")
-        # `trace --fleet` on the first of them, a routed request with no
-        # other in flight, while its replica still serves (section 5).
+        # ---- 3. the warm join.  First a lone routed request, for
+        # `trace --fleet` (a request with no other in flight, traced
+        # while its replica still serves; section 5) and the warm
+        # daemon's wall in the persist record.
+        lone = serve_point(router_url, 1, 1, bodies, refs, "w1")
         trace_main = cli_start(work, "trace_main", [
             "trace", "w1-0-0", "--fleet", disc, "--format", "json"])
         joining = replica("rc")
@@ -3711,10 +3838,12 @@ def phase_fleet(dev, smi, serve=None):
                 not np.array_equal(served_image(first), refs[3]):
             raise AssertionError(f"warm join first request: {code} "
                                  f"{hdrs.get('X-Routed-To')}")
-        fleet_pt = serve_point(router_url, 3, 2, bodies, refs, "w3")
         rc_metrics = get_doc(urls["rc"] + "/metrics.json")
         rc_health = {c["name"]: c["status"] for c in get_doc(
             urls["rc"] + "/healthz")["checks"]}
+        # The fleet's warm p99 the joiner is held to: the routed sweep's
+        # 4-client point (two warm replicas, every answer checked).
+        fleet_warm_p99 = sweep[0]["p99_ms"]
         rec["warm_join"] = {
             "restored": restored,
             "restore_ms": rc_serving["disk_cache"]["restore_ms"],
@@ -3723,15 +3852,14 @@ def phase_fleet(dev, smi, serve=None):
                                          kind="warmup"),
             "first_request_ms": first_ms, "first_cache": first["cache"],
             "first_server_ms": first["wall_ms"],
-            "fleet_warm_p99_ms": fleet_pt["p99_ms"],
-            "warm_p99_ratio": first_ms / fleet_pt["p99_ms"],
-            "single": points_summary([single])[0],
-            "fleet": points_summary([fleet_pt])[0],
+            "fleet_warm_p99_ms": fleet_warm_p99,
+            "warm_p99_ratio": first_ms / fleet_warm_p99,
+            "lone": points_summary([lone])[0],
         }
         emit({"phase": "fleet", "part": "warm_join", **rec["warm_join"]})
-        if first_ms > 2.0 * fleet_pt["p99_ms"]:
+        if first_ms > 2.0 * fleet_warm_p99:
             raise AssertionError(f"added replica's first request "
-                                 f"{first_ms} ms > 2x {fleet_pt['p99_ms']}")
+                                 f"{first_ms} ms > 2x {fleet_warm_p99}")
 
         # ---- 4. a session, drained off its replica and adopted.
         clip = [serve_body(frames_u8[i], session="clip") for i in range(3)]
@@ -3870,8 +3998,7 @@ def phase_fleet(dev, smi, serve=None):
         with open(obs_out) as f:
             obs_rec = json.load(f)
         obs_rec["observatory_overhead_frac"] = obs_frac
-        _, rec["check_obs"] = run_validator("check_obs.py", obs_rec,
-                                            out_dir)
+        rec["check_obs"] = check_obs(obs_rec, out_dir)
         if trace_main[0].wait(120) != 0:
             raise AssertionError("trace --fleet: "
                                  + open(trace_main[3]).read()[-2000:])
@@ -3945,23 +4072,16 @@ def phase_fleet(dev, smi, serve=None):
     _, rec["check_fleet_trace"] = run_validator(
         "check_fleet_trace.py", trace_record, out_dir)
 
-    def point(p, replicas):
-        return {"replicas": replicas, "clients": p["clients"],
-                "requests": p["requests"], "wall_s": p["wall_s"],
-                "throughput_rps": p["requests"] / p["wall_s"],
-                "p50_ms": p["p50_ms"], "p99_ms": p["p99_ms"]}
-
     router_record = {
         "schema_version": 1, "kind": "router", "nvidia_smi": smi,
         "proxy_size": SERVE_SIZE,
-        "protocol": {"mode": "weak_scaling", "clients_per_replica": 1,
-                     "requests_per_client": 2},
-        "single": point(single, 1),
-        "fleet": {**point(fleet_pt, 3),
-                  "per_replica_requests": fleet_pt["routed_to"]},
+        # No single / fleet throughput cells and no scaling_factor: the
+        # replicas share one card, so the pair could not scale.
+        "protocol": {"mode": "weak_scaling not run",
+                     "reason": "the replicas share one card"},
         "warm_start": {"replica": "rc", "first_request_ms": first_ms,
-                       "fleet_warm_p99_ms": fleet_pt["p99_ms"],
-                       "warm_p99_ratio": first_ms / fleet_pt["p99_ms"],
+                       "fleet_warm_p99_ms": fleet_warm_p99,
+                       "warm_p99_ratio": first_ms / fleet_warm_p99,
                        "disk_cache": rc_serving["disk_cache"]},
         "affinity": affinity,
         "chaos": {"name": "replica_kill_midburst",
@@ -3972,12 +4092,8 @@ def phase_fleet(dev, smi, serve=None):
                   "routed_burst": KILL_BURST,
                   "routed_served": rec["kill"]["routed_served"]},
     }
-    router_record["scaling_factor"] = (
-        router_record["fleet"]["throughput_rps"]
-        / router_record["single"]["throughput_rps"])
     gates, rec["check_router"] = run_validator("check_router.py",
                                                router_record, out_dir)
-    rec["scaling_factor"] = router_record["scaling_factor"]
     rec["unasserted_gates"] = {"check_router.py": gates}
     persist_record = {
         "schema_version": 1, "kind": "serve_persist", "nvidia_smi": smi,
@@ -3992,7 +4108,7 @@ def phase_fleet(dev, smi, serve=None):
             "cold_ms": min(e["compile_ms"] for e in before["cache"][
                 "entries"] if e["compile_ms"] is not None),
             "cold_restart_ms": first["wall_ms"],
-            "warm_ms": single["server_wall_ms_median"],
+            "warm_ms": lone["server_wall_ms_median"],
             "first_restart_cache": (
                 "disk" if rec["warm_join"]["disk_hits_warmup"] else "miss"),
             "bit_identical": True,

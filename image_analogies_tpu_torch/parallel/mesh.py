@@ -75,6 +75,12 @@ def _init_world(backend: str, world_size: int, rank: int, port: int,
     )
 
 
+def _leave_world() -> None:
+    """Destroy the default group, if this process has one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def _require_device(device_type: str) -> None:
     if device_type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -421,11 +427,18 @@ class Followers:
                 p.kill()
             p.join()
 
-    def guard(self, fn: Callable[[], Any], what: str) -> Any:
+    def guard(self, fn: Callable[[], Any], what: str,
+              timeout_s: float = 0.0,
+              undo: Optional[Callable[[], None]] = None) -> Any:
         """`fn()`, run on a helper thread while this one watches the
-        followers: one that exits first fails it at once (the others
-        are killed) instead of leaving rank 0 in a collective until its
-        timeout."""
+        followers.  When one exits before `fn` returns (or as `fn`
+        fails, since a dying peer's sockets close before its exit is
+        seen), this raises a RuntimeError naming it at once and kills
+        the others, instead of leaving rank 0 in a collective until its
+        timeout.  With `undo`, the abandoned call is first given
+        `timeout_s` (what bounds its collectives) to end, and `undo()`
+        then reverses what it did (a default group formed after the
+        follower's exit, say), so a failed start leaves nothing behind."""
         if not self.procs:
             return fn()
         box: dict = {}
@@ -441,14 +454,27 @@ class Followers:
         t.start()
         while t.is_alive():
             t.join(_WATCH_S)
-            dead = self.dead()
-            if dead and t.is_alive():
-                self.kill()
-                raise RuntimeError(f"{what}: " + ", ".join(
-                    f"rank {r} exited with code {c}" for r, c in dead))
+            if t.is_alive() and self.dead():
+                break
         if "error" in box:
-            raise box["error"]
-        return box.get("out")
+            for p in self.procs:
+                p.join(_WATCH_S)
+        dead = self.dead()
+        if not dead:
+            if "error" in box:
+                raise box["error"]
+            return box.get("out")
+        self.kill()
+        if undo is not None:
+            t.join(timeout_s)
+            if t.is_alive():
+                log.error("%s: rank 0's call did not end within %.0f s",
+                          what, timeout_s)
+            else:
+                undo()
+        raise RuntimeError(f"{what}: " + ", ".join(
+            f"rank {r} exited with code {c}" for r, c in dead)) \
+            from box.get("error")
 
 
 def start_world(n: int, fn: Callable, args: tuple = (),
@@ -461,10 +487,11 @@ def start_world(n: int, fn: Callable, args: tuple = (),
     returns; rank 0 joins here and returns their `Followers`.  Rank r
     runs on `cuda:devices[r]` (default `cuda:r`) when `device_type` is
     "cuda" (rank 0's device is set here).  A follower that exits before
-    the world forms raises here at once, and the others are killed;
-    `timeout_s` bounds the forming and is the default group's collective
-    timeout.  Each follower ends itself when this process is gone.
-    `fn` must be importable by name."""
+    the world forms raises here at once, the others are killed and this
+    process is left with no default group; `timeout_s` bounds the
+    forming and is the default group's collective timeout.  Each
+    follower ends itself when this process is gone.  `fn` must be
+    importable by name."""
     import torch.multiprocessing as mp
 
     if n < 1:
@@ -488,7 +515,7 @@ def start_world(n: int, fn: Callable, args: tuple = (),
     try:
         followers.guard(
             lambda: _init_world(backend, n, 0, port, timeout_s),
-            "the world did not form")
+            "the world did not form", timeout_s, _leave_world)
     except BaseException:
         followers.kill()
         raise

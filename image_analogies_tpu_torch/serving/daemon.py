@@ -232,25 +232,27 @@ def _phase_attribution(req: ServeRequest,
                    (a warm-tier shape), booked under its own name so
                    the restore population never blends into the
                    compile one (compile_ms is then 0)
-      execute_ms = cache-verdict -> executed, minus compile/restore
+      execute_ms = admitted -> executed (the cache lookup that gives
+                   the verdict included), minus compile/restore
       demux_ms   = executed -> the response (demux + settle + handler
                    wakeup — everything after the engine returned)
-    The parts deliberately sum to total_ms minus only the sub-ms
-    admitted -> cache-verdict preamble; with `_book_response`'s ingest
-    (arrival -> enqueue) and encode (done -> payload) they tile the
-    request's whole wall, which is what lets the trace CLI assert its
-    5%% reconstruction bound and the fleet waterfall cover a routed
-    request."""
+    Each phase begins at the stamp where the one before it ends, on the
+    request's one monotonic clock, so the parts sum to total_ms; with
+    `_book_response`'s ingest (arrival -> enqueue) and encode (done ->
+    payload) they tile the request's whole wall, which is what lets the
+    trace CLI assert its 5%% reconstruction bound and the fleet
+    waterfall cover a routed request."""
     t = {ev["name"]: ev["t_ms"] for ev in req.spans}
     out: Dict[str, float] = {}
-    if "admitted" in t:
-        out["queue_ms"] = round(t["admitted"], 3)
+    admitted = t.get("admitted")
+    if admitted is not None:
+        out["queue_ms"] = round(admitted, 3)
     verdict = t.get(
         "cache-hit", t.get("disk-restored", t.get("compiled"))
     )
     executed = t.get("executed")
-    if executed is not None and verdict is not None:
-        window = max(0.0, executed - verdict)
+    if None not in (admitted, verdict, executed):
+        window = max(0.0, executed - admitted)
         c = min(float(req.compile_ms or 0.0), window)
         if "disk-restored" in t:
             out["compile_ms"] = 0.0

@@ -41,8 +41,8 @@ demux).  This module joins them into ONE waterfall:
     pick/respond walls, every non-final proxy attempt's full wall
     (the retry cost IS a named span), and — inside the final attempt —
     the joined replica's phase sum, clipped to the attempt wall.  The
-    remainder is `unattributed_ms` (network + HTTP framing + replica
-    preamble): reported as a gap, never spread over neighbors.
+    remainder is `unattributed_ms` (network and HTTP framing): reported
+    as a gap, never spread over neighbors.
     `critical_path_coverage` = attributed / router-observed total; the
     round-22 acceptance bar holds it >= 0.95 on the committed
     artifact (tools/check_fleet_trace.py).

@@ -4,7 +4,9 @@ and the kernel wrappers send CPU tensors to the plain versions without
 counting a launch."""
 
 import ast
+import json
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -469,3 +471,114 @@ def test_multi_device_serving_runs_without_the_reference_package():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# ------------------------------------------------ chip_smoke.py's checks
+# The card check runs where JAX is absent: its obs-record check pools
+# with the port's observatory, and the tools/check_*.py validators it
+# runs stand alone.
+_OBS_CHECK = """
+import json, os, sys
+root, record_path, out_dir = sys.argv[1:]
+ref = os.path.join(root, "image_analogies_tpu")
+sys.modules["jax"] = None
+sys.modules["image_analogies_tpu"] = None
+for d, _, files in os.walk(ref):
+    for f in files:
+        if f.endswith(".py"):
+            rel = os.path.relpath(os.path.join(d, f[:-3]), root)
+            name = rel.replace(os.sep, ".").removesuffix(".__init__")
+            sys.modules[name] = None
+
+
+def no_reference_file(event, args):
+    if event == "open" and isinstance(args[0], (str, bytes)):
+        path = os.path.abspath(os.fsdecode(args[0]))
+        if path.startswith(ref + os.sep):
+            raise RuntimeError("read " + path)
+
+
+sys.addaudithook(no_reference_file)
+sys.path.insert(0, root)
+import chip_smoke
+
+with open(record_path) as f:
+    record = json.load(f)
+try:
+    print(chip_smoke.check_obs(record, out_dir))
+except AssertionError as e:
+    print("violations:", e)
+assert not [m for m, v in sys.modules.items() if v is not None and (
+    m.split(".")[0] in ("jax", "image_analogies_tpu"))]
+"""
+
+
+@pytest.mark.parametrize("tamper", [None, "slo", "overhead"])
+def test_chip_smoke_obs_check_without_the_reference(tamper, tmp_path,
+                                                    monkeypatch):
+    """chip_smoke's obs-record check in a fresh process where JAX, the
+    JAX package and every module of it are unimportable and opening a
+    file under image_analogies_tpu/ raises: the port-made record of a
+    discovery file's targets (tests/test_torch_observatory.py) passes,
+    and a record whose fleet SLO or overhead was altered fails."""
+    from image_analogies_tpu_torch.serving import observatory as t_obs
+    from image_analogies_tpu_torch.telemetry import metrics as t_metrics
+
+    from test_torch_observatory import discovery_scrapes
+
+    order, recs = discovery_scrapes(t_metrics)
+    monkeypatch.setattr(t_obs, "scrape_replica",
+                        lambda url, span_s=None, timeout=10.0: recs[url])
+    record = t_obs.aggregate(order)
+    record["observatory_overhead_frac"] = 0.001
+    if tamper == "slo":
+        record["fleet"]["slo"]["verdict"] = "tampered"
+    elif tamper == "overhead":
+        record["observatory_overhead_frac"] = 0.05
+    path = tmp_path / "obs.json"
+    path.write_text(json.dumps(record))
+    out = subprocess.run(
+        [sys.executable, "-c", _OBS_CHECK, str(ROOT), str(path),
+         str(tmp_path)], cwd=tmp_path, capture_output=True, text=True,
+        timeout=120)
+    assert out.returncode == 0, out.stderr
+    line = out.stdout.strip().splitlines()[-1]
+    if tamper is None:
+        assert line.startswith("check_obs: ") and " OK — 2 replicas" in line
+        assert json.loads((tmp_path / "fleet_obs.json").read_text()) \
+            == record
+    else:
+        assert line.startswith("violations: ")
+        assert {"slo": "NOT bit-equal",
+                "overhead": "observatory_overhead_frac 0.05"}[tamper] in line
+
+
+def _validator_path():
+    """chip_smoke.py and the tools/check_*.py validators it runs (each
+    named by a string constant of its own)."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    tools = {m.group(1) for node in ast.walk(tree)
+             if isinstance(node, ast.Constant) and isinstance(node.value, str)
+             for m in [re.fullmatch(r"(?:tools/)?(check_\w+\.py)",
+                                    node.value)] if m}
+    return [ROOT / "chip_smoke.py"] + [ROOT / "tools" / t
+                                       for t in sorted(tools)]
+
+
+def test_validator_path_is_the_tools_chip_smoke_runs():
+    assert [p.name for p in _validator_path()] == [
+        "chip_smoke.py", "check_archive.py", "check_fleet_trace.py",
+        "check_lattice.py", "check_report.py", "check_router.py",
+        "check_serve.py", "check_serve_persist.py"]
+
+
+@pytest.mark.parametrize("path", _validator_path(), ids=lambda p: p.name)
+def test_validator_path_names_no_reference(path):
+    """No module of chip_smoke.py's validator path names the JAX package,
+    except chip_smoke.py's `replaces` strings (the TPU kernel each
+    kernel row stands for)."""
+    for n, line in enumerate(path.read_text().splitlines(), 1):
+        if re.search(r"\bimage_analogies_tpu\b", line):
+            assert path.name == "chip_smoke.py" and re.search(
+                r'"replaces": f?"image_analogies_tpu/kernels/', line), \
+                f"{path.name}:{n}: {line.strip()}"

@@ -630,19 +630,26 @@ def _scrape(url, metrics):
             "window": None}
 
 
+def discovery_scrapes(metrics_mod):
+    """A discovery file's targets, in order, and what each answers: two
+    replicas, the router, one dead replica (registries written by
+    `metrics_mod`)."""
+    recs = {
+        "http://a": _scrape("http://a", _payload(metrics_mod, 1)),
+        "http://b": _scrape("http://b", _payload(metrics_mod, 2)),
+        "http://r": _scrape("http://r", _payload(metrics_mod, 3, True)),
+        "http://d": {"url": "http://d", "error": "URLError: refused",
+                     "metrics": None, "slo": None, "window": None},
+    }
+    return ["http://a", "http://b", "http://r", "http://d"], recs
+
+
 def test_router_target_is_filed_apart(monkeypatch):
     """A discovery file's targets: two replicas, the router, one dead
     replica.  The port files the router under `routers`; the pooled
     families still hold its traffic; check_obs passes (the overhead
     measurement the chip smoke check takes supplied)."""
-    recs = {
-        "http://a": _scrape("http://a", _payload(j_metrics, 1)),
-        "http://b": _scrape("http://b", _payload(j_metrics, 2)),
-        "http://r": _scrape("http://r", _payload(j_metrics, 3, True)),
-        "http://d": {"url": "http://d", "error": "URLError: refused",
-                     "metrics": None, "slo": None, "window": None},
-    }
-    order = ["http://a", "http://b", "http://r", "http://d"]
+    order, recs = discovery_scrapes(j_metrics)
     _scrapes(monkeypatch, t_obs, recs)
     rec = t_obs.aggregate(order)
     assert [r["url"] for r in rec["routers"]] == ["http://r"]

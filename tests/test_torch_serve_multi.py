@@ -22,8 +22,10 @@ tests/torch_serve_workers.py):
     SIGKILLed during a 4-client burst makes rank 0 answer 503 with
     Retry-After (or 200 for what finished), exit nonzero, and `serve
     --takeover` replays every journaled request, bit-identical, then
-    drains with every rank ending 0; one that dies before it follows
-    fails the serving mesh's start.
+    drains with every rank ending 0; one that dies (at the test's
+    signal) before it follows fails the serving mesh's start; one lost
+    while rank 0's side of the world still forms fails the start and
+    leaves no default group, so the next world forms.
 
 24^2-48^2, 2 levels, 1 EM step, torch on one intra-op thread; the data
 group's timeout is `T` seconds (a rank whose peer failed waits that long)."""
@@ -32,6 +34,7 @@ import base64
 import hashlib
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -67,6 +70,9 @@ import torch_serve_workers as wk
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = 4.0
+# What bounds a world's forming here: a spawned rank imports torch first,
+# which takes seconds on a loaded machine.
+FORM_S = 60.0
 BRUTE = dict(levels=2, matcher="brute", em_iters=1)
 PM = dict(levels=2, matcher="patchmatch", pallas_mode="off", em_iters=1,
           pm_iters=2)
@@ -398,18 +404,84 @@ def test_three_ranks_at_grain_four_pad_the_stack(single):
         np.testing.assert_array_equal(g, w)
 
 
-def test_a_follower_dead_before_it_follows_fails_the_start():
+def test_a_follower_dead_before_it_follows_fails_the_start(tmp_path):
+    """The follower joins the world and exits (code 3) when the test
+    says so, after the world formed and before the mesh starts."""
     a, ap, _ = _inputs(size=24)
-    # The world's timeout bounds rank 0's abandoned start as well.
-    followers = start_world(2, wk.exit_at_once, device_type="cpu",
-                            timeout_s=T)
+    flag = tmp_path / "exit"
+    followers = start_world(2, wk.exit_when, args=(str(flag),),
+                            device_type="cpu", timeout_s=FORM_S)
     try:
+        flag.touch()
+        followers.procs[0].join(FORM_S)
+        assert followers.dead() == [(1, 3)]
         with pytest.raises(RuntimeError):
             ServingMesh(followers, a, ap, device_type="cpu", timeout_s=T)
     finally:
         codes = followers.join(30.0)
         torch.distributed.destroy_process_group()
     assert codes == [3]
+
+
+def test_a_follower_lost_while_the_world_forms_leaves_no_group(monkeypatch):
+    """Rank 0's forming outlives its follower, which exits as soon as it
+    has joined (rank 0's `_init_world` is held open here until the
+    follower is gone): the start raises, destroys the default group the
+    forming made, and a next world forms in the same process."""
+    import multiprocessing
+
+    from image_analogies_tpu_torch.parallel import mesh
+
+    real = mesh._init_world
+
+    def held_open(*args):
+        real(*args)
+        deadline = time.monotonic() + FORM_S
+        while time.monotonic() < deadline and any(
+                p.name == "ia-rank-1"
+                for p in multiprocessing.active_children()):
+            time.sleep(0.02)
+        time.sleep(1.0)  # past the guard's next look at its followers
+
+    monkeypatch.setattr(mesh, "_init_world", held_open)
+    with pytest.raises(RuntimeError, match="rank 1 exited with code 3"):
+        start_world(2, wk.exit_at_once, device_type="cpu", timeout_s=FORM_S)
+    assert not torch.distributed.is_initialized()
+    monkeypatch.setattr(mesh, "_init_world", real)
+    followers = start_world(2, wk.meet, device_type="cpu", timeout_s=FORM_S)
+    try:
+        assert torch.distributed.get_world_size() == 2
+        torch.distributed.barrier()
+    finally:
+        codes = followers.join(30.0)
+        torch.distributed.destroy_process_group()
+    assert codes == [0]
+    assert not torch.distributed.is_initialized()
+
+
+def test_serve_start_stops_clearly_when_a_follower_exits(tmp_path,
+                                                        monkeypatch):
+    """`serve --n-devices 2 --device cpu` whose follower exits (code 3)
+    as soon as it has joined: the command stops with a message naming
+    the rank and its code, whichever start step saw it (the world's
+    forming or the serving mesh's start)."""
+    from image_analogies_tpu_torch import cli
+    from image_analogies_tpu_torch.serving import ranks
+
+    rng = np.random.default_rng(2)
+    for name in ("A.png", "Ap.png"):
+        save_image(str(tmp_path / name), rng.random((24, 24, 3)))
+    monkeypatch.setattr(ranks, "follow", wk.exit_at_once)
+    try:
+        with pytest.raises(SystemExit) as stop:
+            cli.main(["serve", "--a", str(tmp_path / "A.png"), "--ap",
+                      str(tmp_path / "Ap.png"), "--device", "cpu",
+                      "--n-devices", "2", "--port", "0", "--levels", "1"])
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    assert re.fullmatch(r"serve: .*rank 1 exited with code 3",
+                        str(stop.value.code)), stop.value.code
 
 
 # ------------------------------------------------ the command line

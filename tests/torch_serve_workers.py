@@ -22,7 +22,27 @@ def follower(fault_plan=None) -> None:
 
 
 def exit_at_once() -> None:
-    """A follower that dies before it follows (exit code 3)."""
+    """A follower that dies as soon as it has joined (exit code 3)."""
     import os
 
     os._exit(3)
+
+
+def exit_when(flag: str, timeout_s: float = 120.0) -> None:
+    """A follower that dies (exit code 3) once the file `flag` exists,
+    at a moment its test chooses, without following."""
+    import os
+    import time
+
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(flag) and time.monotonic() < deadline:
+        time.sleep(0.02)
+    os._exit(3)
+
+
+def meet() -> None:
+    """A follower that meets rank 0 at one barrier of the default group,
+    then leaves."""
+    import torch.distributed as dist
+
+    dist.barrier()
