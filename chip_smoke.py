@@ -3301,10 +3301,23 @@ def points_summary(points):
                                "routed_to")} for p in points]
 
 
-def obs_overhead(a0, ap0, frames_u8, dev, pairs=5):
-    """The observatory's request-path overhead, the reference harness's
-    way: two in-process daemons at KILL_SIZE, ring sampled every 0.25 s
-    and off, requests in turns; min paired delta over the median base."""
+def abba_overhead(off_ms, on_ms):
+    """The observatory's overhead from requests in ABBA rounds (off, on,
+    on, off): a round's delta is its mean on wall less its mean off
+    wall, so a change in the machine's speed that is linear over a round
+    cancels, where an off-then-on pair books it all on the on arm.  The
+    reference's estimator then: the least delta over the median off
+    wall, floored at 0 (a stall only adds time)."""
+    deltas = [(on_ms[i] + on_ms[i + 1] - off_ms[i] - off_ms[i + 1]) / 2
+              for i in range(0, len(off_ms), 2)]
+    return max(0.0, min(deltas)) / statistics.median(off_ms), deltas
+
+
+def obs_overhead(a0, ap0, frames_u8, dev, rounds=5, ticks=20):
+    """The observatory's request-path overhead: two in-process daemons at
+    KILL_SIZE, ring sampled every 0.25 s and off, warm requests in
+    `rounds` ABBA rounds (`abba_overhead`), then the on daemon's sampler
+    tick (ring snapshot and anomaly watches) timed `ticks` times."""
     from image_analogies_tpu_torch.config import SynthConfig
     from image_analogies_tpu_torch.serving.daemon import SynthDaemon
     from image_analogies_tpu_torch.telemetry.metrics import MetricsRegistry
@@ -3313,22 +3326,33 @@ def obs_overhead(a0, ap0, frames_u8, dev, pairs=5):
     cfg = SynthConfig(levels=5, matcher="patchmatch", em_iters=2, kappa=2.0,
                       device=dev.type)
     body = serve_body(np.ascontiguousarray(frames_u8[0][:n, :n]))
-    ds = [SynthDaemon(a0[:n, :n], ap0[:n, :n], cfg,
-                      registry=MetricsRegistry(), max_batch=SERVE_GRAIN,
-                      max_wait_ms=1.0, obs_interval_s=interval).start()
-          for interval in (0, 0.25)]
+    off, on = [SynthDaemon(a0[:n, :n], ap0[:n, :n], cfg,
+                           registry=MetricsRegistry(), max_batch=SERVE_GRAIN,
+                           max_wait_ms=1.0, obs_interval_s=interval).start()
+               for interval in (0, 0.25)]
     try:
-        for d in ds:
+        for d in (off, on):
             serve_post(d.url, body)
-        bases, deltas = [], []
-        for _ in range(pairs):
-            base = serve_post(ds[0].url, body)[3]
-            deltas.append(serve_post(ds[1].url, body)[3] - base)
-            bases.append(base)
+        off_ms, on_ms = [], []
+        for _ in range(rounds):
+            for d, walls in ((off, off_ms), (on, on_ms), (on, on_ms),
+                             (off, off_ms)):
+                walls.append(serve_post(d.url, body)[3])
+        sampled = on.obs.window()["ticks_total"]
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            on.obs.tick()
+            on._obs_tick()
+        tick_ms = (time.perf_counter() - t0) * 1e3 / ticks
     finally:
-        for d in ds:
+        for d in (off, on):
             d.stop()
-    return max(0.0, min(deltas)) / statistics.median(bases)
+    frac, deltas = abba_overhead(off_ms, on_ms)
+    return {"frac": frac, "rounds": rounds, "off_ms": off_ms,
+            "on_ms": on_ms, "deltas_ms": deltas,
+            "base_median_ms": statistics.median(off_ms),
+            "sampler_ticks": sampled, "tick_ms": tick_ms,
+            "interval_s": 0.25}
 
 
 def kill_arm(work, a0, ap0, frames_u8, dev, router_url, old_names):
@@ -3992,16 +4016,18 @@ def phase_fleet(dev, smi, serve=None):
                                           obs_out, "--format", "json"])
         _, tr_out = run_cli(["trace", rid, "--fleet", disc, "--format",
                              "json"])
-        obs_frac = obs_overhead(a0, ap0, frames_u8, dev)
         if cli_obs[0].wait(120) != 0:
             raise AssertionError("obs: " + open(cli_obs[3]).read()[-2000:])
+        if trace_main[0].wait(120) != 0:
+            raise AssertionError("trace --fleet: "
+                                 + open(trace_main[3]).read()[-2000:])
+        # The overhead with no other process of this script at work.
+        obs_ovh = obs_overhead(a0, ap0, frames_u8, dev)
+        obs_frac = obs_ovh["frac"]
         with open(obs_out) as f:
             obs_rec = json.load(f)
         obs_rec["observatory_overhead_frac"] = obs_frac
         rec["check_obs"] = check_obs(obs_rec, out_dir)
-        if trace_main[0].wait(120) != 0:
-            raise AssertionError("trace --fleet: "
-                                 + open(trace_main[3]).read()[-2000:])
         with open(os.path.join(work, "trace_main.out")) as f:
             main_joined = json.load(f)
         loaded_joined = json.loads(tr_out)
@@ -4019,6 +4045,7 @@ def phase_fleet(dev, smi, serve=None):
             "obs_routers": [r["url"] for r in obs_rec["routers"]],
             "fleet_slo_verdict": obs_rec["fleet"]["slo"]["verdict"],
             "observatory_overhead_frac": obs_frac,
+            "observatory_overhead": obs_ovh,
             "trace": {"w1-0-0": waterfall(main_joined),
                       rid: waterfall(loaded_joined)}}
         emit({"phase": "fleet", "part": "obs_trace", **rec["obs_trace"]})

@@ -995,6 +995,10 @@ def _serve(args, cfg, followers) -> int:
         except KeyboardInterrupt:
             print("serve: interrupted, draining")
         finally:
+            # Past the drain a SIGTERM has nothing left to do; ignored,
+            # it cannot kill the exit once the interpreter's shutdown
+            # has put the default action back.
+            signal.signal(signal.SIGTERM, signal.SIG_IGN)
             daemon.stop()
             codes = mesh.close() if mesh is not None else []
     if daemon.world_lost is not None:
@@ -1549,6 +1553,8 @@ def cmd_route(args) -> int:
         except KeyboardInterrupt:
             print("route: interrupted")
         finally:
+            # As serve's: a later SIGTERM cannot kill the exit.
+            _signal.signal(_signal.SIGTERM, _signal.SIG_IGN)
             router.stop()
     return 0
 

@@ -460,6 +460,49 @@ def test_serve_subprocess_answers_drains_and_traces(assets, tmp_path):
     assert phases == pytest.approx(rec["total_ms"], rel=0.05)
 
 
+
+def test_serve_drained_exits_0_under_late_sigterms(assets, tmp_path):
+    """`serve` drained by `POST /drain` exits 0 on its own; a SIGTERM
+    that reaches it while it exits (a supervisor stopping a process the
+    router drained) finds nothing left to drain and leaves the exit code
+    0, also once the interpreter has dropped its Python handlers."""
+    import signal
+    import time
+    import urllib.request
+
+    td = tmp_path / "td"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "image_analogies_tpu_torch.cli", "serve",
+         "--a", os.path.join(assets, "npr_A.png"),
+         "--ap", os.path.join(assets, "npr_Ap.png"), "--device", "cpu",
+         "--levels", "1", "--em-iters", "1", "--pm-iters", "1",
+         "--port", "0", "--trace-dir", str(td)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env={**os.environ, "OMP_NUM_THREADS": "1"},
+    )
+    try:
+        deadline = time.monotonic() + 120.0
+        while not (td / "live.json").exists():
+            assert proc.poll() is None, proc.communicate()
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        url = json.loads((td / "live.json").read_text())["url"]
+        req = urllib.request.Request(url + "/drain", data=b"{}",
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            assert resp.status == 202
+        deadline = time.monotonic() + 120.0
+        while proc.poll() is None and time.monotonic() < deadline:
+            proc.send_signal(signal.SIGTERM)
+            time.sleep(0.002)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+    assert "drained, exiting" in out
+
 def test_module_entry_point_runs_without_cuda(assets, tmp_path):
     """`python -m image_analogies_tpu_torch.cli` in a fresh process, on
     the CPU: it writes its output and never initialises CUDA."""

@@ -7,6 +7,7 @@ import ast
 import json
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
 
@@ -552,6 +553,30 @@ def test_chip_smoke_obs_check_without_the_reference(tamper, tmp_path,
         assert {"slo": "NOT bit-equal",
                 "overhead": "observatory_overhead_frac 0.05"}[tamper] in line
 
+
+
+@pytest.mark.parametrize("step_ms, cost_ms", [
+    (0.0, 0.0), (30.0, 0.0), (-30.0, 0.0), (30.0, 25.0), (0.0, -25.0)])
+def test_chip_smoke_obs_overhead_rounds(step_ms, cost_ms, monkeypatch):
+    """chip_smoke's observatory overhead from ABBA rounds (off, on, on,
+    off): a machine whose requests each take `step_ms` longer than the
+    one before books nothing on the observatory, a cost on every on
+    request shows in full over the median off wall, and a gain is
+    floored at 0."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+
+    off_ms, on_ms = [], []
+    k = 0
+    for _ in range(5):
+        for walls, cost in ((off_ms, 0.0), (on_ms, cost_ms),
+                            (on_ms, cost_ms), (off_ms, 0.0)):
+            walls.append(1000.0 + step_ms * k + cost)
+            k += 1
+    frac, deltas = chip_smoke.abba_overhead(off_ms, on_ms)
+    assert deltas == pytest.approx([cost_ms] * 5)
+    assert frac == pytest.approx(max(0.0, cost_ms)
+                                 / statistics.median(off_ms))
 
 def _validator_path():
     """chip_smoke.py and the tools/check_*.py validators it runs (each
