@@ -33,11 +33,15 @@ level's `LevelState`.
 Telemetry and faults, as in the reference: `progress` (a
 ProgressWriter or a `telemetry.Tracer`) gets the `run` span, the
 `prologue` span with the `run_plan` mark, one `level` span a level with
-its declared `em_iter` children, and the registry's level counters; an
-enabled tracer costs one device sync a level, a disabled one none.  The
-fault points `xfer`, `level`, `kernel` and `ckpt` (runtime/faults.py)
-sit in the host loop; the reference's `jax.named_scope` tags are
-`torch.profiler` ranges of the same names (`utils/profiling.scope`).
+its live `em_iter` children (each with its `assemble`, `match` and
+`render` phases, and the matcher's phases under `match`), and the
+registry's level counters; an enabled tracer costs one device sync a
+level and one at its first span (the device clock's anchor), a disabled
+one none.  The fault points `xfer`, `level`, `kernel` and `ckpt`
+(runtime/faults.py) sit in the host loop; every layer boundary below
+the level is one `scope` call (telemetry/spans.py rule 3): the
+reference's `jax.named_scope` tag as a `torch.profiler` range, and the
+span of the same phase on the current tracer.
 """
 
 from __future__ import annotations
@@ -63,8 +67,7 @@ from ..ops.remap import remap_luminance
 from ..ops.steerable import steerable_responses
 from ..runtime.faults import fire as _fault_fire
 from ..telemetry.metrics import get_registry
-from ..telemetry.spans import as_tracer
-from ..utils.profiling import scope
+from ..telemetry.spans import as_tracer, scope
 from .matcher import clamp_nnf, get_matcher
 from .patchmatch import (
     RawPlanes,
@@ -333,14 +336,14 @@ def make_em_step(cfg: SynthConfig, level: int, has_coarse: bool,
                                   coarse(src_b_c, i), coarse(flt_b_c, i))
             return project(f, proj) if cfg.pca_dims else f
 
-        with scope("tlm_assemble"):
+        with scope("tlm_assemble", "assemble"):
             f_b = _stack_frames([features(i) for i in frames])
-        with scope("tlm_match"):
+        with scope("tlm_match", "match"):
             nnf, dist = matcher.match_frames(
                 f_b, f_a, nnf, level=level, cfg=cfg, draws=draws, raw=raw,
                 polish_iters=polish_iters, temporal=temporal,
             )
-        with scope("tlm_render"):
+        with scope("tlm_render", "render"):
             return nnf, dist, _stack_frames(
                 [_gather_image(copy_a, nnf[i]) for i in frames])
 
@@ -368,21 +371,21 @@ def lean_em_step(cfg: SynthConfig, level: int, has_coarse: bool,
     def coarse(x, i):
         return x[i] if has_coarse else None
 
-    with scope("tlm_assemble"):
+    with scope("tlm_assemble", "assemble"):
         f_b = _stack_frames([
             assemble_features_lean(src_b[i], flt_b[i], cfg,
                                    coarse(src_b_c, i), coarse(flt_b_c, i))
             for i in frames
         ])
     ha, wa = copy_a.shape[:2]
-    with scope("tlm_match"):
+    with scope("tlm_match", "match"):
         py, px, dist = tile_patchmatch_lean(
             f_b, f_a, nnf[0], nnf[1], draws, raw=raw, cfg=cfg,
             level=level, plain=cfg.pallas_mode == "interpret",
             ha=ha, wa=wa, polish_iters=polish_iters, dist_fn=dist_fn,
             bounds=bounds, sweep_merge=sweep_merge,
         )
-    with scope("tlm_render"):
+    with scope("tlm_render", "render"):
         return (py, px), dist, _stack_frames(
             [_gather_planes(copy_a, py[i], px[i]) for i in frames])
 
@@ -653,7 +656,7 @@ def _run_level(cfg, level, levels, pyr, prev_nnf, prev_bp, plan, frame_idx,
     dist = bp = None
     for em in range(cfg.em_iters):
         step = step_final if em == cfg.em_iters - 1 else step_mid
-        with scope(f"tlm_em{em}"):
+        with scope(f"tlm_em{em}", "em_iter", em=em):
             nnf, dist, bp = step(
                 src_b_l, flt_bp,
                 src_b_c if has_coarse else src_b_l,
@@ -774,16 +777,17 @@ def shard_sync_walls(level_t0: float, device, group) -> List[float]:
     return [round(float(p.item()), 3) for p in parts]
 
 
-def record_level_span(tracer, cfg: SynthConfig, level_t0: float,
-                      level: int, h, w, nnf_energy: Optional[float],
+def record_level_span(tracer, cfg: SynthConfig, lvl_span, level: int,
+                      h, w, nnf_energy: Optional[float],
                       shard_walls: Optional[List[float]] = None,
                       shard_axis: Optional[str] = None,
                       extra_shard_walls=None, **attrs):
-    """A timed `level` span recorded after the fact, with its declared
-    `em_iter` children: the batch, video and multi-device runners' form
-    (their level wall is clocked around one synced level).  The
-    single-image runner records the same structure with a
-    context-managed span and `_record_level_telemetry`.
+    """The attributes of an open `level` span of the batch, video and
+    multi-device runners, set before it closes (each opens it live
+    around its level, so the level's `em_iter` spans nest under it, and
+    its wall ends after the level's one sync): shape, the declared
+    `em_iters`, `nnf_energy` and `attrs`.  The single-image runner sets
+    the same through `_record_level_telemetry`.
 
     With `shard_walls` (`shard_sync_walls`, one wall a rank of
     `shard_axis`) the level also publishes the reference's straggler
@@ -825,43 +829,43 @@ def record_level_span(tracer, cfg: SynthConfig, level_t0: float,
             "max/median per-shard level wall (1.0 = balanced; the "
             "sentinel flags sustained skew)",
         ).set(ratio, labels={"level": str(level), "axis": axis})
-    sp = tracer.record(
-        "level",
-        round((time.perf_counter() - level_t0) * 1000, 3),
+    _declare_lean_em_iters(tracer, cfg, lvl_span)
+    return lvl_span.set(
         level=level,
         shape=[int(h), int(w)],
         em_iters=cfg.em_iters,
         nnf_energy=nnf_energy,
         **attrs,
     )
-    for em in range(cfg.em_iters):
-        tracer.annotate("em_iter", parent=sp, em=em)
-    return sp
+
+
+def _declare_lean_em_iters(tracer, cfg: SynthConfig, lvl_span) -> None:
+    """A lean tracer records nothing below its levels (telemetry/spans.py
+    rule 3), so its level declares its EM steps as untimed `em_iter`
+    marks, the children the sentinel counts against `em_iters`."""
+    if tracer.lean:
+        for em in range(cfg.em_iters):
+            tracer.annotate("em_iter", parent=lvl_span, em=em)
 
 
 def _record_level_telemetry(tracer, cfg: SynthConfig, level: int,
                             lvl_span) -> None:
-    """The span tree's structure and the registry's counters for one
-    finished level of the single-image runner: `em_iters` declared on
-    the level span, one untimed `em_iter` child an EM step with its
-    `assemble`, `match` and `render` phases and the polish and candidate
-    modes it ran under; `ia_levels_total`, `ia_em_iters_total`,
+    """The level span's declarations and the registry's counters for
+    one finished level of the single-image runner: `em_iters` (its live
+    `em_iter` children, or a lean tracer's declared ones) and the polish and candidate modes the level ran
+    under on the level span; `ia_levels_total`, `ia_em_iters_total`,
     `ia_nnf_energy{level}` and the `ia_level_wall_ms` histogram."""
     from . import patchmatch as _pm_mod
     from ..kernels import patchmatch_tile as _pt_mod
 
-    lvl_span.set(em_iters=cfg.em_iters)
     prune = _pt_mod.resolve_prune()
-    for em in range(cfg.em_iters):
-        em_sp = tracer.annotate(
-            "em_iter", parent=lvl_span, em=em,
-            polish_mode=_pm_mod._POLISH_MODE,
-            cand_dtype=_pt_mod.resolve_cand_dtype(),
-            cand_prune=("off" if prune is None
-                        else f"{prune[0]}:{prune[1]}"),
-        )
-        for phase in ("assemble", "match", "render"):
-            tracer.annotate(phase, parent=em_sp)
+    _declare_lean_em_iters(tracer, cfg, lvl_span)
+    lvl_span.set(
+        em_iters=cfg.em_iters,
+        polish_mode=_pm_mod._POLISH_MODE,
+        cand_dtype=_pt_mod.resolve_cand_dtype(),
+        cand_prune="off" if prune is None else f"{prune[0]}:{prune[1]}",
+    )
     reg = tracer.registry if tracer.registry is not None else get_registry()
     reg.counter("ia_levels_total", "pyramid levels executed").inc()
     reg.counter(
@@ -1142,6 +1146,7 @@ def create_image_analogy(
         raise ValueError(f"A {tuple(a.shape)} and A' {tuple(ap.shape)} "
                          "must match")
     levels = cfg.clamp_levels(tuple(a.shape[:2]), tuple(b.shape[:2]))
+    tracer.bind_device(dev)
     with tracer.span("run", matcher=cfg.matcher, levels=levels,
                      shape=[int(s) for s in b.shape[:2]]):
         return _synthesize_single(a, ap, b, cfg, levels, return_aux, tracer,

@@ -135,7 +135,7 @@ class AnnMatcher(Matcher):
     name = "ann"
 
     def match(self, f_b, f_a, nnf, *, level, cfg: SynthConfig, draws=None,
-              raw=None, polish_iters=None, temporal=None):
+              raw=None, polish_iters=None, temporal=None, frame=0):
         from ..utils.native import ann_available
 
         h, w, d = f_b.shape

@@ -51,7 +51,7 @@ class BruteForceMatcher(Matcher):
     name = "brute"
 
     def match(self, f_b, f_a, nnf, *, level, cfg: SynthConfig, draws=None,
-              raw=None, polish_iters=None, temporal=None):
+              raw=None, polish_iters=None, temporal=None, frame=0):
         h, w, d = f_b.shape
         wa = f_a.shape[1]
         idx, dist = exact_nn(

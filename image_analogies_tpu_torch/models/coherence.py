@@ -79,10 +79,10 @@ class CoherenceWrapper(Matcher):
         self.sweeps = sweeps
 
     def match(self, f_b, f_a, nnf, *, level, cfg: SynthConfig, draws=None,
-              raw=None, polish_iters=None, temporal=None):
+              raw=None, polish_iters=None, temporal=None, frame=0):
         nnf, dist = self.base.match(
             f_b, f_a, nnf, level=level, cfg=cfg, draws=draws, raw=raw,
-            polish_iters=polish_iters, temporal=temporal,
+            polish_iters=polish_iters, temporal=temporal, frame=frame,
         )
         if cfg.kappa > 0.0:
             nnf, dist = coherence_sweeps(

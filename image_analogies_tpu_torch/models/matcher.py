@@ -110,7 +110,7 @@ class Matcher:
     name: str = "base"
 
     def match(self, f_b, f_a, nnf, *, level: int, cfg, draws=None,
-              raw=None, polish_iters=None, temporal=None):
+              raw=None, polish_iters=None, temporal=None, frame: int = 0):
         """`draws` is the `SweepDraws` source of the random numbers a
         matcher consumes (None for exact search).  `raw` optionally
         carries the raw channel planes of the tile path
@@ -120,7 +120,8 @@ class Matcher:
         the previous video frame's converged (H, W, 2) field: with
         cfg.tau > 0 a matcher that honours it adds the temporal penalty
         (models.patchmatch.temporal_penalty_fn) to its candidate metric;
-        the others ignore it."""
+        the others ignore it.  `frame` is the frame's index in its stack,
+        the attribute a matcher's per-frame spans carry."""
         raise NotImplementedError
 
     def match_frames(self, f_b, f_a, nnf, *, level: int, cfg, draws=None,
@@ -140,6 +141,7 @@ class Matcher:
                 raw=None if raw is None else _frames_of(raw, i),
                 polish_iters=polish_iters,
                 temporal=None if temporal is None else temporal[i],
+                frame=i,
             )
             for i in range(f_b.shape[0])
         ]

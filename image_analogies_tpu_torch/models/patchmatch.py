@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..config import SynthConfig
+from ..telemetry.spans import scope
 from .matcher import (
     Matcher,
     candidate_dist,
@@ -555,9 +556,10 @@ def tile_patchmatch(
     nnf = torch.stack([py, px], dim=-1)
     if _polish_schedule_for(cfg, ha, wa, polish_iters)[0] == 0:
         return nnf, dist
-    return nnf, torch.stack([
-        nnf_dist(f_b[i], f_a_flat, nnf[i], wa) for i in range(n_f)
-    ])
+    with scope("tlm_dist", "dist"):
+        return nnf, torch.stack([
+            nnf_dist(f_b[i], f_a_flat, nnf[i], wa) for i in range(n_f)
+        ])
 
 
 def _frames_of(raw: RawPlanes, i: Optional[int]) -> RawPlanes:
@@ -657,87 +659,89 @@ def tile_patchmatch_lean(
     coarse_restarts = pt._RESTART_MODE == "coarse"
     default_dist = dist_fn is None
     prune = pt.resolve_prune() if default_dist else None
-    b_prune, a_prune = prune_tabs or (f_b_tab, f_a_tab)
-    prune_states = [
-        _prune_setup(prune, b_prune[i], a_prune, geom, h, w)
-        for i in range(n_f)
-    ]
-    if default_dist:
-        def dist_fn(f_b):
-            return lambda idx: candidate_dist_lean(f_b, f_a_tab, idx)
+    with scope("tlm_prep", "prep"):
+        b_prune, a_prune = prune_tabs or (f_b_tab, f_a_tab)
+        prune_states = [
+            _prune_setup(prune, b_prune[i], a_prune, geom, h, w)
+            for i in range(n_f)
+        ]
+        if default_dist:
+            def dist_fn(f_b):
+                return lambda idx: candidate_dist_lean(f_b, f_a_tab, idx)
 
-    dists = [dist_fn(f_b_tab[i]) for i in range(n_f)]
-    a_bands = (raw.a_planes if isinstance(raw.a_planes, tuple)
-               else (raw.a_planes,))
-    if bounds is None:
-        bounds = (pt.band_bounds(ha, len(a_bands))
-                  if isinstance(raw.a_planes, tuple) else (None,))
+        dists = [dist_fn(f_b_tab[i]) for i in range(n_f)]
+        a_bands = (raw.a_planes if isinstance(raw.a_planes, tuple)
+                   else (raw.a_planes,))
+        if bounds is None:
+            bounds = (pt.band_bounds(ha, len(a_bands))
+                      if isinstance(raw.a_planes, tuple) else (None,))
 
-    py = py.long().clamp(0, ha - 1)
-    px = px.long().clamp(0, wa - 1)
-    dist0 = torch.stack([
-        dists[i]((py[i] * wa + px[i]).reshape(-1)).reshape(h, w)
-        for i in range(n_f)
-    ])
+        py = py.long().clamp(0, ha - 1)
+        px = px.long().clamp(0, wa - 1)
+        dist0 = torch.stack([
+            dists[i]((py[i] * wa + px[i]).reshape(-1)).reshape(h, w)
+            for i in range(n_f)
+        ])
 
-    # K1 sweeps (candidate slots 0 .. pm_iters-1 of each frame's draws)
-    # in the raw-plane metric, on compact offsets from the incoming
-    # field; one launch a sweep for all frames.
-    def coarse(x, i):
-        return x[i] if use_coarse else None
+        # K1 sweeps (candidate slots 0 .. pm_iters-1 of each frame's draws)
+        # in the raw-plane metric, on compact offsets from the incoming
+        # field; one launch a sweep for all frames.
+        def coarse(x, i):
+            return x[i] if use_coarse else None
 
-    b_planes = torch.stack([
-        pt.prepare_b_planes(raw.src_b[i], raw.flt_b[i],
-                            coarse(raw.src_b_coarse, i),
-                            coarse(raw.flt_b_coarse, i), geom)
-        for i in range(n_f)
-    ])
-    qy = torch.arange(h, device=dev)[:, None].expand(h, w)
-    qx = torch.arange(w, device=dev)[None, :].expand(h, w)
-    oy = torch.stack([pt.to_compact((py[i] - qy).to(torch.int32), geom)
-                      for i in range(n_f)])
-    ox = torch.stack([pt.to_compact((px[i] - qx).to(torch.int32), geom)
-                      for i in range(n_f)])
-    # Kernel-metric incumbents start at +inf: the raw-plane metric and
-    # the feature metric must not meet in one accept test.
-    d = torch.full(oy.shape, float("inf"), dtype=torch.float32, device=dev)
-    for t in range(pm_iters):
-        tables = []
-        for i in range(n_f):
-            cand_y, cand_x, cand_valid = pt.sample_candidates_blocked(
-                oy[i], ox[i],
-                pt.draw_candidates(draws[i].gen(t, dev), geom, ha, wa,
-                                   coarse_restarts),
-                geom, ha, wa,
-            )
-            if prune_states[i] is not None:
-                proj_b_tiles, qy_s, qx_s, proj_a, m_keep = prune_states[i]
-                cand_valid = pt.prune_candidates(
-                    cand_y, cand_x, cand_valid, proj_b_tiles, qy_s, qx_s,
-                    proj_a, ha, wa, m_keep,
+        b_planes = torch.stack([
+            pt.prepare_b_planes(raw.src_b[i], raw.flt_b[i],
+                                coarse(raw.src_b_coarse, i),
+                                coarse(raw.flt_b_coarse, i), geom)
+            for i in range(n_f)
+        ])
+        qy = torch.arange(h, device=dev)[:, None].expand(h, w)
+        qx = torch.arange(w, device=dev)[None, :].expand(h, w)
+        oy = torch.stack([pt.to_compact((py[i] - qy).to(torch.int32), geom)
+                          for i in range(n_f)])
+        ox = torch.stack([pt.to_compact((px[i] - qx).to(torch.int32), geom)
+                          for i in range(n_f)])
+        # Kernel-metric incumbents start at +inf: the raw-plane metric and
+        # the feature metric must not meet in one accept test.
+        d = torch.full(oy.shape, float("inf"), dtype=torch.float32, device=dev)
+    with scope("tlm_sweep", "sweep"):
+        for t in range(pm_iters):
+            tables = []
+            for i in range(n_f):
+                cand_y, cand_x, cand_valid = pt.sample_candidates_blocked(
+                    oy[i], ox[i],
+                    pt.draw_candidates(draws[i].gen(t, dev), geom, ha, wa,
+                                       coarse_restarts),
+                    geom, ha, wa,
                 )
-            tables.append((cand_y, cand_x, cand_valid))
-        cand_y, cand_x, cand_valid = (torch.stack(c) for c in zip(*tables))
-        for planes, band in zip(a_bands, bounds):
-            oy, ox, d = pt.tile_sweep(
-                planes, b_planes, cand_y, cand_x, cand_valid, oy, ox, d,
-                specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=coh,
-                plain=plain, cand_dtype=cand_dtype,
-                cand_budget=prune[1] if prune else None, band=band,
-            )
-        if sweep_merge is not None:
-            oy, ox, d = sweep_merge(oy, ox, d)
-    ky = (qy + oy[:, :h, :w].long()).clamp(0, ha - 1)
-    kx = (qx + ox[:, :h, :w].long()).clamp(0, wa - 1)
-    # The sweep state is dead from here; free it before the polish.
-    del b_planes, oy, ox, d, prune_states
+                if prune_states[i] is not None:
+                    proj_b_tiles, qy_s, qx_s, proj_a, m_keep = prune_states[i]
+                    cand_valid = pt.prune_candidates(
+                        cand_y, cand_x, cand_valid, proj_b_tiles, qy_s, qx_s,
+                        proj_a, ha, wa, m_keep,
+                    )
+                tables.append((cand_y, cand_x, cand_valid))
+            cand_y, cand_x, cand_valid = (torch.stack(c) for c in zip(*tables))
+            for planes, band in zip(a_bands, bounds):
+                oy, ox, d = pt.tile_sweep(
+                    planes, b_planes, cand_y, cand_x, cand_valid, oy, ox, d,
+                    specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=coh,
+                    plain=plain, cand_dtype=cand_dtype,
+                    cand_budget=prune[1] if prune else None, band=band,
+                )
+            if sweep_merge is not None:
+                oy, ox, d = sweep_merge(oy, ox, d)
+        ky = (qy + oy[:, :h, :w].long()).clamp(0, ha - 1)
+        kx = (qx + ox[:, :h, :w].long()).clamp(0, wa - 1)
+        # The sweep state is dead from here; free it before the polish.
+        del b_planes, oy, ox, d, prune_states
     outs = [
         _merge_and_polish(
             py[i], px[i], dist0[i], ky[i], kx[i], draws[i], dists[i],
             f_b_tab[i], f_a_tab, cfg=cfg, plain=plain, ha=ha, wa=wa,
             coh=coh, pm_iters=pm_iters, polish_iters=polish_iters,
             polish_random=polish_random, cand_dtype=cand_dtype,
-            polish_mode=polish_mode, default_dist=default_dist,
+            polish_mode=polish_mode, default_dist=default_dist, frame=i,
         )
         for i in range(n_f)
     ]
@@ -749,47 +753,51 @@ def _merge_and_polish(py, px, dist0, ky, kx, draws: SweepDraws, dist_fn,
                       ha: int, wa: int, coh: float, pm_iters: int,
                       polish_iters: int, polish_random: int,
                       cand_dtype: str, polish_mode: str,
-                      default_dist: bool = True):
+                      default_dist: bool = True, frame: int = 0):
     """One frame's tail of the tile path: the exact-metric merge of the
     kernel's match (ky, kx) into the incoming field (py, px; distances
     dist0), the polish from slot `pm_iters` of `draws`, and the kappa
-    pass.  A caller's own `dist_fn` (not `default_dist`) keeps the
-    sequential cascade on it in "stream" mode, as the reference does.
-    Returns (py, px, dist)."""
+    pass, each a span carrying `frame`.  A caller's own `dist_fn` (not
+    `default_dist`) keeps the sequential cascade on it in "stream" mode,
+    as the reference does.  Returns (py, px, dist)."""
     h, w = py.shape
     dev = py.device
     # Exact-metric merge: adopt the kernel's match only where it wins.
-    d_k = dist_fn((ky * wa + kx).reshape(-1)).reshape(h, w)
-    better = d_k < dist0
-    py = torch.where(better, ky, py)
-    px = torch.where(better, kx, px)
-    dist = torch.where(better, d_k, dist0)
+    with scope("tlm_merge", "merge", frame=frame):
+        d_k = dist_fn((ky * wa + kx).reshape(-1)).reshape(h, w)
+        better = d_k < dist0
+        py = torch.where(better, ky, py)
+        px = torch.where(better, kx, px)
+        dist = torch.where(better, d_k, dist0)
     if polish_iters == 0:
         return py, px, dist
-    offsets = sweep_offsets(draws.gen(pm_iters, dev), polish_iters,
-                            sweep_radii(ha, wa, polish_random), h, w)
-    if polish_mode in ("sequential", "stream"):
-        polish_dist = dist_fn
-        if default_dist:
-            gf = _polish_gather_fn(f_a_tab, plain, cand_dtype, polish_mode)
-            polish_dist = (lambda idx: candidate_dist_lean(  # noqa: E731
-                f_b_tab, f_a_tab, idx, gather_fn=gf))
-        py, px, dist = patchmatch_sweeps_lean(
-            f_b_tab, f_a_tab, py, px, offsets, ha=ha, wa=wa,
-            coh_factor=coh, dist_fn=polish_dist,
-        )
-    else:
-        py, px, dist = polish_sweeps_planes(
-            py, px, dist, offsets, ha=ha, wa=wa, coh_factor=coh,
-            dist_fn=dist_fn,
-        )
+    with scope("tlm_polish", "polish", frame=frame):
+        offsets = sweep_offsets(draws.gen(pm_iters, dev), polish_iters,
+                                sweep_radii(ha, wa, polish_random), h, w)
+        if polish_mode in ("sequential", "stream"):
+            polish_dist = dist_fn
+            if default_dist:
+                gf = _polish_gather_fn(f_a_tab, plain, cand_dtype,
+                                       polish_mode)
+                polish_dist = (lambda idx: candidate_dist_lean(  # noqa: E731
+                    f_b_tab, f_a_tab, idx, gather_fn=gf))
+            py, px, dist = patchmatch_sweeps_lean(
+                f_b_tab, f_a_tab, py, px, offsets, ha=ha, wa=wa,
+                coh_factor=coh, dist_fn=polish_dist,
+            )
+        else:
+            py, px, dist = polish_sweeps_planes(
+                py, px, dist, offsets, ha=ha, wa=wa, coh_factor=coh,
+                dist_fn=dist_fn,
+            )
     if cfg.kappa > 0.0:
         from .coherence import coherence_sweeps_lean
 
-        py, px, dist = coherence_sweeps_lean(
-            py, px, dist, ha=ha, wa=wa, factor=coh, sweeps=2,
-            dist_fn=dist_fn,
-        )
+        with scope("tlm_kappa", "kappa", frame=frame):
+            py, px, dist = coherence_sweeps_lean(
+                py, px, dist, ha=ha, wa=wa, factor=coh, sweeps=2,
+                dist_fn=dist_fn,
+            )
     return py, px, dist
 
 
@@ -803,7 +811,7 @@ class PatchMatchMatcher(Matcher):
 
     def match(self, f_b, f_a, nnf, *, level, cfg: SynthConfig,
               draws: SweepDraws = None, raw: Optional[RawPlanes] = None,
-              polish_iters=None, temporal=None):
+              polish_iters=None, temporal=None, frame: int = 0):
         h, w = f_b.shape[:2]
         ha, wa = f_a.shape[:2]
         active = temporal_active(temporal, cfg)
@@ -814,20 +822,22 @@ class PatchMatchMatcher(Matcher):
                 polish_iters=polish_iters,
             )
         coh = kappa_factor(cfg.kappa, level)
-        nnf, dist = patchmatch_sweeps(
-            f_b, f_a, nnf,
-            draws.offsets(_pm_iters_for(cfg, ha, wa),
-                          sweep_radii(ha, wa, cfg.pm_random_candidates),
-                          h, w, f_b.device),
-            coh_factor=coh, temporal=temporal if active else None,
-            tau=cfg.tau,
-        )
+        with scope("tlm_pixel", "pixel", frame=frame):
+            nnf, dist = patchmatch_sweeps(
+                f_b, f_a, nnf,
+                draws.offsets(_pm_iters_for(cfg, ha, wa),
+                              sweep_radii(ha, wa, cfg.pm_random_candidates),
+                              h, w, f_b.device),
+                coh_factor=coh, temporal=temporal if active else None,
+                tau=cfg.tau,
+            )
         if cfg.kappa > 0.0:
             from .coherence import coherence_sweeps
 
-            nnf, dist = coherence_sweeps(
-                f_b, f_a, nnf, dist, factor=coh, sweeps=2
-            )
+            with scope("tlm_kappa", "kappa", frame=frame):
+                nnf, dist = coherence_sweeps(
+                    f_b, f_a, nnf, dist, factor=coh, sweeps=2
+                )
         return nnf, dist
 
     def match_frames(self, f_b, f_a, nnf, *, level, cfg: SynthConfig,

@@ -70,9 +70,8 @@ from ..models.analogy import (
 from ..ops.color import rgb_to_yiq
 from ..ops.remap import luminance_stats
 from ..runtime.faults import fire as _fault_fire
-from ..telemetry.spans import as_tracer
+from ..telemetry.spans import as_tracer, scope
 from ..utils.io import load_image
-from ..utils.profiling import scope
 from .mesh import BATCH_AXIS
 
 
@@ -246,29 +245,31 @@ def synthesize_batch(
         pyr = prologue(a, ap, frames_l, cfg, levels, _b_stats)
     record_prologue(tracer, pyr[4], levels, prologue_t0, cfg=cfg,
                     a_hw=tuple(a.shape[:2]), runner="batch")
+    tracer.bind_device(dev)
     for level in range(start, -1, -1):
         _fault_fire("level", level)
-        level_t0 = time.perf_counter()
-        # The lean rule counts the chunk's frames, whatever the ranks.
-        plan = plan_frames(cfg, level, levels, pyr, nnf, brute_lean=False,
-                           n_frames=n)
-        _fault_fire("kernel", level)
-        nnf, dist, bp = run_level(cfg, level, levels, pyr, nnf, bp, plan,
-                                  frame_idx)
-        if tracer.enabled:
-            # A lean tracer (the serving daemon's per-request one) keeps
-            # the level span and skips the energy readback and the shard
-            # walls, syncs both.
-            h, w = pyr[2][level].shape[1:3]
-            walls = None
-            if shard.group is not None and not tracer.lean:
-                from ..models.analogy import shard_sync_walls
+        with tracer.span("level", level=level) as lvl_span:
+            level_t0 = time.perf_counter()
+            # The lean rule counts the chunk's frames, whatever the ranks.
+            plan = plan_frames(cfg, level, levels, pyr, nnf,
+                               brute_lean=False, n_frames=n)
+            _fault_fire("kernel", level)
+            nnf, dist, bp = run_level(cfg, level, levels, pyr, nnf, bp,
+                                      plan, frame_idx)
+            if tracer.enabled:
+                # A lean tracer (the serving daemon's per-request one)
+                # keeps the level span and skips the energy readback and
+                # the shard walls, syncs both.
+                h, w = pyr[2][level].shape[1:3]
+                walls = None
+                if shard.group is not None and not tracer.lean:
+                    from ..models.analogy import shard_sync_walls
 
-                walls = shard_sync_walls(level_t0, dev, shard.group)
-            record_level_span(
-                tracer, cfg, level_t0, level, h, w,
-                None if tracer.lean else shard.energy(dist),
-                shard_walls=walls, shard_axis=BATCH_AXIS)
+                    walls = shard_sync_walls(level_t0, dev, shard.group)
+                record_level_span(
+                    tracer, cfg, lvl_span, level, h, w,
+                    None if tracer.lean else shard.energy(dist),
+                    shard_walls=walls, shard_axis=BATCH_AXIS)
         if cfg.save_level_artifacts:
             state = [shard.gather(x) for x in (
                 nnf if isinstance(nnf, tuple) else (nnf,))]

@@ -77,7 +77,7 @@ from ..telemetry.metrics import (
     count_expected_collectives,
     get_registry,
 )
-from ..telemetry.spans import as_tracer
+from ..telemetry.spans import as_tracer, scope
 from .mesh import (
     BANDS_AXIS,
     axis_group,
@@ -247,10 +247,11 @@ def _sharded_level(cfg: SynthConfig, level: int, levels: int, pyr,
         raw = RawPlanes(src_b, flt_bp, src_b_c if has_coarse else None,
                         flt_bp_c if has_coarse else None, (a_band,),
                         plan.tile)
-        nnf, dist_l, bp = lean_em_step(
-            cfg, level, has_coarse, polish, src_b, flt_bp, src_b_c,
-            flt_bp_c if has_coarse else flt_bp, f_a, pyr_copy_a[level],
-            nnf, [SweepDraws(cfg.seed, level, em)], raw, **hooks)
+        with scope(f"tlm_em{em}", "em_iter", em=em):
+            nnf, dist_l, bp = lean_em_step(
+                cfg, level, has_coarse, polish, src_b, flt_bp, src_b_c,
+                flt_bp_c if has_coarse else flt_bp, f_a, pyr_copy_a[level],
+                nnf, [SweepDraws(cfg.seed, level, em)], raw, **hooks)
         flt_bp = bp
     return nnf, dist_l, bp, walls
 
@@ -321,26 +322,30 @@ def synthesize_sharded_a(
         n_sharded = levels - 1 - start
         if start < 0:
             return _finalize(bp[0], yiq_b, b, cfg)
+    tracer.bind_device(dev)
     for level in range(start, -1, -1):
         _fault_fire("level", level)
-        level_t0 = time.perf_counter()
-        plan = plan_frames(cfg, level, levels, pyr, nnf, brute_lean=False)
-        _fault_fire("kernel", level)
-        walls = None
-        if plan.lean:
-            nnf, dist_l, bp, walls = _sharded_level(
-                cfg, level, levels, pyr, nnf, bp, plan, mesh, tracer,
-                level_t0)
-            n_sharded += 1
-        else:
-            nnf, dist_l, bp = run_level(cfg, level, levels, pyr, nnf, bp,
-                                        plan)
-        if tracer.enabled:
-            h, w = pyr[2][level].shape[1:3]
-            record_level_span(
-                tracer, cfg, level_t0, level, h, w, level_energy(dist_l),
-                shard_walls=walls, shard_axis=_AXIS,
-                **({"shard_phase": "assemble"} if walls else {}))
+        with tracer.span("level", level=level) as lvl_span:
+            level_t0 = time.perf_counter()
+            plan = plan_frames(cfg, level, levels, pyr, nnf,
+                               brute_lean=False)
+            _fault_fire("kernel", level)
+            walls = None
+            if plan.lean:
+                nnf, dist_l, bp, walls = _sharded_level(
+                    cfg, level, levels, pyr, nnf, bp, plan, mesh, tracer,
+                    level_t0)
+                n_sharded += 1
+            else:
+                nnf, dist_l, bp = run_level(cfg, level, levels, pyr, nnf,
+                                            bp, plan)
+            if tracer.enabled:
+                h, w = pyr[2][level].shape[1:3]
+                record_level_span(
+                    tracer, cfg, lvl_span, level, h, w,
+                    level_energy(dist_l), shard_walls=walls,
+                    shard_axis=_AXIS,
+                    **({"shard_phase": "assemble"} if walls else {}))
         if cfg.save_level_artifacts and rank0:
             _save_level(cfg.save_level_artifacts, level, _frame(nnf, 0),
                         dist_l[0], bp[0], cfg, b.shape)

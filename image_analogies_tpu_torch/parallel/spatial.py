@@ -74,7 +74,7 @@ from ..ops.features import assemble_features
 from ..ops.pca import fit_and_project
 from ..runtime.faults import fire as _fault_fire
 from ..telemetry.metrics import count_collectives, count_expected_collectives
-from ..telemetry.spans import as_tracer
+from ..telemetry.spans import as_tracer, scope
 from .comms import sharded_a_step_allreduces, spatial_reslab_collectives
 from .mesh import axis_group, axis_rank, axis_size, in_mesh, make_mesh
 from .sharded_a import band_hooks, band_table
@@ -257,142 +257,148 @@ def synthesize_spatial(
     def slab_of(x, hal=None):
         return _slab_of(x, n_slabs, halo if hal is None else hal, slab)
 
+    tracer.bind_device(dev)
     for level in range(start, -1, -1):
         _fault_fire("level", level)
-        level_t0 = time.perf_counter()
-        has_coarse = level < levels - 1
-        src_a_l, flt_a_l = pyr_src_a[level], pyr_flt_a[level]
-        src_a_c = pyr_src_a[level + 1] if has_coarse else None
-        flt_a_c = pyr_flt_a[level + 1] if has_coarse else None
-        h, w = pyr_src_b[level].shape[1:3]
-        ha, wa = src_a_l.shape[:2]
-        # The tile plan is made against the slab the step sees, the
-        # byte estimate against the global tables.
-        slab_shape = (h // n_slabs + 2 * halo, w)
-        plan = plan_level(cfg, level, src_a_l, flt_a_l, has_coarse, h, w,
-                          prev_nnf=nnf, eligible_shape=slab_shape,
-                          brute_lean=False)
-        _fault_fire("kernel", level)
-        banded = plan.lean and n_bands > 1
-        proj = a_planes = hooks = None
-        band_walls = None
-        if banded:
-            # A rows pad with edge rows to the band grain (twice the
-            # bands with a coarse level, so the coarse rows split on the
-            # same boundaries); the bounds stay on the real rows, so no
-            # origin in the pad is ever owned.
-            a_grain = 2 * n_bands if has_coarse else n_bands
-            a_pad = (-ha) % a_grain
-            rows_pb = (ha + a_pad) // n_bands
-            if (n_bands - 1) * rows_pb >= ha:
-                raise ValueError(
-                    f"2-D spatial level {level}: A rows ({ha}) leave band "
-                    f"{n_bands - 1} of {n_bands} without a real row to "
-                    "own; use fewer bands")
-
-            def pad_rows(x, n):
-                if not n:
-                    return x
-                idx = torch.arange(x.shape[0] + n, device=x.device)
-                return x.index_select(0, idx.clamp(max=x.shape[0] - 1))
-
-            ha_k = ha + a_pad
-            src_k, flt_k = pad_rows(src_a_l, a_pad), pad_rows(flt_a_l, a_pad)
-            src_ck = flt_ck = None
-            if has_coarse:
-                hc_pad = ha_k // 2 - src_a_c.shape[0]
-                src_ck = pad_rows(src_a_c, hc_pad)
-                flt_ck = pad_rows(flt_a_c, hc_pad)
-            row0 = band * rows_pb
-            f_a = band_table(cfg, src_k, flt_k, src_ck, flt_ck, n_bands,
-                             band)
-            if tracer.enabled:
-                band_walls = shard_sync_walls(level_t0, dev, band_group)
-            specs, use_coarse = plan.tile
-            a_planes = (prepare_a_planes(
-                src_k, flt_k, src_ck if use_coarse else None,
-                flt_ck if use_coarse else None, specs,
-                n_bands=n_bands, band=band),)
-            hooks = band_hooks(f_a, (row0, min(rows_pb, ha - row0)),
-                               row0 * wa, band_group, band)
-        elif plan.lean:
-            f_a = assemble_features_lean(src_a_l, flt_a_l, cfg, src_a_c,
-                                         flt_a_c)
-        else:
-            f_a = assemble_features(src_a_l, flt_a_l, cfg, src_a_c, flt_a_c)
-            f_a, proj = fit_and_project(f_a, cfg.pca_dims)
-        if plan.tile is not None and not banded:
-            specs, use_coarse = plan.tile
-            a_planes = prepare_a_planes(
-                src_a_l, flt_a_l, src_a_c if use_coarse else None,
-                flt_a_c if use_coarse else None, specs)
-
-        # The level's incoming global state, then this rank's slab.
-        nnf, flt_bp, flt_bp_c = _level_state_glue(
-            plan.lean, plan.prev_kind, nnf, bp, pyr_raw_b[level][0], h, w,
-            ha, wa, init_generator(cfg.seed, level, dev))
-        s_src_b = slab_of(pyr_src_b[level][0])[None]
-        if has_coarse:
-            s_src_b_c = slab_of(pyr_src_b[level + 1][0], halo // 2)[None]
-            s_flt_c = slab_of(flt_bp_c, halo // 2)[None]
-        else:
-            s_src_b_c = s_src_b
-        s_nnf = ((slab_of(nnf[0])[None], slab_of(nnf[1])[None])
-                 if plan.lean else slab_of(nnf)[None])
-        s_flt = slab_of(flt_bp)[None]
-        copy_a = pyr_copy_a[level]
-        dist_s = bp_s = None
-        for em in range(cfg.em_iters):
-            last = em == cfg.em_iters - 1
-            polish = None if last or not cfg.pm_polish_final_only else 0
-            draws = [SweepDraws(cfg.seed, level, em, frame)]
-            flt_c = s_flt_c if has_coarse else s_flt
+        with tracer.span("level", level=level) as lvl_span:
+            level_t0 = time.perf_counter()
+            has_coarse = level < levels - 1
+            src_a_l, flt_a_l = pyr_src_a[level], pyr_flt_a[level]
+            src_a_c = pyr_src_a[level + 1] if has_coarse else None
+            flt_a_c = pyr_flt_a[level + 1] if has_coarse else None
+            h, w = pyr_src_b[level].shape[1:3]
+            ha, wa = src_a_l.shape[:2]
+            # The tile plan is made against the slab the step sees, the
+            # byte estimate against the global tables.
+            slab_shape = (h // n_slabs + 2 * halo, w)
+            plan = plan_level(cfg, level, src_a_l, flt_a_l, has_coarse, h, w,
+                              prev_nnf=nnf, eligible_shape=slab_shape,
+                              brute_lean=False)
+            _fault_fire("kernel", level)
+            banded = plan.lean and n_bands > 1
+            proj = a_planes = hooks = None
+            band_walls = None
             if banded:
-                count_expected_collectives(
-                    sharded_a_step_allreduces(cfg, ha, wa, polish),
-                    BANDS_AXIS)
-                raw = RawPlanes(s_src_b, s_flt,
-                                s_src_b_c if has_coarse else None,
-                                s_flt_c if has_coarse else None, a_planes,
-                                plan.tile)
-                s_nnf, dist_s, bp_s = lean_em_step(
-                    cfg, level, has_coarse, polish, s_src_b, s_flt,
-                    s_src_b_c, flt_c, f_a, copy_a, s_nnf, draws, raw,
-                    **hooks)
+                # A rows pad with edge rows to the band grain (twice the
+                # bands with a coarse level, so the coarse rows split on the
+                # same boundaries); the bounds stay on the real rows, so no
+                # origin in the pad is ever owned.
+                a_grain = 2 * n_bands if has_coarse else n_bands
+                a_pad = (-ha) % a_grain
+                rows_pb = (ha + a_pad) // n_bands
+                if (n_bands - 1) * rows_pb >= ha:
+                    raise ValueError(
+                        f"2-D spatial level {level}: A rows ({ha}) leave band "
+                        f"{n_bands - 1} of {n_bands} without a real row to "
+                        "own; use fewer bands")
+
+                def pad_rows(x, n):
+                    if not n:
+                        return x
+                    idx = torch.arange(x.shape[0] + n, device=x.device)
+                    return x.index_select(0, idx.clamp(max=x.shape[0] - 1))
+
+                ha_k = ha + a_pad
+                src_k = pad_rows(src_a_l, a_pad)
+                flt_k = pad_rows(flt_a_l, a_pad)
+                src_ck = flt_ck = None
+                if has_coarse:
+                    hc_pad = ha_k // 2 - src_a_c.shape[0]
+                    src_ck = pad_rows(src_a_c, hc_pad)
+                    flt_ck = pad_rows(flt_a_c, hc_pad)
+                row0 = band * rows_pb
+                f_a = band_table(cfg, src_k, flt_k, src_ck, flt_ck, n_bands,
+                                 band)
+                if tracer.enabled:
+                    band_walls = shard_sync_walls(level_t0, dev, band_group)
+                specs, use_coarse = plan.tile
+                a_planes = (prepare_a_planes(
+                    src_k, flt_k, src_ck if use_coarse else None,
+                    flt_ck if use_coarse else None, specs,
+                    n_bands=n_bands, band=band),)
+                hooks = band_hooks(f_a, (row0, min(rows_pb, ha - row0)),
+                                   row0 * wa, band_group, band)
+            elif plan.lean:
+                f_a = assemble_features_lean(src_a_l, flt_a_l, cfg, src_a_c,
+                                             flt_a_c)
             else:
-                step = make_em_step(cfg, level, has_coarse, plan.lean,
-                                    polish_iters=polish)
-                s_nnf, dist_s, bp_s = step(
-                    s_src_b, s_flt, s_src_b_c, flt_c, f_a, copy_a, s_nnf,
-                    draws, proj, a_planes, plan.tile)
-            if not last:
-                state = ([p[0] for p in s_nnf] if plan.lean
-                         else [s_nnf[0]]) + [bp_s[0]]
-                count_expected_collectives(
-                    spatial_reslab_collectives(len(state)), slab_axis)
-                state = _reslab(state, halo, slab, n_slabs, slab_group,
-                                slab_axis)
-                s_nnf = (tuple(x[None] for x in state[:-1]) if plan.lean
-                         else state[0][None])
-                s_flt = state[-1][None]
-        shard_walls = None
-        if tracer.enabled:
-            shard_walls = shard_sync_walls(level_t0, dev, slab_group)
-        if plan.lean:
-            nnf = (_gather_cores(s_nnf[0][0], halo, slab_group),
-                   _gather_cores(s_nnf[1][0], halo, slab_group))
-        else:
-            nnf = _gather_cores(s_nnf[0], halo, slab_group)
-        dist_l = _gather_cores(dist_s[0], halo, slab_group)
-        bp = _gather_cores(bp_s[0], halo, slab_group)
-        if tracer.enabled:
-            record_level_span(
-                tracer, cfg, level_t0, level, h, w, level_energy(dist_l),
-                spatial_slabs=n_slabs, shard_walls=shard_walls,
-                shard_axis=slab_axis,
-                extra_shard_walls=({BANDS_AXIS: band_walls}
-                                   if band_walls else None),
-            )
+                f_a = assemble_features(src_a_l, flt_a_l, cfg, src_a_c,
+                                        flt_a_c)
+                f_a, proj = fit_and_project(f_a, cfg.pca_dims)
+            if plan.tile is not None and not banded:
+                specs, use_coarse = plan.tile
+                a_planes = prepare_a_planes(
+                    src_a_l, flt_a_l, src_a_c if use_coarse else None,
+                    flt_a_c if use_coarse else None, specs)
+
+            # The level's incoming global state, then this rank's slab.
+            nnf, flt_bp, flt_bp_c = _level_state_glue(
+                plan.lean, plan.prev_kind, nnf, bp, pyr_raw_b[level][0], h, w,
+                ha, wa, init_generator(cfg.seed, level, dev))
+            s_src_b = slab_of(pyr_src_b[level][0])[None]
+            if has_coarse:
+                s_src_b_c = slab_of(pyr_src_b[level + 1][0], halo // 2)[None]
+                s_flt_c = slab_of(flt_bp_c, halo // 2)[None]
+            else:
+                s_src_b_c = s_src_b
+            s_nnf = ((slab_of(nnf[0])[None], slab_of(nnf[1])[None])
+                     if plan.lean else slab_of(nnf)[None])
+            s_flt = slab_of(flt_bp)[None]
+            copy_a = pyr_copy_a[level]
+            dist_s = bp_s = None
+            for em in range(cfg.em_iters):
+                last = em == cfg.em_iters - 1
+                polish = None if last or not cfg.pm_polish_final_only else 0
+                draws = [SweepDraws(cfg.seed, level, em, frame)]
+                flt_c = s_flt_c if has_coarse else s_flt
+                with scope(f"tlm_em{em}", "em_iter", em=em):
+                    if banded:
+                        count_expected_collectives(
+                            sharded_a_step_allreduces(cfg, ha, wa, polish),
+                            BANDS_AXIS)
+                        raw = RawPlanes(s_src_b, s_flt,
+                                        s_src_b_c if has_coarse else None,
+                                        s_flt_c if has_coarse else None,
+                                        a_planes, plan.tile)
+                        s_nnf, dist_s, bp_s = lean_em_step(
+                            cfg, level, has_coarse, polish, s_src_b, s_flt,
+                            s_src_b_c, flt_c, f_a, copy_a, s_nnf, draws, raw,
+                            **hooks)
+                    else:
+                        step = make_em_step(cfg, level, has_coarse, plan.lean,
+                                            polish_iters=polish)
+                        s_nnf, dist_s, bp_s = step(
+                            s_src_b, s_flt, s_src_b_c, flt_c, f_a, copy_a,
+                            s_nnf, draws, proj, a_planes, plan.tile)
+                    if not last:
+                        state = ([p[0] for p in s_nnf] if plan.lean
+                                 else [s_nnf[0]]) + [bp_s[0]]
+                        count_expected_collectives(
+                            spatial_reslab_collectives(len(state)), slab_axis)
+                        state = _reslab(state, halo, slab, n_slabs, slab_group,
+                                        slab_axis)
+                        s_nnf = (tuple(x[None] for x in state[:-1])
+                                 if plan.lean else state[0][None])
+                        s_flt = state[-1][None]
+            shard_walls = None
+            if tracer.enabled:
+                shard_walls = shard_sync_walls(level_t0, dev, slab_group)
+            if plan.lean:
+                nnf = (_gather_cores(s_nnf[0][0], halo, slab_group),
+                       _gather_cores(s_nnf[1][0], halo, slab_group))
+            else:
+                nnf = _gather_cores(s_nnf[0], halo, slab_group)
+            dist_l = _gather_cores(dist_s[0], halo, slab_group)
+            bp = _gather_cores(bp_s[0], halo, slab_group)
+            if tracer.enabled:
+                record_level_span(
+                    tracer, cfg, lvl_span, level, h, w,
+                    level_energy(dist_l),
+                    spatial_slabs=n_slabs, shard_walls=shard_walls,
+                    shard_axis=slab_axis,
+                    extra_shard_walls=({BANDS_AXIS: band_walls}
+                                       if band_walls else None),
+                )
         if cfg.save_level_artifacts and rank0:
             _save_level(cfg.save_level_artifacts, level, nnf, dist_l, bp,
                         cfg, b.shape)

@@ -216,11 +216,9 @@ class _Watchdog:
         self.last_level: Optional[int] = None
         self.attempt_t0 = time.perf_counter()
         # Last forward progress: any level close restarts this clock,
-        # so the BETWEEN-levels window (where the engine's eager glue,
-        # checkpoint writes, and the parallel runners' whole level
-        # bodies live — their level spans are recorded close-only,
-        # after the fact) is monitored too, against the NEXT level's
-        # deadline.
+        # so the BETWEEN-levels window (where the engine's eager glue
+        # and checkpoint writes live) is monitored too, against the
+        # NEXT level's deadline.
         self.last_progress_t = self.attempt_t0
 
     # -- observer (runs on the worker thread) -------------------------
@@ -285,10 +283,9 @@ class _Watchdog:
                 )
             else:
                 # No open span: the pre-first-level window (prologue /
-                # transfer), the between-levels glue, or a parallel
-                # runner's level body (their spans record close-only).
-                # The clock is time-since-last-progress; the bound is
-                # the NEXT level's deadline once one is known.
+                # transfer) or the between-levels glue.  The clock is
+                # time-since-last-progress; the bound is the NEXT
+                # level's deadline once one is known.
                 level = (
                     self.last_level - 1
                     if self.last_level is not None and self.last_level > 0

@@ -234,8 +234,8 @@ def build_report(
             "nnf_energy": attrs.get("nnf_energy"),
             "device_busy_ms": round(dev, 3) if dev is not None else None,
             # Per-EM-iteration device attribution (the tlm_L<l>/tlm_em<i>
-            # nested scopes) — null when the trace carries no tags; the
-            # host cannot time EM iterations at all (spans.py rule 3).
+            # nested scopes) — null when the trace carries no tags (the
+            # spans' own device intervals are in host_spans.json).
             "em_device_busy_ms": em_dev.get(str(lvl)) or None,
             "em_iters": len(
                 [c for c in sp.get("children", [])

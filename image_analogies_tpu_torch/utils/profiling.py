@@ -3,11 +3,13 @@
 `device_trace(dir)` wraps a region in `torch.profiler` (CPU activity,
 and CUDA activity on a card run) and writes its Chrome/Perfetto trace,
 `torch_trace.json`, into `dir`: every kernel launch of the region by
-name, where the reference writes `jax.profiler` xplane files.  `scope`
-opens the `record_function` ranges that carry the reference's
+name, where the reference writes `jax.profiler` xplane files.  The
+`tlm_*` ranges in such a trace come from `telemetry/spans.scope`, the
+span primitive at every layer boundary (its rule 3): the reference's
 `jax.named_scope` tags (`tlm_prologue`, `tlm_L{level}`, `tlm_em{em}`,
-`tlm_assemble`, `tlm_match`, `tlm_render`) into such a trace; outside a
-profiler it returns a shared no-op context after one falsy check.
+`tlm_assemble`, `tlm_match`, `tlm_render`, and below the match
+`tlm_prep`, `tlm_sweep`, `tlm_merge`, `tlm_polish`, `tlm_kappa`,
+`tlm_pixel`, `tlm_dist`) as `record_function` ranges.
 
 `telemetry_session` is the CLI's wrapper: the device trace, a span
 tracer with a fresh metrics registry, the flight recorder, the live
@@ -23,30 +25,7 @@ import contextlib
 import os
 from typing import Iterator, Optional
 
-import torch
-
 from .torch_trace import TRACE_FILE
-
-
-class _NullScope:
-    __slots__ = ()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return None
-
-
-_NULL_SCOPE = _NullScope()
-
-
-def scope(name: str):
-    """A `torch.profiler.record_function` range named `name` while a
-    profiler records, else a shared no-op context."""
-    if torch.autograd.profiler._is_profiler_enabled:
-        return torch.profiler.record_function(name)
-    return _NULL_SCOPE
 
 
 @contextlib.contextmanager

@@ -11,8 +11,10 @@ Events read (Chrome trace format, times in microseconds):
     cudaMemcpyAsync, ...) on the host thread that issued them, carrying
     the same `args.correlation` as the device event they started;
   - ranges: host `ph` "X" events named `tlm_*`, the `record_function`
-    ranges `utils/profiling.scope` opens (`tlm_prologue`, `tlm_L{level}`,
-    `tlm_em{em}`, `tlm_assemble`, `tlm_match`, `tlm_render`).
+    ranges `telemetry/spans.scope` opens (`tlm_prologue`, `tlm_L{level}`,
+    `tlm_em{em}`, `tlm_assemble`, `tlm_match`, `tlm_render`, and under
+    `tlm_match` `tlm_prep`, `tlm_sweep`, `tlm_merge`, `tlm_polish`,
+    `tlm_kappa`, `tlm_pixel`, `tlm_dist`).
 
 Attribution goes by the launch, not by the device timestamps: the host
 runs ahead of the device, so a kernel often executes after the range

@@ -66,8 +66,7 @@ from ..ops.color import rgb_to_yiq
 from ..ops.remap import luminance_stats
 from ..runtime.faults import fire as _fault_fire
 from ..telemetry.metrics import get_registry
-from ..telemetry.spans import as_tracer
-from ..utils.profiling import scope
+from ..telemetry.spans import as_tracer, scope
 from ..parallel.batch import (
     _as_tensor,
     _finalize_batch,
@@ -485,46 +484,47 @@ class VideoStream:
                 return None
             return torch.as_tensor(x, device=dev)
 
+        tracer.bind_device(dev)
         for level in range(start_level, -1, -1):
             _fault_fire("level", level)
-            level_t0 = time.perf_counter()
-            h, w = pyr_src_b[level].shape[1:3]
-            has_coarse = level < levels - 1
-            plan = plan_frames(run_cfg, level, levels, pyr, nnf,
-                               brute_lean=False)
-            prev_kind = plan.prev_kind
-            field = seed_of(seed_fields, level, (h, w))
-            bp_seed = seed_of(seed_bps, level, (h, w))
-            bp_coarse = (seed_of(seed_bps, level + 1,
-                                 pyr_src_b[level + 1].shape[1:3])
-                         if has_coarse else None)
-            if (warm and resumed is None and field is not None
-                    and bp_seed is not None and not plan.lean
-                    and (not has_coarse or bp_coarse is not None)):
-                # Warm seed: the previous frame's converged state at THIS
-                # level in place of the init ("direct" glue); below the
-                # coarsest level the glue also takes the coarse B'.
-                prev_kind = "direct"
-                nnf = field.long()
-                bp = (bp_seed.float(), bp_coarse.float()) if has_coarse \
-                    else bp_seed.float()
-                seeded = True
-            use_temporal = (
-                warm and cfg.tau > 0.0 and cfg.matcher == "patchmatch"
-                and not plan.lean and field is not None
-            )
-            _fault_fire("kernel", level)
-            if use_temporal:
-                nnf, dist, bp = _video_level(
-                    run_cfg, level, levels, pyr, nnf, bp, frame_idx, plan,
-                    prev_kind, field.long())
-            else:
-                nnf, dist, bp = run_level(
-                    run_cfg, level, levels, pyr, nnf, bp, plan, frame_idx,
-                    prev_kind=prev_kind)
-            if tracer.enabled:
-                record_level_span(tracer, run_cfg, level_t0, level, h, w,
-                                  level_energy(dist))
+            with tracer.span("level", level=level) as lvl_span:
+                h, w = pyr_src_b[level].shape[1:3]
+                has_coarse = level < levels - 1
+                plan = plan_frames(run_cfg, level, levels, pyr, nnf,
+                                   brute_lean=False)
+                prev_kind = plan.prev_kind
+                field = seed_of(seed_fields, level, (h, w))
+                bp_seed = seed_of(seed_bps, level, (h, w))
+                bp_coarse = (seed_of(seed_bps, level + 1,
+                                     pyr_src_b[level + 1].shape[1:3])
+                             if has_coarse else None)
+                if (warm and resumed is None and field is not None
+                        and bp_seed is not None and not plan.lean
+                        and (not has_coarse or bp_coarse is not None)):
+                    # Warm seed: the previous frame's converged state at THIS
+                    # level in place of the init ("direct" glue); below the
+                    # coarsest level the glue also takes the coarse B'.
+                    prev_kind = "direct"
+                    nnf = field.long()
+                    bp = (bp_seed.float(), bp_coarse.float()) if has_coarse \
+                        else bp_seed.float()
+                    seeded = True
+                use_temporal = (
+                    warm and cfg.tau > 0.0 and cfg.matcher == "patchmatch"
+                    and not plan.lean and field is not None
+                )
+                _fault_fire("kernel", level)
+                if use_temporal:
+                    nnf, dist, bp = _video_level(
+                        run_cfg, level, levels, pyr, nnf, bp, frame_idx, plan,
+                        prev_kind, field.long())
+                else:
+                    nnf, dist, bp = run_level(
+                        run_cfg, level, levels, pyr, nnf, bp, plan, frame_idx,
+                        prev_kind=prev_kind)
+                if tracer.enabled:
+                    record_level_span(tracer, run_cfg, lvl_span, level, h,
+                                      w, level_energy(dist))
             fields[level] = (torch.stack(nnf, dim=-1)
                              if isinstance(nnf, tuple) else nnf)
             bps[level] = bp

@@ -601,3 +601,59 @@ def test_profiled_k1_launches_sit_under_their_ranges(dev, tmp_path):
     k1 = [k for k in scoped if "tile_sweep_kernel" in k]
     assert k1 and all(k.startswith("tlm_L") and "/tlm_match/" in k
                       for k in k1)
+
+
+def test_traced_run_times_every_span_on_the_device(dev, monkeypatch):
+    """A traced 256² run (tile path at 256² and 128², per-pixel sweeps at
+    64²): every live span resolves a device interval, children lie inside
+    their parents and siblings in order, within 20 us; the EM steps sum
+    to no more than their level; the trace adds at most one device sync
+    (the anchor) to the untraced run's and the level records' own; B' is
+    the untraced run's."""
+    from image_analogies_tpu_torch import create_image_analogy
+    from image_analogies_tpu_torch.telemetry import Tracer
+    from image_analogies_tpu_torch.utils.examples import super_resolution
+
+    a, ap, b = (torch.as_tensor(x, device="cuda")
+                for x in super_resolution(256))
+    cfg = SynthConfig(levels=3, em_iters=2, kappa=0.5)
+    create_image_analogy(a, ap, b, cfg)  # builds and warms
+    real, syncs = torch.cuda.synchronize, []
+
+    def counted(*args, **kw):
+        syncs.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    plain = create_image_analogy(a, ap, b, cfg)
+    n_plain, syncs[:] = len(syncs), []
+    tracer = Tracer()
+    traced = create_image_analogy(a, ap, b, cfg, progress=tracer)
+    n_traced = len(syncs)
+    monkeypatch.undo()
+    # The prologue record, one a level, and the anchor.
+    assert n_traced <= n_plain + 1 + 3 + 1
+    assert torch.equal(traced, plain)
+    slack = 20e-6
+
+    def walk(sp):
+        timed = [c for c in sp.children
+                 if c.timed and c.name != "prologue"]
+        for c in timed:
+            assert c.device_ms is not None, c.name
+            assert c.dev_t0 >= sp.dev_t0 - slack, (sp.name, c.name)
+            assert c.dev_t1 <= sp.dev_t1 + slack, (sp.name, c.name)
+        for x, y in zip(timed, timed[1:]):
+            assert x.dev_t1 <= y.dev_t0 + slack, (x.name, y.name)
+        for c in timed:
+            walk(c)
+
+    (run,) = tracer.roots
+    assert run.device_ms is not None
+    walk(run)
+    for lvl in tracer.find("level"):
+        em_ms = sum(e.device_ms for e in lvl.children)
+        assert em_ms <= lvl.device_ms + 0.1
+    assert tracer.find("sweep") and tracer.find("pixel") and tracer.find(
+        "polish")
+    assert all(sp.device_ms > 0 for sp in tracer.find("polish"))
