@@ -23,7 +23,9 @@ csrc/`, holds each kernel against its plain PyTorch version at the main
 path's shapes (K1 in float32 and int8 mode, on a seeded case and on the
 tables and state of the headline's first level-0 sweep; K2 on float32
 and bfloat16 rows, at 65,536^2 x 68 and at a ragged 10,007 x 9,001 x
-150; K3 on bf16 and int8 tables), drives the main paths through
+150; K3 on bf16 and int8 tables; K4, one cascade sweep, at the 64^2
+per-pixel level's float32 rows and the 1024^2 polish's bf16 rows, with
+its launches a headline run), drives the main paths through
 `create_image_analogy` (the 1024^2 super-resolution headline with
 PatchMatch; the same headline with compressed candidates, int8 + PCA
 prune 16:8, and the streamed, sequential and jump polish engines; and
@@ -98,9 +100,9 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
-PHASES = ("k1", "k2", "k3", "k1i8", "headline", "compressed", "config1",
-          "quality", "profile", "lean", "batch", "video", "cli", "telemetry",
-          "serve", "fleet", "multi", "serve_multi")
+PHASES = ("k1", "k2", "k3", "k4", "k1i8", "headline", "compressed",
+          "config1", "quality", "profile", "lean", "batch", "video", "cli",
+          "telemetry", "serve", "fleet", "multi", "serve_multi")
 HEADLINE = dict(levels=5, matcher="patchmatch", em_iters=2, pm_iters=6,
                 pm_polish_iters=1, device="cuda")
 
@@ -505,6 +507,78 @@ def phase_k3(dev, rng):
     return rec
 
 
+def k4_case(dev, rng, h, d, dtype, n_random, l2_rate):
+    """K4 on one sweep of an h x h field against an h x h A, (h^2, d)
+    tables in `dtype`: bit-equal to its plain version on integer-valued
+    tables (every sum exact, ties everywhere), then timed on uniform
+    ones beside its bounds."""
+    from image_analogies_tpu_torch.kernels import pixel_cascade as pc
+    from image_analogies_tpu_torch.models.matcher import candidate_dist_lean
+    from image_analogies_tpu_torch.models.patchmatch import sweep_radii
+
+    n = h * h
+    py = torch.as_tensor(rng.integers(0, h, (h, h)), device=dev)
+    px = torch.as_tensor(rng.integers(0, h, (h, h)), device=dev)
+    off = torch.stack([
+        torch.as_tensor(rng.integers(-r, r + 1, (h, h, 2)), device=dev)
+        for r in sweep_radii(h, h, n_random)])
+    kw = dict(ha=h, wa=h, coh_factor=1.5)
+    rec = {"shape": [h, h, d], "dtype": str(dtype).split(".")[-1],
+           "n_random": n_random}
+    for integer in (True, False):
+        f_b, f_a = (torch.as_tensor(
+            (rng.integers(0, 5, (n, d)) if integer else rng.random((n, d)))
+            .astype(np.float32), device=dev).to(dtype) for _ in range(2))
+
+        def dist_fn(idx):
+            return candidate_dist_lean(f_b, f_a, idx)
+
+        dist = dist_fn((py * h + px).reshape(-1)).reshape(h, h)
+        got = pc.cascade_sweep_kernel(f_b, f_a, py, px, dist, off, **kw)
+        want = pc.cascade_sweep_plain(py, px, dist, off, dist_fn=dist_fn,
+                                      **kw)
+        torch.cuda.synchronize()
+        if integer:
+            if not all(torch.equal(g, x) for g, x in zip(got, want)):
+                raise AssertionError(f"K4 {h}^2 {dtype} differs from its "
+                                     "plain version on integer tables")
+            continue
+        rec["match_share_vs_plain"] = float(
+            ((got[0] == want[0]) & (got[1] == want[1])).float().mean())
+        rec["max_abs_err"] = float((got[2] - want[2]).abs().max())
+        rec["max_rel_err"] = float(
+            ((got[2] - want[2]).abs() / want[2].clamp_min(1e-30)).max())
+        rec["ms"] = cuda_ms(lambda: pc.cascade_sweep_kernel(
+            f_b, f_a, py, px, dist, off, **kw))
+        rec["plain_ms"] = cuda_ms(lambda: pc.cascade_sweep_plain(
+            py, px, dist, off, dist_fn=dist_fn, **kw), reps=3, warm=1)
+    row = d * f_b.element_size()
+    # Compulsory bytes: both tables, the field in and out (int64 py,
+    # px and float32 dist) and the offsets, each once.
+    nbytes = 2 * n * row + n * 2 * 20 + off.numel() * 8
+    # Row traffic: every candidate reads its A row and the pixel's B row.
+    row_bytes = n * (8 + n_random) * 2 * row
+    rec.update({
+        "bound_ms": bound_ms(0.0, nbytes), "bound_by": "bytes",
+        "bytes": nbytes, "row_bytes": row_bytes,
+        "rows_hbm_floor_ms": 1e3 * row_bytes / PEAK_BYTES,
+        "rows_l2_floor_ms": 1e3 * row_bytes / l2_rate if l2_rate else None,
+    })
+    return rec
+
+
+def phase_k4(dev, rng, l2_rate=None):
+    """K4 at the two shapes the main path gives it: the 64^2 per-pixel
+    level (float32 rows of 50, 6 random probes) and the 1024^2 polish
+    (bf16 rows of 68, 4 probes); one sweep a launch."""
+    rec = {"phase": "k4",
+           "pixel": k4_case(dev, rng, 64, 50, torch.float32, 6, l2_rate),
+           "polish": k4_case(dev, rng, 1024, 68, torch.bfloat16, 4,
+                             l2_rate)}
+    emit(rec)
+    return rec
+
+
 def k2_case(dev, rng, n_b, n_a, d, library_chunk=8192):
     """K2 against its plain version on seeded (n_b, d) / (n_a, d) tables,
     float32 rows (three TF32 passes; the plain version repeats them) and
@@ -630,28 +704,44 @@ def check_output(out, shape, what):
 
 def phase_headline(dev):
     from image_analogies_tpu_torch.config import SynthConfig
-    from image_analogies_tpu_torch.kernels import nn_brute, patchmatch_tile
+    from image_analogies_tpu_torch.kernels import (
+        nn_brute,
+        patchmatch_tile,
+        pixel_cascade,
+    )
     from image_analogies_tpu_torch.utils.examples import super_resolution
 
     ex = super_resolution(1024)
     cfg = SynthConfig(**HEADLINE)
     run_synth(ex, cfg)  # warm
-    walls, counts = [], []
+    # K4: every sweep of the per-pixel level (64^2: em_iters x pm_iters)
+    # and of the tile levels' final-step polish, 12 + 4 x 1 = 16.
+    tile_levels = sum(1 for lv in range(cfg.levels) if (1024 >> lv) >= 128)
+    k4_want = ((cfg.levels - tile_levels) * cfg.em_iters * cfg.pm_iters
+               + tile_levels * cfg.pm_polish_iters)
+    walls, counts, k4_counts = [], [], []
     out = None
     for _ in range(3):
         patchmatch_tile.launches.reset()
         nn_brute.launches.reset()
+        pixel_cascade.launches.reset()
         out, wall = run_synth(ex, cfg)
         counts.append(patchmatch_tile.launches.count)
+        k4_counts.append(pixel_cascade.launches.count)
         walls.append(wall)
         if patchmatch_tile.launches.count != 48:
             raise AssertionError(
                 f"K1 launched {patchmatch_tile.launches.count} times, not 48"
             )
+        if pixel_cascade.launches.count != k4_want:
+            raise AssertionError(
+                f"K4 launched {pixel_cascade.launches.count} times, not "
+                f"{k4_want}")
     std = check_output(out, ex[2].shape, "headline")
     rec = {"phase": "headline", "size": 1024, "levels": 5,
            "wall_s_median": statistics.median(walls), "walls_s": walls,
-           "k1_launches_per_run": counts, "bp_std": std}
+           "k1_launches_per_run": counts, "k4_launches_per_run": k4_counts,
+           "bp_std": std}
     emit(rec)
     return rec, counts[-1]
 
@@ -4339,7 +4429,8 @@ def phase_multi(dev, smi, case, l2_rate, size=MULTI_SIZE,
     4 bands) against its plain version and as a band sequence against
     one launch; the sharded-A headline at world size 1 over NCCL (its
     launches: the main path's K1 banded count) and with two gloo ranks
-    on cuda:0, each B' bit-identical to the single-device lean B'; the
+    on cuda:0, each B' bit-identical to the single-device lean B' with
+    the eager ("stream") polish, the engine their own distance keeps; the
     spatial runner at world size 1 equal to the single-device headline;
     config 5's frames through the frame-sharded batch runner at world
     size 1 (its padding, all_gather and energy all_reduce over NCCL)
@@ -4385,6 +4476,12 @@ def phase_multi(dev, smi, case, l2_rate, size=MULTI_SIZE,
     want_lean, lean_wall = run_synth(ex, cfg_lean)
     want_head, head_wall = run_synth(ex, cfg_head)
     check_output(want_lean, ex[2].shape, "multi single-device lean")
+    # The sharded-A runner's lean levels polish with the eager cascade on
+    # their own distance (kernel K4 takes only the default one), so its
+    # single-device twin is the lean run with the "stream" polish: K3's
+    # rows, bitwise `index_select`'s, through the same eager cascade.
+    with Modes("bf16", "off", "stream"):
+        want_eager, _ = run_synth(ex, cfg_lean)
     rec["single_lean_wall_s"] = lean_wall
     rec["single_headline_wall_s"] = head_wall
 
@@ -4409,10 +4506,10 @@ def phase_multi(dev, smi, case, l2_rate, size=MULTI_SIZE,
             raise AssertionError(
                 f"sharded-A launched K1 {pt.launches.count} times, "
                 f"{pt.launches_banded.count} of them banded")
-        if not torch.equal(got, want_lean):
+        if not torch.equal(got, want_eager):
             raise AssertionError(
                 "sharded-A at world size 1 differs from the single-device "
-                f"lean B' at {int((got != want_lean).sum())} values")
+                f"lean B' at {int((got != want_eager).sum())} values")
         pt.launches.reset()
         t = time.perf_counter()
         got = synthesize_spatial(*ex, cfg_head, make_mesh(1,
@@ -4459,11 +4556,11 @@ def phase_multi(dev, smi, case, l2_rate, size=MULTI_SIZE,
                             args=(size, dev.type), timeout_s=600.0)
     rec["sharded_a_gloo2_wall_s"] = rank0_wall
     rec["sharded_a_gloo2_spawn_s"] = time.perf_counter() - t
-    if not torch.equal(got, want_lean.cpu()):
+    if not torch.equal(got, want_eager.cpu()):
         raise AssertionError(
             "sharded-A over two gloo ranks differs from the "
             f"single-device lean B' at "
-            f"{int((got != want_lean.cpu()).sum())} values")
+            f"{int((got != want_eager.cpu()).sum())} values")
 
     # The command line: its own process, one NCCL rank.
     root = os.path.dirname(os.path.abspath(__file__))
@@ -4842,12 +4939,15 @@ def main(argv=None) -> int:
         if "k1" in phases else {}
     k2 = run("k2", phase_k2, dev, rng) if "k2" in phases else {}
     k3 = run("k3", phase_k3, dev, rng) if "k3" in phases else {}
+    k4 = run("k4", phase_k4, dev, rng, l2_rate) if "k4" in phases else {}
     k1i8 = run("k1i8", phase_k1i8, dev, case, real, l2_rate) \
         if "k1i8" in phases else {}
     # Launch counts come from the main-path phases; null when not run.
     k1_launches = k2_launches = k1i8_launches = k3_launches = None
+    k4_launches = None
     if "headline" in phases:
-        _, k1_launches = run("headline", phase_headline, dev)
+        head, k1_launches = run("headline", phase_headline, dev)
+        k4_launches = head["k4_launches_per_run"][-1]
     if "compressed" in phases:
         comp = run("compressed", phase_compressed, dev)
         k1i8_launches = comp["k1_int8_launches_per_run"]
@@ -4920,6 +5020,21 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+        })
+    # K4 at the 64^2 per-pixel level and at the 1024^2 polish, beside the
+    # headline's launches (both shapes together).  It replaces no TPU
+    # kernel: XLA fused the JAX package's cascade.
+    for name, shape in (("pixel_cascade", "pixel"),
+                        ("pixel_cascade_polish", "polish")) if k4 else ():
+        t = k4[shape]
+        kernels_line.append({
+            "name": name, "route": "cuda",
+            "source": "image_analogies_tpu_torch/kernels/csrc/"
+                      "pixel_cascade.cu",
+            "replaces": None, "launches": k4_launches,
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
         })
     if lean:
         # The lean path's rows: each kernel timed and checked on a launch

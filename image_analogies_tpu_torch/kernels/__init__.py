@@ -9,8 +9,10 @@ same semantics.  Which one runs is decided by the tensor's device alone:
 
 `SynthConfig.pallas_mode` keeps its three values but chooses the
 ALGORITHM, not the device (see `tile_path` below and config.py); only the
-explicit "interpret" asks for K1's and K3's plain versions on a CUDA
-tensor.
+explicit "interpret" asks for K1's, K3's and K4's plain versions on a
+CUDA tensor.  K4 (`pixel_cascade`) also needs the cascade's default
+table distance: a caller that brings its own keeps the plain version
+(`pixel_cascade.sweep_engine`).
 
 The CUDA sources (`csrc/*.cu`, plain C entry points) are compiled with
 `nvcc -gencode arch=compute_90a,code=sm_90a` at first use, one `nvcc`
@@ -57,6 +59,10 @@ SOURCES: Dict[str, Dict[str, list]] = {
     },
     "l2_probe": {
         "ia_l2_read": [_P, _L, _I, _I, _P, _P],
+    },
+    "pixel_cascade": {
+        "ia_pixel_cascade": [_P] * 2 + [_I] * 8 + [_P] * 4 + [_I, _F]
+        + [_P] * 5,
     },
 }
 

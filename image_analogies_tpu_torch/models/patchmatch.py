@@ -16,7 +16,9 @@ Two paths, chosen by `SynthConfig.pallas_mode` and the level's shape:
     call it directly, `tile_patchmatch` on the standard levels' casts;
   - the per-pixel path (`patchmatch_sweeps`): 4 propagation candidates,
     4 unshifted neighbour matches and `n_random` random-search candidates
-    per sweep, accepted with canonical lowest-index tie-breaking.
+    per sweep, accepted with canonical lowest-index tie-breaking; one
+    launch of kernel K4 a sweep on CUDA tables under the default
+    distance (kernels/pixel_cascade.py), the eager cascade otherwise.
 
 Randomness.  Functions that consume random numbers take them as
 arguments (candidate draws, sweep offsets); `SweepDraws` makes them from
@@ -27,6 +29,7 @@ two packages hands both the same draws.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Iterable, NamedTuple, Optional, Tuple
 
@@ -34,6 +37,8 @@ import numpy as np
 import torch
 
 from ..config import SynthConfig
+from ..kernels import pixel_cascade as pc
+from ..kernels.pixel_cascade import DELTAS
 from ..telemetry.spans import scope
 from .matcher import (
     Matcher,
@@ -55,10 +60,6 @@ class RawPlanes(NamedTuple):
     flt_b_coarse: Optional[torch.Tensor]
     a_planes: torch.Tensor
     plan: tuple
-
-
-# Propagation neighbourhood: left, right, up, down.
-DELTAS = ((0, -1), (0, 1), (-1, 0), (1, 0))
 
 
 def seed_for(*path: int) -> int:
@@ -159,6 +160,8 @@ def patchmatch_sweeps_lean(
     wa: int,
     coh_factor: float,
     dist_fn=None,
+    plain: bool = False,
+    eager_reason: str = "dist_fn",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One propagate + random-search sweep per entry of `offsets` (each
     (n_random, H, W, 2), added to the current match) over (N, D) tables
@@ -166,8 +169,29 @@ def patchmatch_sweeps_lean(
     candidates must satisfy d * coh_factor < d_cur; exact ties break
     toward the lower flat index, the representative the brute oracle's
     argmin picks.  Distances go through `dist_fn` (flat indices ->
-    distances), by default `candidate_dist_lean` on the tables."""
+    distances), by default `candidate_dist_lean` on the tables.
+
+    Engine (`kernels/pixel_cascade.sweep_engine`): with the default
+    distance on CUDA tables and not `plain`, every sweep is one launch
+    of kernel K4; otherwise each runs `cascade_sweep_plain`, and on CUDA
+    tables is booked as eager, by "plain" or by `eager_reason`, the
+    caller's reason for its own `dist_fn` ("temporal", "gather",
+    "dist_fn")."""
     h, w = py.shape
+    if pc.sweep_engine(f_a_tab, plain=plain,
+                       default_dist=dist_fn is None) == "k4":
+        f_b_tab, f_a_tab = f_b_tab.contiguous(), f_a_tab.contiguous()
+        py = py.long().contiguous()
+        px = px.long().contiguous()
+        dist = None
+        for off in offsets:
+            py, px, dist = pc.cascade_sweep_kernel(
+                f_b_tab, f_a_tab, py, px, dist, off.contiguous(), ha=ha,
+                wa=wa, coh_factor=coh_factor,
+            )
+        if dist is not None:
+            return py, px, dist
+    reason = "plain" if plain else eager_reason
     if dist_fn is None:
         def dist_fn(idx):
             return candidate_dist_lean(f_b_tab, f_a_tab, idx)
@@ -175,38 +199,12 @@ def patchmatch_sweeps_lean(
     py = py.long().clamp(0, ha - 1)
     px = px.long().clamp(0, wa - 1)
     dist = dist_fn((py * wa + px).reshape(-1)).reshape(h, w)
-
-    def try_candidates(py, px, dist, cy, cx, factor):
-        cy = cy.clamp(0, ha - 1)
-        cx = cx.clamp(0, wa - 1)
-        idx = cy * wa + cx
-        d_cand = dist_fn(idx.reshape(-1)).reshape(h, w)
-        accept = (d_cand * factor < dist) | (
-            (d_cand == dist) & (idx < py * wa + px)
-        )
-        return (
-            torch.where(accept, cy, py),
-            torch.where(accept, cx, px),
-            torch.where(accept, d_cand, dist),
-        )
-
     for off in offsets:
-        for dy, dx in DELTAS:
-            py, px, dist = try_candidates(
-                py, px, dist, torch.roll(py, (dy, dx), (0, 1)) + dy,
-                torch.roll(px, (dy, dx), (0, 1)) + dx, 1.0,
-            )
-        for dy, dx in DELTAS:
-            py, px, dist = try_candidates(
-                py, px, dist, torch.roll(py, (dy, dx), (0, 1)),
-                torch.roll(px, (dy, dx), (0, 1)), 1.0,
-            )
-        off = off.to(py.device)
-        for s in range(off.shape[0]):
-            py, px, dist = try_candidates(
-                py, px, dist, py + off[s, ..., 0], px + off[s, ..., 1],
-                coh_factor,
-            )
+        pc.count_eager(f_a_tab, reason)
+        py, px, dist = pc.cascade_sweep_plain(
+            py, px, dist, off, ha=ha, wa=wa, coh_factor=coh_factor,
+            dist_fn=dist_fn,
+        )
     return py, px, dist
 
 
@@ -250,27 +248,35 @@ def patchmatch_sweeps(
     gather_fn=None,
     temporal: Optional[torch.Tensor] = None,
     tau: float = 0.0,
+    plain: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`patchmatch_sweeps_lean` on the standard path's (H, W, D) feature
-    fields and stacked (H, W, 2) field, with distances by
+    fields and stacked (H, W, 2) field; returns (nnf, dist).  With
+    neither a `gather_fn` nor the temporal term the distance is the
+    tables' default (kernel K4 on CUDA tensors unless `plain`); else
     `candidate_dist` (`gather_fn` swaps its row fetch: the stream and
-    int8 polish engines); returns (nnf, dist).  With a previous frame's
-    (H, W, 2) field `temporal` and tau > 0, every candidate's distance,
-    the incumbent's included, carries `temporal_penalty_fn`'s term, so
-    the accept tests and the returned distances are in that metric."""
+    int8 polish engines).  With a previous frame's (H, W, 2) field
+    `temporal` and tau > 0, every candidate's distance, the incumbent's
+    included, carries `temporal_penalty_fn`'s term, so the accept tests
+    and the returned distances are in that metric."""
     d = f_b.shape[-1]
     ha, wa = f_a.shape[:2]
     f_b_flat = f_b.reshape(-1, d)
     f_a_flat = f_a.reshape(-1, d)
     pen_fn = temporal_penalty_fn(temporal, tau, ha, wa)
+    dist_fn, reason = None, "dist_fn"
+    if pen_fn is not None or gather_fn is not None:
+        reason = "temporal" if pen_fn is not None else "gather"
 
-    def dist_fn(idx):
-        dist = candidate_dist(f_b_flat, f_a_flat, idx, gather_fn=gather_fn)
-        return dist if pen_fn is None else dist + pen_fn(idx)
+        def dist_fn(idx):
+            dist = candidate_dist(f_b_flat, f_a_flat, idx,
+                                  gather_fn=gather_fn)
+            return dist if pen_fn is None else dist + pen_fn(idx)
 
     py, px, dist = patchmatch_sweeps_lean(
         f_b_flat, f_a_flat, nnf[..., 0], nnf[..., 1], offsets, ha=ha,
-        wa=wa, coh_factor=coh_factor, dist_fn=dist_fn,
+        wa=wa, coh_factor=coh_factor, dist_fn=dist_fn, plain=plain,
+        eager_reason=reason,
     )
     return torch.stack([py, px], dim=-1), dist
 
@@ -305,9 +311,12 @@ def _polish_schedule_for(cfg: SynthConfig, ha: int, wa: int,
 
 # Polish engine (a module global with the reference's env override and
 # setter, not a config field): "sequential", the chained per-candidate
-# cascade (`patchmatch_sweeps`); "stream", the same cascade with its row
-# fetches through kernel K3, bit-identical to "sequential"; "jump", the
-# batched jump-flooding polish (`polish_sweeps_planes`).
+# cascade (`patchmatch_sweeps_lean`; kernel K4 on bf16 CUDA tables);
+# "stream", the same cascade with its row fetches through kernel K3, run
+# eagerly; "jump", the batched jump-flooding polish
+# (`polish_sweeps_planes`).  "stream" is bit-identical to "sequential" on
+# the CPU and under "interpret"; on the card the two agree within K4's
+# float32 rounding of each distance (kernels/pixel_cascade.py).
 _POLISH_MODE = os.environ.get("IA_POLISH_MODE", "sequential")
 _POLISH_MODES = ("sequential", "jump", "stream")
 
@@ -757,9 +766,10 @@ def _merge_and_polish(py, px, dist0, ky, kx, draws: SweepDraws, dist_fn,
     """One frame's tail of the tile path: the exact-metric merge of the
     kernel's match (ky, kx) into the incoming field (py, px; distances
     dist0), the polish from slot `pm_iters` of `draws`, and the kappa
-    pass, each a span carrying `frame`.  A caller's own `dist_fn` (not
-    `default_dist`) keeps the sequential cascade on it in "stream" mode,
-    as the reference does.  Returns (py, px, dist)."""
+    pass, each a span carrying `frame` (the polish also its `engine`,
+    "k4" or "eager").  A caller's own `dist_fn` (not `default_dist`)
+    keeps the eager sequential cascade on it in "stream" mode, as the
+    reference does.  Returns (py, px, dist)."""
     h, w = py.shape
     dev = py.device
     # Exact-metric merge: adopt the kernel's match only where it wins.
@@ -771,21 +781,29 @@ def _merge_and_polish(py, px, dist0, ky, kx, draws: SweepDraws, dist_fn,
         dist = torch.where(better, d_k, dist0)
     if polish_iters == 0:
         return py, px, dist
-    with scope("tlm_polish", "polish", frame=frame):
+    with scope("tlm_polish", "polish", frame=frame) as sp:
         offsets = sweep_offsets(draws.gen(pm_iters, dev), polish_iters,
                                 sweep_radii(ha, wa, polish_random), h, w)
         if polish_mode in ("sequential", "stream"):
-            polish_dist = dist_fn
+            # The tables' default distance (None: kernel K4 on the card)
+            # unless a caller's `dist_fn` or a swapped row fetch.
+            polish_dist, reason = dist_fn, "dist_fn"
             if default_dist:
                 gf = _polish_gather_fn(f_a_tab, plain, cand_dtype,
                                        polish_mode)
-                polish_dist = (lambda idx: candidate_dist_lean(  # noqa: E731
-                    f_b_tab, f_a_tab, idx, gather_fn=gf))
+                polish_dist, reason = None, "gather"
+                if gf is not None:
+                    polish_dist = functools.partial(
+                        candidate_dist_lean, f_b_tab, f_a_tab, gather_fn=gf)
+            sp.set(engine=pc.sweep_engine(f_a_tab, plain=plain,
+                                          default_dist=polish_dist is None))
             py, px, dist = patchmatch_sweeps_lean(
                 f_b_tab, f_a_tab, py, px, offsets, ha=ha, wa=wa,
-                coh_factor=coh, dist_fn=polish_dist,
+                coh_factor=coh, dist_fn=polish_dist, plain=plain,
+                eager_reason=reason,
             )
         else:
+            sp.set(engine="eager")
             py, px, dist = polish_sweeps_planes(
                 py, px, dist, offsets, ha=ha, wa=wa, coh_factor=coh,
                 dist_fn=dist_fn,
@@ -822,14 +840,17 @@ class PatchMatchMatcher(Matcher):
                 polish_iters=polish_iters,
             )
         coh = kappa_factor(cfg.kappa, level)
-        with scope("tlm_pixel", "pixel", frame=frame):
+        plain = cfg.pallas_mode == "interpret"
+        with scope("tlm_pixel", "pixel", frame=frame,
+                   engine=pc.sweep_engine(f_a, plain=plain,
+                                          default_dist=not active)):
             nnf, dist = patchmatch_sweeps(
                 f_b, f_a, nnf,
                 draws.offsets(_pm_iters_for(cfg, ha, wa),
                               sweep_radii(ha, wa, cfg.pm_random_candidates),
                               h, w, f_b.device),
                 coh_factor=coh, temporal=temporal if active else None,
-                tau=cfg.tau,
+                tau=cfg.tau, plain=plain,
             )
         if cfg.kappa > 0.0:
             from .coherence import coherence_sweeps

@@ -35,7 +35,11 @@ Equivalence, as in the reference: at kappa = 0 the sharded lean levels
 are bit-identical to the single-device lean path (strict-improvement
 accepts make the MIN merge order-equivalent to the single band's slot
 order; exact float ties aside); at kappa > 0 the merge of raw distances
-weakens the cross-band coherence bias slightly.  Levels the planner
+weakens the cross-band coherence bias slightly.  On CUDA tensors the
+single-device sequential polish runs kernel K4 on the default distance,
+while these levels keep the eager cascade on their own, so there the
+bit-identical twin is the single-device run with the "stream" polish
+(K3's rows through the same eager cascade).  Levels the planner
 keeps standard run the single-device level body on every rank, the A
 side replicated (their tables are 4^-l of the finest's).
 """

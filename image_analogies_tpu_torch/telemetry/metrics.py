@@ -636,7 +636,8 @@ def count_kernel_launch(kernel: str) -> None:
     registry (the session's, under a telemetry session), as
     `ia_kernel_launches_total{kernel}`.  Called by the kernel wrappers
     where they launch (`kernels/patchmatch_tile.tile_sweep_kernel` as
-    "tile_sweep", `kernels/nn_brute.nn_argmin_kernel` as "exact_nn"),
+    "tile_sweep", `kernels/nn_brute.nn_argmin_kernel` as "exact_nn",
+    `kernels/pixel_cascade.cascade_sweep_kernel` as "pixel_cascade"),
     beside their module launch counters.  A real launch count: the port
     runs eagerly, where the reference's counter counts trace-time
     sites."""
@@ -644,3 +645,15 @@ def count_kernel_launch(kernel: str) -> None:
         "ia_kernel_launches_total",
         "hand-written kernel launches (one per launch)",
     ).inc(labels={"kernel": kernel})
+
+
+def count_eager_sweep(reason: str) -> None:
+    """Book one sweep of the per-pixel cascade that ran eagerly on CUDA
+    tensors instead of kernel K4 (`kernels/pixel_cascade.count_eager`),
+    as `ia_eager_sweeps_total{reason}`: "plain" (pallas_mode
+    "interpret"), "temporal" (video with tau > 0), "gather" (the stream
+    and int8 polish fetches) or "dist_fn" (a caller's own distance)."""
+    get_registry().counter(
+        "ia_eager_sweeps_total",
+        "per-pixel cascade sweeps run eagerly on CUDA tensors, by {reason}",
+    ).inc(labels={"reason": reason})

@@ -408,7 +408,7 @@ def test_gather_wrapper_cpu_goes_plain_and_counts_nothing():
 
 def test_kernel_sources_and_build_dir():
     assert set(kernels.SOURCES) == {"tile_sweep", "nn_brute", "row_gather",
-                                    "l2_probe"}
+                                    "l2_probe", "pixel_cascade"}
     assert "ia_gather_rows" in kernels.SOURCES["row_gather"]
     assert set(kernels.SOURCES["nn_brute"]) == {
         "ia_nn_split_tf32", "ia_nn_pad_bf16", "ia_nn_argmin",
