@@ -864,6 +864,13 @@ def sweep_plan(n_chan: int, halo: int):
     return None
 
 
+def sweep_attrs(specs, geom: TileGeometry):
+    """The `sweep` span's attributes: the sweep's channel count and the
+    output rows of the kernel's strips (`sweep_plan`)."""
+    return {"channels": len(specs),
+            "strip_rows": sweep_plan(len(specs), geom.halo)}
+
+
 def kernel_fits(specs) -> bool:
     """The CUDA kernel's resource check: its halo is instantiated, its
     windows fit, and a strip's shared memory fits a Hopper block."""

@@ -32,7 +32,8 @@ level's `LevelState`.
 
 Telemetry and faults, as in the reference: `progress` (a
 ProgressWriter or a `telemetry.Tracer`) gets the `run` span, the
-`prologue` span with the `run_plan` mark, one `level` span a level with
+`prologue` span with the `run_plan` mark (and, with steerable features,
+a `steer` span for each side's bank), one `level` span a level with
 its live `em_iter` children (each with its `assemble`, `match` and
 `render` phases, and the matcher's phases under `match`), and the
 registry's level counters; an enabled tracer costs one device sync a
@@ -46,6 +47,7 @@ span of the same phase on the current tracer.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -106,6 +108,14 @@ def _with_steerable(y: torch.Tensor, cfg: SynthConfig) -> torch.Tensor:
     if y.ndim == 2:
         y = y[..., None]
     return torch.cat([y, resp], dim=-1)
+
+
+def _steer_scope(cfg: SynthConfig, side: str):
+    """The `steer` span (range `tlm_steer`) around one side's steerable
+    bank, "a" or "b"; nothing without the bank."""
+    if not cfg.steerable:
+        return contextlib.nullcontext()
+    return scope("tlm_steer", "steer", side=side)
 
 
 def _gather_planes(img: torch.Tensor, py: torch.Tensor,
@@ -551,16 +561,19 @@ def prologue(a, ap, frames, cfg: SynthConfig, levels: int, b_stats=None):
     `yiq_b` keep that axis, the A pyramids are built once."""
     src_a, flt_a, src_b, copy_a, yiq_b = _resolve_channels(
         a, ap, frames, cfg, b_stats=b_stats)
-    pyr_src_a = [_with_steerable(x, cfg) for x in build_pyramid(src_a, levels)]
+    pyr_src_a = build_pyramid(src_a, levels)
+    with _steer_scope(cfg, "a"):
+        pyr_src_a = [_with_steerable(x, cfg) for x in pyr_src_a]
     pyr_flt_a = build_pyramid(flt_a, levels)
     pyr_copy_a = build_pyramid(copy_a, levels)
     per_frame = [build_pyramid(src_b[i], levels)
                  for i in range(src_b.shape[0])]
     pyr_raw_b = [_stack_frames([p[lv] for p in per_frame])
                  for lv in range(levels)]
-    pyr_src_b = [_stack_frames([_with_steerable(x[i], cfg)
-                                for i in range(x.shape[0])])
-                 for x in pyr_raw_b]
+    with _steer_scope(cfg, "b"):
+        pyr_src_b = [_stack_frames([_with_steerable(x[i], cfg)
+                                    for i in range(x.shape[0])])
+                     for x in pyr_raw_b]
     return pyr_src_a, pyr_flt_a, pyr_src_b, pyr_copy_a, pyr_raw_b, yiq_b
 
 

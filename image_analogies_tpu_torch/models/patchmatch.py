@@ -39,7 +39,7 @@ import torch
 from ..config import SynthConfig
 from ..kernels import pixel_cascade as pc
 from ..kernels.pixel_cascade import DELTAS
-from ..telemetry.spans import scope
+from ..telemetry.spans import Span, scope
 from .matcher import (
     Matcher,
     candidate_dist,
@@ -713,7 +713,9 @@ def tile_patchmatch_lean(
         # Kernel-metric incumbents start at +inf: the raw-plane metric and
         # the feature metric must not meet in one accept test.
         d = torch.full(oy.shape, float("inf"), dtype=torch.float32, device=dev)
-    with scope("tlm_sweep", "sweep"):
+    with scope("tlm_sweep", "sweep") as sp:
+        if isinstance(sp, Span):
+            sp.set(**pt.sweep_attrs(specs, geom))
         for t in range(pm_iters):
             tables = []
             for i in range(n_f):

@@ -17,7 +17,8 @@ On the CPU (tier 1):
 
 On the card (`-m cuda`, skipped elsewhere): K4 against its plain
 version bit for bit on integer-valued tables (every sum exact in any
-order, ties included), within float32 rounding on the super-resolution
+order, ties included), at the super-resolution widths and at those of
+steerable-filter features, within float32 rounding on the super-resolution
 features of a real run, repeatable bit for bit, one launch a sweep where
 the rule says so and none elsewhere, and the wrapper's input checks.
 On the card:
@@ -441,6 +442,29 @@ def test_kernel_equals_plain_on_integer_tables(dev, h, w, ha, wa, dtype, d,
     py, px = field(rng, h, w, ha, wa, dev)
     offs = offsets(rng, 3, n_random, h, w, ha, wa, dev)
     got, want = _both(f_b, f_a, py, px, offs, ha, wa, coh)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
+@cuda
+@pytest.mark.parametrize("coh", [1.0, 1.5])
+@pytest.mark.parametrize("side,dtype,d,n_random", [
+    (64, torch.float32, 150, 6),
+    (1024, torch.bfloat16, 204, 4),
+])
+def test_kernel_equals_plain_at_steerable_widths(dev, side, dtype, d,
+                                                 n_random, coh):
+    """The widths of steerable-filter features (luminance and 4 oriented
+    responses on the source side): the 64^2 per-pixel level's float32
+    rows of 6 x 25 = 150 with its 6 probes, and the 1024^2 polish's bf16
+    rows of 6 x 25 + 6 x 9 = 204 with its 4; bit for bit the plain
+    version on integer tables, as at the narrower widths."""
+    rng = np.random.default_rng(side * 1000 + d)
+    f_b, f_a = tables(rng, side, side, side, side, d, dtype, integer=True,
+                      device=dev)
+    py, px = field(rng, side, side, side, side, dev)
+    offs = offsets(rng, 2, n_random, side, side, side, side, dev)
+    got, want = _both(f_b, f_a, py, px, offs, side, side, coh)
     for g, x in zip(got, want):
         assert torch.equal(g, x)
 
