@@ -18,6 +18,8 @@
 
     python3 chip_smoke.py --phases multi   # K1 banded, sharded-A, spatial
 
+    python3 chip_smoke.py --phases k5   # K5's candidate tables only
+
 Builds the port's CUDA kernels from `image_analogies_tpu_torch/kernels/
 csrc/`, holds each kernel against its plain PyTorch version at the main
 path's shapes (K1 in float32 and int8 mode, on a seeded case and on the
@@ -25,7 +27,10 @@ tables and state of the headline's first level-0 sweep; K2 on float32
 and bfloat16 rows, at 65,536^2 x 68 and at a ragged 10,007 x 9,001 x
 150; K3 on bf16 and int8 tables; K4, one cascade sweep, at the 64^2
 per-pixel level's float32 rows and the 1024^2 polish's bf16 rows, with
-its launches a headline run), drives the main paths through
+its launches a headline run; K5, every frame's candidate tables for one
+sweep, at the headline's level-0 geometry for one frame and for config
+5's four, bit for bit, timed beside the eager tables it replaced),
+drives the main paths through
 `create_image_analogy` (the 1024^2 super-resolution headline with
 PatchMatch; the same headline with compressed candidates, int8 + PCA
 prune 16:8, and the streamed, sequential and jump polish engines; and
@@ -100,7 +105,7 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
-PHASES = ("k1", "k2", "k3", "k4", "k1i8", "headline", "compressed",
+PHASES = ("k1", "k2", "k3", "k4", "k5", "k1i8", "headline", "compressed",
           "config1", "quality", "profile", "lean", "batch", "video", "cli",
           "telemetry", "serve", "fleet", "multi", "serve_multi")
 HEADLINE = dict(levels=5, matcher="patchmatch", em_iters=2, pm_iters=6,
@@ -579,6 +584,80 @@ def phase_k4(dev, rng, l2_rate=None):
     return rec
 
 
+def host_us(fn, reps: int = 200) -> float:
+    """Median microseconds of the host's issue of `fn` (no sync inside
+    the reading; the queue is drained between readings)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * statistics.median(times)
+
+
+def k5_case(dev, n_f, size=1024, coarse=False):
+    """K5 on one sweep's tables for `n_f` frames of the headline's
+    level-0 geometry (1024^2, 144 tiles of 64 x 124, C = 4): bit-equal
+    to the plain builder, then timed on the device and on the host
+    beside the eager builder and its bound."""
+    from image_analogies_tpu_torch.config import SynthConfig
+    from image_analogies_tpu_torch.kernels import cand_tables as ct
+    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+
+    specs = pt.channel_specs(1, 1, SynthConfig(), True)
+    geom = pt.tile_geometry(size, size, specs)
+    gens = []
+    for i in range(n_f):
+        g = torch.Generator(device=dev)
+        g.manual_seed(19 + i)
+        gens.append(g)
+    draws = ct.draw_frames(gens, geom, size, size, coarse)
+    q = torch.arange(size, device=dev)
+    oy, ox = (torch.stack([pt.to_compact(
+        (torch.randint(0, size, (size, size), generator=gens[0], device=dev)
+         - (q[:, None] if axis == 0 else q[None, :])).int(), geom)
+        for _ in range(n_f)]) for axis in (0, 1))
+    args = (oy, ox, draws, geom, size, size)
+    got = ct.candidate_tables_kernel(*args)
+    want = ct.candidate_tables_plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError(f"K5 F = {n_f} differs from the plain builder")
+    tiles = n_f * geom.n_ty * geom.n_tx
+    # Compulsory bytes: the tables written, the draws and the state
+    # samples read once (own samples, and the coarse restarts' reads).
+    nbytes = (3 * tiles * pt.K_TOTAL * 4 + sum(
+        x.numel() * x.element_size() for x in draws if x is not None)
+        + tiles * (pt.K_OWN + (pt.K_GLOBAL if coarse else 0)) * 2 * 4)
+    return {
+        "frames": n_f, "size": size, "tiles": tiles, "coarse": coarse,
+        "valid_share": float(want[2].float().mean()),
+        "ms": cuda_ms(lambda: ct.candidate_tables_kernel(*args), reps=50),
+        "plain_ms": cuda_ms(lambda: ct.candidate_tables_plain(*args),
+                            reps=10),
+        "host_us": host_us(lambda: ct.candidate_tables_kernel(*args)),
+        "plain_host_us": host_us(lambda: ct.candidate_tables_plain(*args),
+                                 reps=50),
+        "bytes": nbytes, "bound_ms": bound_ms(0.0, nbytes),
+        "bound_by": "bytes",
+        # The floor of any one launch: a kernel that does nothing.
+        "launch_ms": cuda_ms(lambda: torch.cuda._sleep(0), reps=50),
+    }
+
+
+def phase_k5(dev):
+    """K5 at the shapes the main path gives it: the headline's level-0
+    sweep (one frame) and config 5's (four frames a launch), uniform
+    restarts, and the coarse mode's field reads at one frame."""
+    rec = {"phase": "k5", "f1": k5_case(dev, 1), "f4": k5_case(dev, 4),
+           "f1_coarse": k5_case(dev, 1, coarse=True)}
+    emit(rec)
+    return rec
+
+
 def k2_case(dev, rng, n_b, n_a, d, library_chunk=8192):
     """K2 against its plain version on seeded (n_b, d) / (n_a, d) tables,
     float32 rows (three TF32 passes; the plain version repeats them) and
@@ -705,6 +784,7 @@ def check_output(out, shape, what):
 def phase_headline(dev):
     from image_analogies_tpu_torch.config import SynthConfig
     from image_analogies_tpu_torch.kernels import (
+        cand_tables,
         nn_brute,
         patchmatch_tile,
         pixel_cascade,
@@ -719,20 +799,25 @@ def phase_headline(dev):
     tile_levels = sum(1 for lv in range(cfg.levels) if (1024 >> lv) >= 128)
     k4_want = ((cfg.levels - tile_levels) * cfg.em_iters * cfg.pm_iters
                + tile_levels * cfg.pm_polish_iters)
-    walls, counts, k4_counts = [], [], []
+    walls, counts, k4_counts, k5_counts = [], [], [], []
     out = None
     for _ in range(3):
         patchmatch_tile.launches.reset()
         nn_brute.launches.reset()
         pixel_cascade.launches.reset()
+        cand_tables.launches.reset()
         out, wall = run_synth(ex, cfg)
         counts.append(patchmatch_tile.launches.count)
         k4_counts.append(pixel_cascade.launches.count)
+        k5_counts.append(cand_tables.launches.count)
         walls.append(wall)
         if patchmatch_tile.launches.count != 48:
             raise AssertionError(
                 f"K1 launched {patchmatch_tile.launches.count} times, not 48"
             )
+        if cand_tables.launches.count != 48:
+            raise AssertionError(
+                f"K5 launched {cand_tables.launches.count} times, not 48")
         if pixel_cascade.launches.count != k4_want:
             raise AssertionError(
                 f"K4 launched {pixel_cascade.launches.count} times, not "
@@ -741,7 +826,7 @@ def phase_headline(dev):
     rec = {"phase": "headline", "size": 1024, "levels": 5,
            "wall_s_median": statistics.median(walls), "walls_s": walls,
            "k1_launches_per_run": counts, "k4_launches_per_run": k4_counts,
-           "bp_std": std}
+           "k5_launches_per_run": k5_counts, "bp_std": std}
     emit(rec)
     return rec, counts[-1]
 
@@ -4940,14 +5025,16 @@ def main(argv=None) -> int:
     k2 = run("k2", phase_k2, dev, rng) if "k2" in phases else {}
     k3 = run("k3", phase_k3, dev, rng) if "k3" in phases else {}
     k4 = run("k4", phase_k4, dev, rng, l2_rate) if "k4" in phases else {}
+    k5 = run("k5", phase_k5, dev) if "k5" in phases else {}
     k1i8 = run("k1i8", phase_k1i8, dev, case, real, l2_rate) \
         if "k1i8" in phases else {}
     # Launch counts come from the main-path phases; null when not run.
     k1_launches = k2_launches = k1i8_launches = k3_launches = None
-    k4_launches = None
+    k4_launches = k5_launches = None
     if "headline" in phases:
         head, k1_launches = run("headline", phase_headline, dev)
         k4_launches = head["k4_launches_per_run"][-1]
+        k5_launches = head["k5_launches_per_run"][-1]
     if "compressed" in phases:
         comp = run("compressed", phase_compressed, dev)
         k1i8_launches = comp["k1_int8_launches_per_run"]
@@ -5035,6 +5122,21 @@ def main(argv=None) -> int:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
+        })
+    # K5 at the headline's level-0 sweep, one frame and four, beside the
+    # headline's launches.  It replaces no TPU kernel: XLA fused the JAX
+    # package's table glue.
+    for name, shape in (("cand_tables", "f1"),
+                        ("cand_tables_frames", "f4")) if k5 else ():
+        t = k5[shape]
+        kernels_line.append({
+            "name": name, "route": "cuda",
+            "source": "image_analogies_tpu_torch/kernels/csrc/"
+                      "cand_tables.cu",
+            "replaces": None, "launches": k5_launches, "max_abs_err": 0.0,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
         })
     if lean:
         # The lean path's rows: each kernel timed and checked on a launch

@@ -9,8 +9,8 @@ same semantics.  Which one runs is decided by the tensor's device alone:
 
 `SynthConfig.pallas_mode` keeps its three values but chooses the
 ALGORITHM, not the device (see `tile_path` below and config.py); only the
-explicit "interpret" asks for K1's, K3's and K4's plain versions on a
-CUDA tensor.  K4 (`pixel_cascade`) also needs the cascade's default
+explicit "interpret" asks for K1's, K3's, K4's and K5's plain versions
+on a CUDA tensor.  K4 (`pixel_cascade`) also needs the cascade's default
 table distance: a caller that brings its own keeps the plain version
 (`pixel_cascade.sweep_engine`).
 
@@ -63,6 +63,9 @@ SOURCES: Dict[str, Dict[str, list]] = {
     "pixel_cascade": {
         "ia_pixel_cascade": [_P] * 2 + [_I] * 8 + [_P] * 4 + [_I, _F]
         + [_P] * 5,
+    },
+    "cand_tables": {
+        "ia_cand_tables": [_P] * 7 + [_I] * 7 + [_P] * 4,
     },
 }
 

@@ -526,7 +526,9 @@ def sample_candidates_blocked(off_y, off_x, draws: CandidateDraws,
                               geom: TileGeometry, ha: int, wa: int):
     """Per-tile candidate tables from the compact state planes: own-tile
     samples at the jittered subgrid, then `_candidate_tables`; the
-    restart slots come from the field when the draws carry `restart`."""
+    restart slots come from the field when the draws carry `restart`.
+    The plain version of K5 (kernels/cand_tables.py), which builds the
+    same tables for every frame of a sweep in one launch on the card."""
     th, tw, n_ty, n_tx = geom.tile_h, geom.tile_w, geom.n_ty, geom.n_tx
     uy, ux = _subgrid(draws.jitter.to(off_y.device), geom)
 

@@ -637,9 +637,12 @@ def tile_patchmatch_lean(
     `py` / `px` (F, H, W), on `raw`'s B images and on the B side of
     `prune_tabs`, and `draws` a sequence of F `SweepDraws`, each frame
     is staged with its own draws and every sweep is one K1 launch over
-    all F frames (A is shared); the merge, the polish and the kappa pass
-    run frame by frame.  The result carries the axis.  Frame i's result
+    all F frames (A is shared), its candidate tables one K5 launch
+    (kernels/cand_tables.py; the `sweep` span's `tables` says "k5" or
+    "eager"); the merge, the polish and the kappa pass run frame by
+    frame.  The result carries the axis.  Frame i's result
     is the single-frame call's on frame i's inputs."""
+    from ..kernels import cand_tables as ct
     from ..kernels import patchmatch_tile as pt
 
     if py.ndim == 2:
@@ -715,24 +718,24 @@ def tile_patchmatch_lean(
         d = torch.full(oy.shape, float("inf"), dtype=torch.float32, device=dev)
     with scope("tlm_sweep", "sweep") as sp:
         if isinstance(sp, Span):
-            sp.set(**pt.sweep_attrs(specs, geom))
+            sp.set(**pt.sweep_attrs(specs, geom),
+                   tables=ct.tables_engine(oy, plain=plain))
         for t in range(pm_iters):
-            tables = []
-            for i in range(n_f):
-                cand_y, cand_x, cand_valid = pt.sample_candidates_blocked(
-                    oy[i], ox[i],
-                    pt.draw_candidates(draws[i].gen(t, dev), geom, ha, wa,
-                                       coarse_restarts),
-                    geom, ha, wa,
-                )
-                if prune_states[i] is not None:
-                    proj_b_tiles, qy_s, qx_s, proj_a, m_keep = prune_states[i]
-                    cand_valid = pt.prune_candidates(
-                        cand_y, cand_x, cand_valid, proj_b_tiles, qy_s, qx_s,
-                        proj_a, ha, wa, m_keep,
-                    )
-                tables.append((cand_y, cand_x, cand_valid))
-            cand_y, cand_x, cand_valid = (torch.stack(c) for c in zip(*tables))
+            # Every frame's tables in one launch of K5 on the card.
+            cand_y, cand_x, cand_valid = ct.candidate_tables(
+                oy, ox,
+                ct.draw_frames([dr.gen(t, dev) for dr in draws], geom, ha,
+                               wa, coarse_restarts),
+                geom, ha, wa, plain=plain,
+            )
+            if prune is not None:
+                cand_valid = torch.stack([
+                    pt.prune_candidates(cand_y[i], cand_x[i], cand_valid[i],
+                                        b_tiles, qy_s, qx_s, proj_a, ha, wa,
+                                        m_keep)
+                    for i, (b_tiles, qy_s, qx_s, proj_a, m_keep)
+                    in enumerate(prune_states)
+                ])
             for planes, band in zip(a_bands, bounds):
                 oy, ox, d = pt.tile_sweep(
                     planes, b_planes, cand_y, cand_x, cand_valid, oy, ox, d,

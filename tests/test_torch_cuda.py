@@ -5,8 +5,11 @@ channel sets, a wider window, kappa > 1, tied and tiny tables; K1's
 int8 mode and both its instantiations (compile-time and run-time
 windows), its frame axis against single-frame launches (bit for bit) and
 the batch runner's frames against their solo runs; K2's float32 (three
-TF32 passes) and bfloat16 rows at widths 8 to 256; and K3's row gather
-in three dtypes.
+TF32 passes) and bfloat16 rows at widths 8 to 256; K3's row gather
+in three dtypes; and K5's candidate tables against the plain builder
+bit for bit at the benchmark's geometries, in a super-resolution run
+(the same B' as the plain tables, one launch per K1 launch) and with
+no host sync or copy in the sweep phase.
 
 Needs an NVIDIA GPU, nvcc and no JAX; skipped elsewhere.  On the card:
 
@@ -14,11 +17,15 @@ Needs an NVIDIA GPU, nvcc and no JAX; skipped elsewhere.  On the card:
         tests/test_torch_cuda.py
 """
 
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from image_analogies_tpu_torch.config import SynthConfig
+from image_analogies_tpu_torch.kernels import cand_tables as ct
 from image_analogies_tpu_torch.kernels import nn_brute as nb
 from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
 from image_analogies_tpu_torch.kernels import polish_stream as ps
@@ -657,3 +664,141 @@ def test_traced_run_times_every_span_on_the_device(dev, monkeypatch):
     assert tracer.find("sweep") and tracer.find("pixel") and tracer.find(
         "polish")
     assert all(sp.device_ms > 0 for sp in tracer.find("polish"))
+
+
+# ------------------------------------------------------------------ K5
+
+SUPERRES = json.loads(
+    (Path(__file__).resolve().parents[1] / "portbench" / "configs"
+     / "superres.json").read_text())["synth"]
+
+
+@pytest.mark.parametrize("coarse", [False, True])
+@pytest.mark.parametrize("n_f", [1, 4])
+@pytest.mark.parametrize("n_src", [1, 5])
+@pytest.mark.parametrize("h,w,ha,wa", [
+    (1024, 1024, 1024, 1024), (512, 512, 512, 512), (256, 256, 256, 256),
+    (128, 128, 128, 128), (300, 500, 260, 380),
+])
+def test_cand_tables_kernel_equals_plain(dev, h, w, ha, wa, n_src, n_f,
+                                         coarse):
+    """K5 against the plain builder bit for bit, on the benchmark's
+    geometries (4 channels at halo 2; the steerable 12), one frame and
+    four, uniform and coarse restarts; the frames' stacked draws are the
+    ones each frame's generator gives alone."""
+    specs = pt.channel_specs(n_src, 1, SynthConfig(steerable=n_src == 5),
+                             True)
+    geom = pt.tile_geometry(h, w, specs)
+
+    def gens():
+        out = []
+        for i in range(n_f):
+            g = torch.Generator(device=dev)
+            g.manual_seed(h * 31 + w + 7 * i)
+            out.append(g)
+        return out
+
+    draws = ct.draw_frames(gens(), geom, ha, wa, coarse)
+    for i, g in enumerate(gens()):
+        one = pt.draw_candidates(g, geom, ha, wa, coarse)
+        for x, y in zip(ct.frame_draws(draws, i), one):
+            assert (x is None and y is None) or torch.equal(x, y)
+    g = torch.Generator(device=dev)
+    g.manual_seed(n_f + 3)
+    qy = torch.arange(h, device=dev)[:, None]
+    qx = torch.arange(w, device=dev)[None, :]
+    oy = torch.stack([pt.to_compact(
+        (torch.randint(0, ha, (h, w), generator=g, device=dev) - qy).int(),
+        geom) for _ in range(n_f)])
+    ox = torch.stack([pt.to_compact(
+        (torch.randint(0, wa, (h, w), generator=g, device=dev) - qx).int(),
+        geom) for _ in range(n_f)])
+    before = ct.launches.count
+    got = ct.candidate_tables(oy, ox, draws, geom, ha, wa)
+    assert ct.launches.count == before + 1
+    want = ct.candidate_tables_plain(oy, ox, draws, geom, ha, wa)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert x.dtype == torch.int32 and torch.equal(x, y)
+    assert 0 < int(want[2].sum()) < want[2].numel()
+
+
+def test_cand_tables_kernel_rejects_bad_input(dev):
+    specs = pt.channel_specs(1, 1, SynthConfig(), True)
+    geom = pt.tile_geometry(128, 128, specs)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    draws = ct.draw_frames([g], geom, 128, 128)
+    oy = torch.zeros(1, 128, 248, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        ct.candidate_tables_kernel(oy.long(), oy, draws, geom, 128, 128)
+    with pytest.raises(ValueError, match="shape"):
+        ct.candidate_tables_kernel(oy[:, :64], oy[:, :64], draws, geom, 128,
+                                   128)
+    with pytest.raises(ValueError, match="jitter"):
+        ct.candidate_tables_kernel(
+            oy, oy, draws._replace(jitter=draws.jitter.int()), geom, 128,
+            128)
+
+
+def _superres_256():
+    from image_analogies_tpu_torch.utils.examples import super_resolution
+
+    return (torch.as_tensor(x, device="cuda") for x in super_resolution(256))
+
+
+def test_superres_run_with_k5_equals_the_plain_tables(dev, monkeypatch):
+    """The super-resolution configuration at 256^2: K5 launches once for
+    each K1 launch, every `sweep` span says "k5", and B' is bit for bit
+    the run's with the plain builder forced in."""
+    from image_analogies_tpu_torch import create_image_analogy
+    from image_analogies_tpu_torch.telemetry import Tracer
+
+    a, ap, b = _superres_256()
+    cfg = SynthConfig(**SUPERRES)
+    create_image_analogy(a, ap, b, cfg)  # builds and warms
+    for counter in (pt.launches, pt.launches_banded, ct.launches):
+        counter.reset()
+    tracer = Tracer()
+    got = create_image_analogy(a, ap, b, cfg, progress=tracer)
+    # Tile levels 256^2 and 128^2, each em_iters x pm_iters sweeps.
+    assert ct.launches.count == pt.launches.count == 2 * cfg.em_iters \
+        * cfg.pm_iters
+    assert pt.launches_banded.count == 0
+    sweeps = tracer.find("sweep")
+    assert sweeps and all(s.attrs["tables"] == "k5" for s in sweeps)
+    monkeypatch.setattr(ct, "tables_engine", lambda off_y, *, plain: "eager")
+    want = create_image_analogy(a, ap, b, cfg)
+    assert ct.launches.count == 2 * cfg.em_iters * cfg.pm_iters
+    assert torch.equal(got, want)
+
+
+def test_sweep_phase_neither_syncs_nor_copies_on_the_host(dev):
+    """Under `torch.profiler`, no host-side CUDA sync and no memcpy is
+    issued inside any `tlm_sweep` range of a super-resolution run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_analogies_tpu_torch import create_image_analogy
+
+    a, ap, b = _superres_256()
+    cfg = SynthConfig(**SUPERRES)
+    create_image_analogy(a, ap, b, cfg)  # builds and warms
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        create_image_analogy(a, ap, b, cfg)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CPU]
+    sweeps = [(e.time_range.start, e.time_range.end) for e in events
+              if e.name == "tlm_sweep"]
+    assert len(sweeps) == 2 * cfg.em_iters
+    launches = [e for e in events if e.name == "cudaLaunchKernel"]
+    assert launches
+
+    def inside(e):
+        return any(t0 <= e.time_range.start and e.time_range.end <= t1
+                   for t0, t1 in sweeps)
+
+    assert any(inside(e) for e in launches)
+    bad = sorted({e.name for e in events if inside(e) and (
+        "Synchronize" in e.name or e.name.startswith("cudaMemcpy"))})
+    assert bad == []
