@@ -213,16 +213,14 @@ def Modes(cand_dtype, prune, polish):
     """Sets the port's compressed-candidate and polish modes inside a
     `with`, and restores the ones it found in a `finally` (a failure
     inside still propagates)."""
-    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
-    from image_analogies_tpu_torch.models import patchmatch as pm
+    from image_analogies_tpu_torch.config import set_engine_modes
 
-    saved = (pt._CAND_DTYPE, pt._CAND_PRUNE, pm._POLISH_MODE)
+    saved = set_engine_modes(cand_dtype=cand_dtype, prune=prune,
+                             polish=polish)
     try:
-        pt.set_cand_compression(cand_dtype, prune)
-        pm.set_polish_mode(polish)
         yield
     finally:
-        pt._CAND_DTYPE, pt._CAND_PRUNE, pm._POLISH_MODE = saved
+        set_engine_modes(saved)
 
 
 def k1_case(dev, rng, size=1024):

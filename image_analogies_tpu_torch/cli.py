@@ -269,15 +269,17 @@ def _emit_health(tracer, trace_dir, context: str) -> None:
 
 
 def _apply_cand_compression(args) -> None:
-    """Install --cand-dtype / --pca-prune process-wide (module switches,
+    """Install --cand-dtype / --pca-prune process-wide (engine modes,
     not config fields); a malformed prune spec fails before the images
     load."""
-    if args.cand_dtype is None and args.pca_prune is None:
+    given = {k: v for k, v in (("cand_dtype", args.cand_dtype),
+                               ("prune", args.pca_prune)) if v is not None}
+    if not given:
         return
-    from .kernels.patchmatch_tile import set_cand_compression
+    from .config import set_engine_modes
 
     try:
-        set_cand_compression(args.cand_dtype, args.pca_prune)
+        set_engine_modes(**given)
     except ValueError as e:
         raise SystemExit(f"--cand-dtype/--pca-prune: {e}")
 

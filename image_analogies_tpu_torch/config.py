@@ -12,11 +12,16 @@ ALGORITHM rather than the device:
                  kernel's plain PyTorch version;
   - "interpret": the tile path with the plain version on either device
                  (explicit, for tests and the chip smoke check).
+
+`EngineModes` holds the matcher's four process-wide engine modes, which
+are not config fields; `engine_modes()` reads them and
+`set_engine_modes` installs them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 
@@ -99,3 +104,73 @@ class SynthConfig:
         while n < self.levels and (side >> n) >= self.min_size:
             n += 1
         return n
+
+
+# The polish engines `EngineModes.polish` may name (models/patchmatch.py).
+_POLISH_MODES = ("sequential", "jump", "stream")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineModes:
+    """The process-wide modes that choose the matcher's engines.  As in
+    the reference, where they are module globals with environment
+    overrides and setters, they are not config fields; every dispatch
+    runs under them, so the serving tier keys its executables on them
+    (serving/excache.compression_mode) and ships them to its follower
+    ranks (serving/ranks.py).
+
+      - `cand_dtype` (IA_CAND_DTYPE): "bf16", the uncompressed candidate
+        tables (float32 sweep planes, bf16 polish rows), or "int8", both
+        quantized (kernels/patchmatch_tile.py);
+      - `prune` (IA_CAND_PRUNE): "off" or a "K:M" PCA pre-prune spec
+        (`patchmatch_tile.parse_prune`);
+      - `restart` (IA_RESTART_MODE): the K1 restart slots, "uniform" over
+        A or "coarse", drawn from the evolving field;
+      - `polish` (IA_POLISH_MODE): "sequential", "stream" or "jump"
+        (models/patchmatch.py)."""
+
+    cand_dtype: str = "bf16"
+    prune: object = "off"
+    restart: str = "uniform"
+    polish: str = "sequential"
+
+
+# Read once, unvalidated: a bad IA_CAND_DTYPE or IA_CAND_PRUNE raises
+# where the matcher first resolves it, and IA_POLISH_MODE is not checked.
+_ENGINE_MODES = EngineModes(
+    cand_dtype=os.environ.get("IA_CAND_DTYPE", EngineModes.cand_dtype),
+    prune=os.environ.get("IA_CAND_PRUNE", EngineModes.prune),
+    restart=os.environ.get("IA_RESTART_MODE", EngineModes.restart),
+    polish=os.environ.get("IA_POLISH_MODE", EngineModes.polish),
+)
+
+
+def engine_modes() -> EngineModes:
+    """The engine modes the process runs under."""
+    return _ENGINE_MODES
+
+
+def set_engine_modes(modes: Optional[EngineModes] = None, /,
+                     **changes) -> EngineModes:
+    """Install `modes` (default: the current record) with `changes`
+    applied, process-wide, and return the record it replaces, so that
+    `set_engine_modes(prev)` restores it.  Each changed field is checked
+    before anything is installed, as the reference's setters check it:
+    `cand_dtype` by `resolve_cand_dtype`, `prune` by `parse_prune`,
+    `polish` against its names; `restart` and a whole record go in as
+    given.  (The reference's setters also drop its compiled level
+    graphs; the port compiles none.)"""
+    global _ENGINE_MODES
+    from .kernels.patchmatch_tile import parse_prune, resolve_cand_dtype
+
+    new = dataclasses.replace(
+        _ENGINE_MODES if modes is None else modes, **changes)
+    if "cand_dtype" in changes:
+        resolve_cand_dtype(new.cand_dtype)
+    if "prune" in changes:
+        parse_prune(new.prune)
+    if "polish" in changes and new.polish not in _POLISH_MODES:
+        raise ValueError(
+            f"polish mode {new.polish!r} names none of {_POLISH_MODES}")
+    prev, _ENGINE_MODES = _ENGINE_MODES, new
+    return prev

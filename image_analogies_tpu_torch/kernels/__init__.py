@@ -12,7 +12,7 @@ ALGORITHM, not the device (see `tile_path` below and config.py); only the
 explicit "interpret" asks for K1's, K3's, K4's and K5's plain versions
 on a CUDA tensor.  K4 (`pixel_cascade`) also needs the cascade's default
 table distance: a caller that brings its own keeps the plain version
-(`pixel_cascade.sweep_engine`).
+(`pixel_cascade.cascade_sweeps`).
 
 The CUDA sources (`csrc/*.cu`, plain C entry points) are compiled with
 `nvcc -gencode arch=compute_90a,code=sm_90a` at first use, one `nvcc`

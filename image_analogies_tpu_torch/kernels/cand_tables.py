@@ -14,9 +14,9 @@ under `jit`, where XLA fuses them; no TPU kernel is replaced.
     (integer arithmetic only);
   - `candidate_tables_plain`: `sample_candidates_blocked` frame by
     frame, stacked;
-  - `candidate_tables`: the dispatch (`tables_engine`): the kernel on
-    CUDA state planes unless `plain` (pallas_mode="interpret"), the
-    plain version otherwise;
+  - `candidate_tables`: the dispatch: the kernel on CUDA state planes
+    unless `plain` (pallas_mode="interpret"), the plain version
+    otherwise;
   - `draw_frames`: the frames' `draw_candidates`, each from its own
     generator as before, stacked along the frame axis.
 """
@@ -33,12 +33,6 @@ from . import patchmatch_tile as pt
 from .patchmatch_tile import CandidateDraws, TileGeometry
 
 launches = LaunchCounter("cand_tables")
-
-
-def tables_engine(off_y: torch.Tensor, *, plain: bool) -> str:
-    """"k5" where the tables of state planes `off_y` come from the
-    kernel: CUDA planes and not `plain`; else "eager"."""
-    return "k5" if on_cuda(off_y) and not plain else "eager"
 
 
 def draw_frames(gens: Sequence[torch.Generator], geom: TileGeometry,
@@ -118,8 +112,8 @@ def candidate_tables_kernel(off_y, off_x, draws: CandidateDraws,
 def candidate_tables(off_y, off_x, draws: CandidateDraws,
                      geom: TileGeometry, ha: int, wa: int, *,
                      plain: bool = False):
-    """One sweep's candidate tables for all frames: the kernel where
-    `tables_engine` says "k5", the plain version otherwise."""
-    if tables_engine(off_y, plain=plain) == "k5":
+    """One sweep's candidate tables for all frames: the kernel on CUDA
+    state planes unless `plain`, the plain version otherwise."""
+    if on_cuda(off_y) and not plain:
         return candidate_tables_kernel(off_y, off_x, draws, geom, ha, wa)
     return candidate_tables_plain(off_y, off_x, draws, geom, ha, wa)

@@ -28,15 +28,15 @@ padding.
 Randomness.  The sampler takes its draws as an argument
 (`CandidateDraws`); `draw_candidates` makes them from a torch.Generator.
 
-Compressed candidates (module globals with the reference's env
-overrides and setters, resolved once per matcher call):
-  - `_CAND_DTYPE` "int8" stores the A planes on the static [0, 1]
+Compressed candidates (process-wide modes, `config.engine_modes()`,
+read once per matcher call):
+  - `cand_dtype` "int8" stores the A planes on the static [0, 1]
     affine grid q = round(x * 254 - 127) and the sweep dequantizes
     (q + 127) / 254 next to its distance math;
-  - `_CAND_PRUNE` "K:M" ranks each tile's 36 shared candidates by a
+  - `prune` "K:M" ranks each tile's 36 shared candidates by a
     K-dim PCA distance at 4 sample pixels and keeps the top M valid
     (`prune_candidates`); the mask rides `cand_valid`;
-  - `_RESTART_MODE` "coarse" draws the restart slots from the evolving
+  - `restart` "coarse" draws the restart slots from the evolving
     field at random other positions (`_field_restarts`).
 
   - `tile_sweep_kernel`: the CUDA kernel (`csrc/tile_sweep.cu`), replacing
@@ -59,14 +59,13 @@ from __future__ import annotations
 
 import functools
 import math
-import os
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import SynthConfig
+from ..config import SynthConfig, engine_modes
 from ..telemetry.metrics import (
     count_candidate_dma_bytes,
     count_candidate_dma_fetches,
@@ -107,15 +106,11 @@ launches_int8 = LaunchCounter("tile_sweep_int8")
 launches_banded = LaunchCounter("tile_sweep_banded")
 
 # ---------------------------------------------------------------------------
-# Mode selection.  The reference's setters also drop its compiled level
-# graphs, which resolved the modes at trace time; the port compiles no
-# graphs, so its setters only validate and assign (the per-shape caches
-# the serving tier drops are `clear_first_use_caches`'s).
+# Mode selection (the modes themselves: config.EngineModes).
 
 # "bf16" is the uncompressed representation (float32 sweep planes, bf16
 # polish rows); "int8" quantizes both candidate tables.
 _CAND_DTYPES = ("bf16", "int8")
-_CAND_DTYPE = os.environ.get("IA_CAND_DTYPE", "bf16")
 
 # int8 A-plane affine grid: the planes are images in [0, 1].
 _Q_SCALE = 254.0
@@ -123,9 +118,10 @@ _Q_ZERO = 127.0
 
 
 def resolve_cand_dtype(cand_dtype: Optional[str] = None) -> str:
-    """The candidate-table mode: an explicit value wins, else the module
-    default; raises on a name outside `_CAND_DTYPES`."""
-    dt = _CAND_DTYPE if cand_dtype is None else cand_dtype
+    """The candidate-table mode: an explicit value wins, else the
+    process's (`engine_modes()`); raises on a name outside
+    `_CAND_DTYPES`."""
+    dt = engine_modes().cand_dtype if cand_dtype is None else cand_dtype
     if dt not in _CAND_DTYPES:
         raise ValueError(f"cand_dtype {dt!r} names none of {_CAND_DTYPES}")
     return dt
@@ -151,31 +147,6 @@ def parse_prune(spec) -> Optional[Tuple[int, int]]:
     if not 1 <= m <= K_TOTAL:
         raise ValueError(f"pca-prune M={m} outside [1, {K_TOTAL}]")
     return int(k), int(m)
-
-
-_CAND_PRUNE = os.environ.get("IA_CAND_PRUNE", "off")
-
-
-def resolve_prune(prune=None) -> Optional[Tuple[int, int]]:
-    """The PCA prune: an explicit spec wins, else the module default."""
-    return parse_prune(_CAND_PRUNE if prune is None else prune)
-
-
-def set_cand_compression(cand_dtype: Optional[str] = None,
-                         prune=None) -> None:
-    """Install a compressed-candidate mode process-wide; validates before
-    assigning.  None leaves a knob untouched."""
-    global _CAND_DTYPE, _CAND_PRUNE
-    if cand_dtype is not None:
-        _CAND_DTYPE = resolve_cand_dtype(cand_dtype)
-    if prune is not None:
-        parse_prune(prune)
-        _CAND_PRUNE = prune
-
-
-# Restart slots: "uniform" over A (the default), or "coarse", read from
-# the evolving field (`_field_restarts`).
-_RESTART_MODE = os.environ.get("IA_RESTART_MODE", "uniform")
 
 
 class ChannelSpec(NamedTuple):

@@ -1,13 +1,13 @@
 """K4: one sweep of the per-pixel PatchMatch cascade in one launch.
 
-A sweep of the cascade (`models/patchmatch.py` `patchmatch_sweeps_lean`)
-tries 4 propagation candidates, the 4 unshifted neighbour matches and
-`n_random` random offsets, one after another, each accepted by the same
-rule.  Run eagerly, a candidate is ~22 launches (rolls, clamps, the index
-arithmetic, a gather, the distance, the compares and three `where`s), so
-the 64^2 level and every tile level's sequential polish were set by the
-host's issue of them.  The JAX package runs the same cascade under
-`jit`, where XLA fuses it; no TPU kernel is replaced.
+A sweep of the cascade tries 4 propagation candidates, the 4 unshifted
+neighbour matches and `n_random` random offsets, one after another, each
+accepted by the same rule.  Run eagerly, a candidate is ~22 launches
+(rolls, clamps, the index arithmetic, a gather, the distance, the
+compares and three `where`s), so the 64^2 level and every tile level's
+sequential polish were set by the host's issue of them.  The JAX package
+runs the same cascade under `jit` (its `patchmatch_sweeps_lean`), where
+XLA fuses it; no TPU kernel is replaced.
 
   - `cascade_sweep_kernel`: the CUDA kernel (`csrc/pixel_cascade.cu`),
     on float32 or bf16 (N, D) tables of CUDA tensors.  It computes the
@@ -17,30 +17,30 @@ host's issue of them.  The JAX package runs the same cascade under
     (integer-valued tables), and the same bits on every run.
   - `cascade_sweep_plain`: the cascade's eager loop body, on any
     `dist_fn`.
-  - `sweep_engine`: the dispatch rule the cascade's callers share.
+  - `cascade_sweeps`: the entry point the matcher calls, a sweep per
+    offset tensor, which picks one of the two.
 
 The kernel launches only where the default distance is asked for on a
 CUDA table and the call is not `plain` (`pallas_mode="interpret"`).
 Every other cascade keeps the plain version: the temporal term, the
 "stream" polish through K3 and the int8 polish's dequantizing fetch (a
-`gather`), the sharded runners' own `dist_fn`, and every CPU tensor.  An
-eager sweep on CUDA tensors is counted with its reason
-(`ia_eager_sweeps_total{reason}`).  So on the card bf16 "sequential"
-(this kernel) and "stream" (K3 and the plain cascade) polishes agree
-within float32 rounding of each distance, no longer bit for bit; on the
-CPU and under "interpret" both are the plain cascade and stay bit-equal.
-Under int8 candidates both polishes fetch through the dequantizing
-gather, so both keep the plain cascade and stay bit-equal on the card
-too (`chip_smoke.py`'s compressed phase holds them so).
+`gather`), the sharded runners' own `dist_fn`, and every CPU tensor.
+So on the card bf16 "sequential" (this kernel) and "stream" (K3 and the
+plain cascade) polishes agree within float32 rounding of each distance,
+no longer bit for bit; on the CPU and under "interpret" both are the
+plain cascade and stay bit-equal.  Under int8 candidates both polishes
+fetch through the dequantizing gather, so both keep the plain cascade
+and stay bit-equal on the card too (`chip_smoke.py`'s compressed phase
+holds them so).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Iterable, Optional, Tuple
 
 import torch
 
-from ..telemetry.metrics import count_eager_sweep, count_kernel_launch
+from ..telemetry.metrics import count_kernel_launch
 from . import LaunchCounter, check, library, on_cuda, require, stream_ptr
 
 launches = LaunchCounter("pixel_cascade")
@@ -50,19 +50,6 @@ launches = LaunchCounter("pixel_cascade")
 DELTAS = ((0, -1), (0, 1), (-1, 0), (1, 0))
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def sweep_engine(tab: torch.Tensor, *, plain: bool, default_dist: bool) -> str:
-    """"k4" where a cascade over table `tab` launches the kernel: a CUDA
-    table, not `plain`, the default table distance; else "eager"."""
-    return "k4" if on_cuda(tab) and not plain and default_dist else "eager"
-
-
-def count_eager(tab: torch.Tensor, reason: str) -> None:
-    """Book one eager sweep over CUDA table `tab` by `reason` ("plain",
-    "temporal", "gather", "dist_fn"); CPU sweeps are not booked."""
-    if on_cuda(tab):
-        count_eager_sweep(reason)
 
 
 def cascade_sweep_plain(
@@ -173,3 +160,57 @@ def cascade_sweep_kernel(
     launches.add()
     count_kernel_launch("pixel_cascade")
     return py_out, px_out, dist_out
+
+
+def cascade_sweeps(
+    f_b_tab: torch.Tensor,
+    f_a_tab: torch.Tensor,
+    py: torch.Tensor,
+    px: torch.Tensor,
+    offsets: Iterable[torch.Tensor],
+    *,
+    ha: int,
+    wa: int,
+    coh_factor: float,
+    dist_fn=None,
+    plain: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One propagate + random-search sweep per entry of `offsets` (each
+    (n_random, H, W, 2), added to the current match) over (N, D) tables
+    and a (py, px) plane-pair field; returns (py, px, dist).  Random
+    candidates must satisfy d * coh_factor < d_cur; exact ties break
+    toward the lower flat index, the representative the brute oracle's
+    argmin picks.  Distances go through `dist_fn` (flat indices ->
+    distances), by default `candidate_dist_lean` on the tables.
+
+    With the default distance on CUDA tables and not `plain`, every
+    sweep is one launch of the kernel; otherwise each runs
+    `cascade_sweep_plain`."""
+    h, w = py.shape
+    if dist_fn is None and on_cuda(f_a_tab) and not plain:
+        f_b_tab, f_a_tab = f_b_tab.contiguous(), f_a_tab.contiguous()
+        py = py.long().contiguous()
+        px = px.long().contiguous()
+        dist = None
+        for off in offsets:
+            py, px, dist = cascade_sweep_kernel(
+                f_b_tab, f_a_tab, py, px, dist, off.contiguous(), ha=ha,
+                wa=wa, coh_factor=coh_factor,
+            )
+        if dist is not None:
+            return py, px, dist
+    if dist_fn is None:
+        from ..models.matcher import candidate_dist_lean
+
+        def dist_fn(idx):
+            return candidate_dist_lean(f_b_tab, f_a_tab, idx)
+
+    py = py.long().clamp(0, ha - 1)
+    px = px.long().clamp(0, wa - 1)
+    dist = dist_fn((py * wa + px).reshape(-1)).reshape(h, w)
+    for off in offsets:
+        py, px, dist = cascade_sweep_plain(
+            py, px, dist, off, ha=ha, wa=wa, coh_factor=coh_factor,
+            dist_fn=dist_fn,
+        )
+    return py, px, dist

@@ -868,15 +868,16 @@ def _record_level_telemetry(tracer, cfg: SynthConfig, level: int,
     `em_iter` children, or a lean tracer's declared ones) and the polish and candidate modes the level ran
     under on the level span; `ia_levels_total`, `ia_em_iters_total`,
     `ia_nnf_energy{level}` and the `ia_level_wall_ms` histogram."""
-    from . import patchmatch as _pm_mod
-    from ..kernels import patchmatch_tile as _pt_mod
+    from ..config import engine_modes
+    from ..kernels.patchmatch_tile import parse_prune
 
-    prune = _pt_mod.resolve_prune()
+    modes = engine_modes()
+    prune = parse_prune(modes.prune)
     _declare_lean_em_iters(tracer, cfg, lvl_span)
     lvl_span.set(
         em_iters=cfg.em_iters,
-        polish_mode=_pm_mod._POLISH_MODE,
-        cand_dtype=_pt_mod.resolve_cand_dtype(),
+        polish_mode=modes.polish,
+        cand_dtype=modes.cand_dtype,
         cand_prune="off" if prune is None else f"{prune[0]}:{prune[1]}",
     )
     reg = tracer.registry if tracer.registry is not None else get_registry()

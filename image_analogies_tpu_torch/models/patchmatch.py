@@ -8,17 +8,19 @@ Two paths, chosen by `SynthConfig.pallas_mode` and the level's shape:
     version) in the raw-plane metric, then a merge with the incoming
     field and a per-pixel polish under the feature metric on bf16 tables,
     the kappa coherence pass, and an exact float32 re-rank.  The polish
-    engine is the module global `_POLISH_MODE` ("sequential", "stream"
-    through kernel K3, or "jump"), and the compressed-candidate modes of
-    kernels/patchmatch_tile.py apply to the sweeps and the polish rows.
+    engine is the process-wide `config.engine_modes().polish`
+    ("sequential", "stream" through kernel K3, or "jump"), and the
+    compressed-candidate modes of kernels/patchmatch_tile.py apply to
+    the sweeps and the polish rows.
     The staging itself is `tile_patchmatch_lean`, on (N, D) bf16 tables
     and a (py, px) plane-pair field: the lean levels (models/analogy.py)
     call it directly, `tile_patchmatch` on the standard levels' casts;
   - the per-pixel path (`patchmatch_sweeps`): 4 propagation candidates,
     4 unshifted neighbour matches and `n_random` random-search candidates
-    per sweep, accepted with canonical lowest-index tie-breaking; one
-    launch of kernel K4 a sweep on CUDA tables under the default
-    distance (kernels/pixel_cascade.py), the eager cascade otherwise.
+    per sweep, accepted with canonical lowest-index tie-breaking
+    (kernels/pixel_cascade.py `cascade_sweeps`: one launch of kernel K4
+    a sweep on CUDA tables under the default distance, the eager
+    cascade otherwise).
 
 Randomness.  Functions that consume random numbers take them as
 arguments (candidate draws, sweep offsets); `SweepDraws` makes them from
@@ -30,13 +32,14 @@ two packages hands both the same draws.
 from __future__ import annotations
 
 import functools
-import os
 from typing import Iterable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..config import SynthConfig
+from ..config import EngineModes, SynthConfig, engine_modes
+from ..kernels import cand_tables as ct
+from ..kernels import patchmatch_tile as pt
 from ..kernels import pixel_cascade as pc
 from ..kernels.pixel_cascade import DELTAS
 from ..telemetry.spans import Span, scope
@@ -149,65 +152,6 @@ def sweep_offsets(gen: torch.Generator, iters: int, radii, h: int, w: int):
                                      device=gen.device)
 
 
-def patchmatch_sweeps_lean(
-    f_b_tab: torch.Tensor,
-    f_a_tab: torch.Tensor,
-    py: torch.Tensor,
-    px: torch.Tensor,
-    offsets: Iterable[torch.Tensor],
-    *,
-    ha: int,
-    wa: int,
-    coh_factor: float,
-    dist_fn=None,
-    plain: bool = False,
-    eager_reason: str = "dist_fn",
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One propagate + random-search sweep per entry of `offsets` (each
-    (n_random, H, W, 2), added to the current match) over (N, D) tables
-    and a (py, px) plane-pair field; returns (py, px, dist).  Random
-    candidates must satisfy d * coh_factor < d_cur; exact ties break
-    toward the lower flat index, the representative the brute oracle's
-    argmin picks.  Distances go through `dist_fn` (flat indices ->
-    distances), by default `candidate_dist_lean` on the tables.
-
-    Engine (`kernels/pixel_cascade.sweep_engine`): with the default
-    distance on CUDA tables and not `plain`, every sweep is one launch
-    of kernel K4; otherwise each runs `cascade_sweep_plain`, and on CUDA
-    tables is booked as eager, by "plain" or by `eager_reason`, the
-    caller's reason for its own `dist_fn` ("temporal", "gather",
-    "dist_fn")."""
-    h, w = py.shape
-    if pc.sweep_engine(f_a_tab, plain=plain,
-                       default_dist=dist_fn is None) == "k4":
-        f_b_tab, f_a_tab = f_b_tab.contiguous(), f_a_tab.contiguous()
-        py = py.long().contiguous()
-        px = px.long().contiguous()
-        dist = None
-        for off in offsets:
-            py, px, dist = pc.cascade_sweep_kernel(
-                f_b_tab, f_a_tab, py, px, dist, off.contiguous(), ha=ha,
-                wa=wa, coh_factor=coh_factor,
-            )
-        if dist is not None:
-            return py, px, dist
-    reason = "plain" if plain else eager_reason
-    if dist_fn is None:
-        def dist_fn(idx):
-            return candidate_dist_lean(f_b_tab, f_a_tab, idx)
-
-    py = py.long().clamp(0, ha - 1)
-    px = px.long().clamp(0, wa - 1)
-    dist = dist_fn((py * wa + px).reshape(-1)).reshape(h, w)
-    for off in offsets:
-        pc.count_eager(f_a_tab, reason)
-        py, px, dist = pc.cascade_sweep_plain(
-            py, px, dist, off, ha=ha, wa=wa, coh_factor=coh_factor,
-            dist_fn=dist_fn,
-        )
-    return py, px, dist
-
-
 def temporal_penalty_fn(temporal: Optional[torch.Tensor], tau: float,
                         ha: int, wa: int):
     """The temporal-coherence penalty toward the previous frame's
@@ -250,12 +194,12 @@ def patchmatch_sweeps(
     tau: float = 0.0,
     plain: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`patchmatch_sweeps_lean` on the standard path's (H, W, D) feature
-    fields and stacked (H, W, 2) field; returns (nnf, dist).  With
-    neither a `gather_fn` nor the temporal term the distance is the
-    tables' default (kernel K4 on CUDA tensors unless `plain`); else
-    `candidate_dist` (`gather_fn` swaps its row fetch: the stream and
-    int8 polish engines).  With a previous frame's (H, W, 2) field
+    """`cascade_sweeps` (kernels/pixel_cascade.py) on the standard path's
+    (H, W, D) feature fields and stacked (H, W, 2) field; returns (nnf,
+    dist).  With neither a `gather_fn` nor the temporal term the
+    distance is the tables' default (kernel K4 on CUDA tensors unless
+    `plain`); else `candidate_dist` (`gather_fn` swaps its row fetch: the
+    stream and int8 polish engines).  With a previous frame's (H, W, 2) field
     `temporal` and tau > 0, every candidate's distance, the incumbent's
     included, carries `temporal_penalty_fn`'s term, so the accept tests
     and the returned distances are in that metric."""
@@ -264,19 +208,16 @@ def patchmatch_sweeps(
     f_b_flat = f_b.reshape(-1, d)
     f_a_flat = f_a.reshape(-1, d)
     pen_fn = temporal_penalty_fn(temporal, tau, ha, wa)
-    dist_fn, reason = None, "dist_fn"
+    dist_fn = None
     if pen_fn is not None or gather_fn is not None:
-        reason = "temporal" if pen_fn is not None else "gather"
-
         def dist_fn(idx):
             dist = candidate_dist(f_b_flat, f_a_flat, idx,
                                   gather_fn=gather_fn)
             return dist if pen_fn is None else dist + pen_fn(idx)
 
-    py, px, dist = patchmatch_sweeps_lean(
+    py, px, dist = pc.cascade_sweeps(
         f_b_flat, f_a_flat, nnf[..., 0], nnf[..., 1], offsets, ha=ha,
         wa=wa, coh_factor=coh_factor, dist_fn=dist_fn, plain=plain,
-        eager_reason=reason,
     )
     return torch.stack([py, px], dim=-1), dist
 
@@ -307,28 +248,6 @@ def _polish_schedule_for(cfg: SynthConfig, ha: int, wa: int,
     if ha * wa > _PM_BOOST_AREA:
         n_random = min(n_random, _POLISH_RANDOM_LARGE)
     return iters, n_random
-
-
-# Polish engine (a module global with the reference's env override and
-# setter, not a config field): "sequential", the chained per-candidate
-# cascade (`patchmatch_sweeps_lean`; kernel K4 on bf16 CUDA tables);
-# "stream", the same cascade with its row fetches through kernel K3, run
-# eagerly; "jump", the batched jump-flooding polish
-# (`polish_sweeps_planes`).  "stream" is bit-identical to "sequential" on
-# the CPU and under "interpret"; on the card the two agree within K4's
-# float32 rounding of each distance (kernels/pixel_cascade.py).
-_POLISH_MODE = os.environ.get("IA_POLISH_MODE", "sequential")
-_POLISH_MODES = ("sequential", "jump", "stream")
-
-
-def set_polish_mode(mode: str) -> None:
-    """Install a polish engine process-wide; validates before assigning.
-    (The reference also drops its compiled level graphs here; the port
-    compiles none.)"""
-    global _POLISH_MODE
-    if mode not in _POLISH_MODES:
-        raise ValueError(f"polish mode {mode!r} names none of {_POLISH_MODES}")
-    _POLISH_MODE = mode
 
 
 # Pure-roll steps of the jump polish's canonical-tie flood per sweep.
@@ -410,7 +329,6 @@ def _prune_setup(prune, f_b_flat, f_a_flat, geom, h: int, w: int):
     rows at each tile's sample pixels."""
     if prune is None:
         return None
-    from ..kernels.patchmatch_tile import tile_sample_positions
     from ..ops.pca import pca_basis, project
 
     k_dims, m_keep = prune
@@ -419,7 +337,7 @@ def _prune_setup(prune, f_b_flat, f_a_flat, geom, h: int, w: int):
     basis = pca_basis(f_a_flat, k_dims)
     proj_a = project(f_a_flat, basis)
     proj_b = project(f_b_flat.float(), basis)
-    qy, qx = tile_sample_positions(geom, h, w, device=f_b_flat.device)
+    qy, qx = pt.tile_sample_positions(geom, h, w, device=f_b_flat.device)
     proj_b_tiles = proj_b.index_select(0, (qy * w + qx).reshape(-1)).reshape(
         *qy.shape, proj_b.shape[-1]
     )
@@ -605,16 +523,16 @@ def tile_patchmatch_lean(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The tile path on (N, D) bf16 tables and a (py, px) plane-pair
     field: `pm_iters` K1 sweeps in the raw-plane metric, a merge with the
-    incoming field under the feature metric, the polish under
-    `_POLISH_MODE`, and the kappa pass, every feature-metric distance
-    through `candidate_dist_lean` (chunked, f32 math).  The lean levels
-    (models/analogy.py `plan_level`) pass `assemble_features_lean`'s
-    tables; `tile_patchmatch` passes the standard levels' fields cast to
-    bf16, and the float32 fields as `prune_tabs` (the PCA prune's fit;
-    default: the bf16 tables).  The compressed-candidate modes (A-plane
-    dtype, PCA prune, restart mode) and the polish engine are resolved
-    once per call.  `plain` runs the kernels' plain versions on either
-    device (pallas_mode="interpret").  The returned distances are in the
+    incoming field under the feature metric, the polish, and the kappa
+    pass, every feature-metric distance through `candidate_dist_lean`
+    (chunked, f32 math).  The lean levels (models/analogy.py
+    `plan_level`) pass `assemble_features_lean`'s tables;
+    `tile_patchmatch` passes the standard levels' fields cast to bf16,
+    and the float32 fields as `prune_tabs` (the PCA prune's fit;
+    default: the bf16 tables).  The engine modes (`engine_modes()`: the
+    A-plane dtype, the PCA prune, the restart mode and the polish
+    engine) are read once per call.  `plain` runs the kernels' plain
+    versions on either device (pallas_mode="interpret").  The returned distances are in the
     bf16-table metric.  Returns (py, px, dist).
 
     A bands.  `raw.a_planes` is the whole A's planes, or a tuple of band
@@ -638,13 +556,9 @@ def tile_patchmatch_lean(
     `prune_tabs`, and `draws` a sequence of F `SweepDraws`, each frame
     is staged with its own draws and every sweep is one K1 launch over
     all F frames (A is shared), its candidate tables one K5 launch
-    (kernels/cand_tables.py; the `sweep` span's `tables` says "k5" or
-    "eager"); the merge, the polish and the kappa pass run frame by
-    frame.  The result carries the axis.  Frame i's result
+    (kernels/cand_tables.py); the merge, the polish and the kappa pass
+    run frame by frame.  The result carries the axis.  Frame i's result
     is the single-frame call's on frame i's inputs."""
-    from ..kernels import cand_tables as ct
-    from ..kernels import patchmatch_tile as pt
-
     if py.ndim == 2:
         py, px, dist = tile_patchmatch_lean(
             f_b_tab[None], f_a_tab, py[None], px[None], [draws],
@@ -667,10 +581,9 @@ def tile_patchmatch_lean(
     polish_iters, polish_random = _polish_schedule_for(
         cfg, ha, wa, polish_iters
     )
-    cand_dtype, polish_mode = pt.resolve_cand_dtype(), _POLISH_MODE
-    coarse_restarts = pt._RESTART_MODE == "coarse"
+    modes = engine_modes()
     default_dist = dist_fn is None
-    prune = pt.resolve_prune() if default_dist else None
+    prune = pt.parse_prune(modes.prune) if default_dist else None
     with scope("tlm_prep", "prep"):
         b_prune, a_prune = prune_tabs or (f_b_tab, f_a_tab)
         prune_states = [
@@ -718,14 +631,13 @@ def tile_patchmatch_lean(
         d = torch.full(oy.shape, float("inf"), dtype=torch.float32, device=dev)
     with scope("tlm_sweep", "sweep") as sp:
         if isinstance(sp, Span):
-            sp.set(**pt.sweep_attrs(specs, geom),
-                   tables=ct.tables_engine(oy, plain=plain))
+            sp.set(**pt.sweep_attrs(specs, geom))
         for t in range(pm_iters):
             # Every frame's tables in one launch of K5 on the card.
             cand_y, cand_x, cand_valid = ct.candidate_tables(
                 oy, ox,
                 ct.draw_frames([dr.gen(t, dev) for dr in draws], geom, ha,
-                               wa, coarse_restarts),
+                               wa, modes.restart == "coarse"),
                 geom, ha, wa, plain=plain,
             )
             if prune is not None:
@@ -740,7 +652,7 @@ def tile_patchmatch_lean(
                 oy, ox, d = pt.tile_sweep(
                     planes, b_planes, cand_y, cand_x, cand_valid, oy, ox, d,
                     specs=specs, geom=geom, ha=ha, wa=wa, coh_factor=coh,
-                    plain=plain, cand_dtype=cand_dtype,
+                    plain=plain, cand_dtype=modes.cand_dtype,
                     cand_budget=prune[1] if prune else None, band=band,
                 )
             if sweep_merge is not None:
@@ -754,8 +666,8 @@ def tile_patchmatch_lean(
             py[i], px[i], dist0[i], ky[i], kx[i], draws[i], dists[i],
             f_b_tab[i], f_a_tab, cfg=cfg, plain=plain, ha=ha, wa=wa,
             coh=coh, pm_iters=pm_iters, polish_iters=polish_iters,
-            polish_random=polish_random, cand_dtype=cand_dtype,
-            polish_mode=polish_mode, default_dist=default_dist, frame=i,
+            polish_random=polish_random, modes=modes,
+            default_dist=default_dist, frame=i,
         )
         for i in range(n_f)
     ]
@@ -766,15 +678,18 @@ def _merge_and_polish(py, px, dist0, ky, kx, draws: SweepDraws, dist_fn,
                       f_b_tab, f_a_tab, *, cfg: SynthConfig, plain: bool,
                       ha: int, wa: int, coh: float, pm_iters: int,
                       polish_iters: int, polish_random: int,
-                      cand_dtype: str, polish_mode: str,
-                      default_dist: bool = True, frame: int = 0):
+                      modes: EngineModes, default_dist: bool = True,
+                      frame: int = 0):
     """One frame's tail of the tile path: the exact-metric merge of the
     kernel's match (ky, kx) into the incoming field (py, px; distances
     dist0), the polish from slot `pm_iters` of `draws`, and the kappa
-    pass, each a span carrying `frame` (the polish also its `engine`,
-    "k4" or "eager").  A caller's own `dist_fn` (not `default_dist`)
-    keeps the eager sequential cascade on it in "stream" mode, as the
-    reference does.  Returns (py, px, dist)."""
+    pass, each a span carrying `frame`.  The polish engine is
+    `modes.polish`: "sequential", the chained per-candidate cascade
+    (`cascade_sweeps`); "stream", the same cascade with its row fetches
+    through kernel K3; "jump", the batched jump-flooding polish
+    (`polish_sweeps_planes`).  A caller's own `dist_fn` (not
+    `default_dist`) keeps the sequential cascade on it in "stream" mode,
+    as the reference does.  Returns (py, px, dist)."""
     h, w = py.shape
     dev = py.device
     # Exact-metric merge: adopt the kernel's match only where it wins.
@@ -786,29 +701,23 @@ def _merge_and_polish(py, px, dist0, ky, kx, draws: SweepDraws, dist_fn,
         dist = torch.where(better, d_k, dist0)
     if polish_iters == 0:
         return py, px, dist
-    with scope("tlm_polish", "polish", frame=frame) as sp:
+    with scope("tlm_polish", "polish", frame=frame):
         offsets = sweep_offsets(draws.gen(pm_iters, dev), polish_iters,
                                 sweep_radii(ha, wa, polish_random), h, w)
-        if polish_mode in ("sequential", "stream"):
+        if modes.polish in ("sequential", "stream"):
             # The tables' default distance (None: kernel K4 on the card)
             # unless a caller's `dist_fn` or a swapped row fetch.
-            polish_dist, reason = dist_fn, "dist_fn"
+            polish_dist = dist_fn
             if default_dist:
-                gf = _polish_gather_fn(f_a_tab, plain, cand_dtype,
-                                       polish_mode)
-                polish_dist, reason = None, "gather"
-                if gf is not None:
-                    polish_dist = functools.partial(
-                        candidate_dist_lean, f_b_tab, f_a_tab, gather_fn=gf)
-            sp.set(engine=pc.sweep_engine(f_a_tab, plain=plain,
-                                          default_dist=polish_dist is None))
-            py, px, dist = patchmatch_sweeps_lean(
+                gf = _polish_gather_fn(f_a_tab, plain, modes.cand_dtype,
+                                       modes.polish)
+                polish_dist = None if gf is None else functools.partial(
+                    candidate_dist_lean, f_b_tab, f_a_tab, gather_fn=gf)
+            py, px, dist = pc.cascade_sweeps(
                 f_b_tab, f_a_tab, py, px, offsets, ha=ha, wa=wa,
                 coh_factor=coh, dist_fn=polish_dist, plain=plain,
-                eager_reason=reason,
             )
         else:
-            sp.set(engine="eager")
             py, px, dist = polish_sweeps_planes(
                 py, px, dist, offsets, ha=ha, wa=wa, coh_factor=coh,
                 dist_fn=dist_fn,
@@ -846,9 +755,7 @@ class PatchMatchMatcher(Matcher):
             )
         coh = kappa_factor(cfg.kappa, level)
         plain = cfg.pallas_mode == "interpret"
-        with scope("tlm_pixel", "pixel", frame=frame,
-                   engine=pc.sweep_engine(f_a, plain=plain,
-                                          default_dist=not active)):
+        with scope("tlm_pixel", "pixel", frame=frame):
             nnf, dist = patchmatch_sweeps(
                 f_b, f_a, nnf,
                 draws.offsets(_pm_iters_for(cfg, ha, wa),

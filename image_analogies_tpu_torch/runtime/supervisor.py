@@ -161,27 +161,27 @@ def default_ladder() -> List[Rung]:
     when the process is in its from-mode, so a default-mode run has no
     rung to step.  The reference's fourth rung, packed to unpacked A
     planes, has no counterpart: the port has no packed layout."""
-    from ..kernels import patchmatch_tile as _pt
-    from ..models import patchmatch as _pm
+    from ..config import engine_modes, set_engine_modes
+    from ..kernels.patchmatch_tile import parse_prune
 
     return [
         Rung(
             "polish_stream_to_sequential", "stream", "sequential",
-            applies=lambda: _pm._POLISH_MODE == "stream",
-            apply=lambda: _pm.set_polish_mode("sequential"),
+            applies=lambda: engine_modes().polish == "stream",
+            apply=lambda: set_engine_modes(polish="sequential"),
             bit_safe=True,  # the streamed fetch gives the same rows
         ),
         Rung(
             "cand_int8_to_bf16", "int8", "bf16",
-            applies=lambda: _pt.resolve_cand_dtype() == "int8",
-            apply=lambda: _pt.set_cand_compression(cand_dtype="bf16"),
+            applies=lambda: engine_modes().cand_dtype == "int8",
+            apply=lambda: set_engine_modes(cand_dtype="bf16"),
             bit_safe=False,  # bf16 is the uncompressed path: better
             # quality, not the int8 arm's bits
         ),
         Rung(
             "cand_pruned_to_full", "pruned", "full",
-            applies=lambda: _pt.resolve_prune() is not None,
-            apply=lambda: _pt.set_cand_compression(prune="off"),
+            applies=lambda: parse_prune(engine_modes().prune) is not None,
+            apply=lambda: set_engine_modes(prune="off"),
             bit_safe=False,  # the full candidate set >= the pruned one
         ),
     ]

@@ -73,16 +73,18 @@ def config_fingerprint(cfg) -> str:
 
 def compression_mode() -> str:
     """The process-wide kernel-compression knobs as one label: these
-    are module globals, not config fields (the `_POLISH_MODE`
-    rationale), but they shape every dispatch, so a mode flip (a
-    supervisor ladder step, a `set_cand_compression` call) must change
-    the key.  The reference's third field, the packed sublane layout,
-    describes TPU sublanes and has no counterpart on the card."""
-    from ..kernels.patchmatch_tile import resolve_cand_dtype, resolve_prune
+    are engine modes, not config fields (config.EngineModes), but they
+    shape every dispatch, so a mode flip (a supervisor ladder step, a
+    `set_engine_modes` call) must change the key.  The reference's third
+    field, the packed sublane layout, describes TPU sublanes and has no
+    counterpart on the card."""
+    from ..config import engine_modes
+    from ..kernels.patchmatch_tile import parse_prune, resolve_cand_dtype
 
-    prune = resolve_prune()
+    modes = engine_modes()
+    prune = parse_prune(modes.prune)
     return "|".join((
-        resolve_cand_dtype(),
+        resolve_cand_dtype(modes.cand_dtype),
         "full" if prune is None else f"prune{prune[0]}:{prune[1]}",
     ))
 

@@ -26,7 +26,7 @@ Three channels, made at start-up (`ServingMesh`, `follow`):
     group's epoch, the frame stack's shape (its first axis is the
     grain), the bucket-centre `b_stats`, the config with the dispatch's
     checkpoint dir (all ranks share one host and read it on a retry)
-    and the process-wide kernel modes;
+    and the process-wide engine modes (`config.engine_modes()`, whole);
   - the control group: gloo, CPU tensors.  It carries the frames (one
     broadcast after the header) and each attempt's outcome (an
     all_gather of ok, K1 launches and peak device bytes per rank);
@@ -89,6 +89,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..config import engine_modes, set_engine_modes
 from ..parallel.mesh import BATCH_AXIS, DEFAULT_TIMEOUT_S
 from ..runtime.supervisor import AttemptFatal
 
@@ -112,25 +113,6 @@ class RankFailed(RuntimeError):
     """An attempt failed on a follower while rank 0's finished: every
     rank gave the attempt up, and the next one runs on a new data
     group."""
-
-
-def _modes() -> Dict[str, Any]:
-    """The process-wide kernel modes a dispatch runs under (module
-    switches, not config fields: serving/excache.compression_mode)."""
-    from ..kernels import patchmatch_tile as pt
-    from ..models import patchmatch as pm
-
-    return {"cand_dtype": pt._CAND_DTYPE, "prune": pt._CAND_PRUNE,
-            "restart": pt._RESTART_MODE, "polish": pm._POLISH_MODE}
-
-
-def _apply_modes(modes: Dict[str, Any]) -> None:
-    from ..kernels import patchmatch_tile as pt
-    from ..models import patchmatch as pm
-
-    pt._CAND_DTYPE, pt._CAND_PRUNE = modes["cand_dtype"], modes["prune"]
-    pt._RESTART_MODE = modes["restart"]
-    pm._POLISH_MODE = modes["polish"]
 
 
 def _k1_launches() -> int:
@@ -299,7 +281,7 @@ class ServingMesh:
                       "seq": seq, "epoch": self._epoch,
                       "shape": tuple(frames.shape), "b_stats": b_stats,
                       "cfg": cfg, "resume_from": resume_from,
-                      "modes": _modes()}
+                      "modes": engine_modes()}
             try:
                 self._g.store.set(key, pickle.dumps(header))
                 if self._g.built != self._epoch:
@@ -404,7 +386,7 @@ def follow() -> None:
             g.rebuild(header["epoch"])
         frames = torch.empty(header["shape"], dtype=torch.float32)
         dist.broadcast(frames, 0, group=g.ctrl)
-        _apply_modes(header["modes"])
+        set_engine_modes(header["modes"])
         k0 = _k1_launches()
         ok = True
         try:

@@ -646,14 +646,3 @@ def count_kernel_launch(kernel: str) -> None:
         "hand-written kernel launches (one per launch)",
     ).inc(labels={"kernel": kernel})
 
-
-def count_eager_sweep(reason: str) -> None:
-    """Book one sweep of the per-pixel cascade that ran eagerly on CUDA
-    tensors instead of kernel K4 (`kernels/pixel_cascade.count_eager`),
-    as `ia_eager_sweeps_total{reason}`: "plain" (pallas_mode
-    "interpret"), "temporal" (video with tau > 0), "gather" (the stream
-    and int8 polish fetches) or "dist_fn" (a caller's own distance)."""
-    get_registry().counter(
-        "ia_eager_sweeps_total",
-        "per-pixel cascade sweeps run eagerly on CUDA tensors, by {reason}",
-    ).inc(labels={"reason": reason})

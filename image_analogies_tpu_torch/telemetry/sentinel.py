@@ -95,6 +95,7 @@ import math
 import os
 from typing import Any, Dict, List, Optional
 
+from ..config import EngineModes
 from .metrics import parse_label_str
 
 HEALTH_FILE = "health.json"
@@ -201,10 +202,10 @@ def _is_num(v) -> bool:
 
 
 # Default compression-mode label for series recorded before round 11
-# added the {dtype} label: "bf16" IS the uncompressed historical
-# representation, so pricing unlabeled cells at it reproduces the old
-# models exactly (pre-r11 artifacts stay green).
-_DEFAULT_CAND_DTYPE = "bf16"
+# added the {dtype} label: the default mode, "bf16", IS the uncompressed
+# historical representation, so pricing unlabeled cells at it reproduces
+# the old models exactly (pre-r11 artifacts stay green).
+_DEFAULT_CAND_DTYPE = EngineModes.cand_dtype
 
 
 def _by_dtype(values: Dict) -> Dict[str, Dict[str, float]]:

@@ -40,6 +40,7 @@ def sweep_setup(cfg, size: int, device="cuda"):
     Under the module's PCA prune "K:M" only the first M slots stay
     valid, as the compressed path's budget.  Returns None when the
     geometry is kernel-ineligible."""
+    from ..config import engine_modes
     from ..kernels import patchmatch_tile as pt
 
     dev = torch.device(device)
@@ -71,7 +72,8 @@ def sweep_setup(cfg, size: int, device="cuda"):
     gen.manual_seed(0)
     cand_y, cand_x, cand_valid = pt.sample_candidates_blocked(
         oy, ox, pt.draw_candidates(gen, geom, size, size), geom, size, size)
-    prune = pt.resolve_prune()
+    modes = engine_modes()
+    prune = pt.parse_prune(modes.prune)
     if prune is not None:
         keep = torch.arange(pt.K_TOTAL, device=dev) < prune[1]
         cand_valid = (cand_valid * keep).to(torch.int32).contiguous()
@@ -91,7 +93,7 @@ def sweep_setup(cfg, size: int, device="cuda"):
         "geom": geom,
         "n_chan": len(specs),
         "strip_rows": rows,
-        "cand_dtype": pt.resolve_cand_dtype(),
+        "cand_dtype": modes.cand_dtype,
         "prune": prune,
         "valid_slots": int((cand_valid > 0).sum()),
         "slots": cand_valid.numel(),

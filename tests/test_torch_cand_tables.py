@@ -6,12 +6,11 @@ On the CPU (tier 1):
   the frame-axis plain builder equals `sample_candidates_blocked` frame
   by frame bit for bit (one frame and three, uniform and coarse
   restarts, at 128^2 and at 200 x 300, which no tile divides);
-- the dispatch rule (`tables_engine`), the wrapper refusing CPU tensors,
-  the source in `SOURCES`;
-- the `sweep` span's `tables` ("eager" on the CPU) and, with the rule's
-  device test faked to "CUDA" and the kernel replaced by an exact
-  stand-in, "k5", one launch a sweep for all frames, as many as K1's,
-  and the same B';
+- the dispatch rule of `candidate_tables`, the wrapper refusing CPU
+  tensors, the source in `SOURCES`;
+- no launch on the CPU and, with the rule's device test faked to "CUDA"
+  and the kernel replaced by an exact stand-in, one launch a sweep for
+  all frames, as many as K1's, and the same B';
 - `tile_patchmatch_lean`'s (py, px, dist) equal to those of the
   per-frame table loop it replaced, for one frame and three, with the
   PCA prune and under the coarse restart mode.
@@ -31,6 +30,7 @@ from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
 from image_analogies_tpu_torch.models import patchmatch as t_pm
 from image_analogies_tpu_torch.parallel.batch import synthesize_batch
 from image_analogies_tpu_torch.telemetry.spans import Tracer
+from torch_modes import set_modes  # noqa: F401 (a fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -107,14 +107,24 @@ def test_frame_builder_equals_per_frame_tables(h, w, ha, wa, n_src, n_f,
     assert int(valid.sum()) < valid.numel()
 
 
-@pytest.mark.parametrize("on_card,plain,want", [
-    (True, False, "k5"), (True, True, "eager"), (False, False, "eager"),
-    (False, True, "eager"),
+@pytest.mark.parametrize("on_card,plain,launched", [
+    (True, False, True), (True, True, False), (False, False, False),
+    (False, True, False),
 ])
-def test_tables_engine_rule(monkeypatch, on_card, plain, want):
+def test_tables_engine_rule(monkeypatch, on_card, plain, launched):
+    """`candidate_tables` launches the kernel only on CUDA state planes
+    and not `plain`; either way the tables are the plain builder's."""
+    calls = []
     monkeypatch.setattr(ct, "on_cuda", lambda t: on_card)
-    assert ct.tables_engine(torch.zeros(1, 64, 124, dtype=torch.int32),
-                            plain=plain) == want
+    monkeypatch.setattr(ct, "candidate_tables_kernel", stand_in(calls))
+    specs = pt.channel_specs(1, 1, SynthConfig(), True)
+    geom = pt.tile_geometry(128, 128, specs)
+    oy, ox = _state(np.random.default_rng(1), 2, geom, 128, 128, 128, 128)
+    draws = ct.draw_frames(_gens(2, 0), geom, 128, 128)
+    got = ct.candidate_tables(oy, ox, draws, geom, 128, 128, plain=plain)
+    assert calls == ([2] if launched else [])
+    want = ct.candidate_tables_plain(oy, ox, draws, geom, 128, 128)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
 
 
 def test_wrapper_refuses_cpu_tensors_and_counts_nothing():
@@ -169,8 +179,8 @@ def stand_in(calls):
 @pytest.mark.parametrize("frames", [0, 3])
 @pytest.mark.parametrize("fake_card", [False, True])
 def test_sweep_spans_name_the_tables_engine(monkeypatch, frames, fake_card):
-    """On the CPU every `sweep` span says "eager"; with the card faked,
-    "k5", and K5 launches once a sweep for all frames, as often as K1;
+    """On the CPU K5 never launches; with the card faked, it launches
+    once a sweep for all frames, inside a `sweep` span, as often as K1;
     B' is the CPU route's either way."""
     want = _run(frames)
     calls, sweeps = [], []
@@ -189,9 +199,7 @@ def test_sweep_spans_name_the_tables_engine(monkeypatch, frames, fake_card):
     cfg = SynthConfig(**RUN)
     got = (synthesize_batch(a, ap, b, cfg, progress=tracer) if frames
            else create_image_analogy(a, ap, b, cfg, progress=tracer))
-    spans = tracer.find("sweep")
-    assert spans and all(
-        s.attrs["tables"] == ("k5" if fake_card else "eager") for s in spans)
+    assert tracer.find("sweep")
     # Level 0 is the only tile level: em_iters x pm_iters sweeps.
     assert len(sweeps) == RUN["em_iters"] * RUN["pm_iters"]
     assert calls == (sweeps if fake_card else [])
@@ -219,10 +227,9 @@ def _parent_loop(monkeypatch):
     (0, "uniform", "off"), (3, "uniform", "off"), (3, "coarse", "off"),
     (0, "coarse", "8:16"), (3, "uniform", "8:16"),
 ])
-def test_lean_matcher_equals_the_per_frame_table_loop(monkeypatch, frames,
-                                                      restart, prune):
-    monkeypatch.setattr(pt, "_RESTART_MODE", restart)
-    monkeypatch.setattr(pt, "_CAND_PRUNE", prune)
+def test_lean_matcher_equals_the_per_frame_table_loop(monkeypatch, set_modes,
+                                                      frames, restart, prune):
+    set_modes(restart=restart, prune=prune)
     real = t_pm.tile_patchmatch_lean
     fields, images = {}, {}
     for route in ("k5_route", "parent_loop"):

@@ -19,39 +19,49 @@ from image_analogies_tpu.config import SynthConfig as JCfg
 from image_analogies_tpu.kernels import patchmatch_tile as jpt
 from image_analogies_tpu_torch import SynthConfig, create_image_analogy, psnr
 from image_analogies_tpu_torch.config import SynthConfig as TCfg
+from image_analogies_tpu_torch.config import EngineModes, engine_modes
 from image_analogies_tpu_torch.kernels import patchmatch_tile as tpt
 from image_analogies_tpu_torch.kernels import polish_stream as tps
-from image_analogies_tpu_torch.models import patchmatch as t_pm
 
 from test_torch_tile import T, _as, _planes, jax_draws
+from torch_modes import set_modes  # noqa: F401 (a fixture)
 from test_torch_tile_sweep import _assert_sweep_close
 
 
 def test_env_defaults_match_reference():
-    assert tpt._CAND_DTYPE == jpt._CAND_DTYPE
-    assert tpt._CAND_PRUNE == jpt._CAND_PRUNE
-    assert tpt._RESTART_MODE == jpt._RESTART_MODE
+    modes = engine_modes()
+    assert modes.cand_dtype == jpt._CAND_DTYPE
+    assert modes.prune == jpt._CAND_PRUNE
+    assert modes.restart == jpt._RESTART_MODE
     assert tpt._CAND_DTYPES == jpt._CAND_DTYPES
     assert (tpt._Q_SCALE, tpt._Q_ZERO) == (jpt._Q_SCALE, jpt._Q_ZERO)
     assert tpt._PRUNE_SAMPLES == jpt._PRUNE_SAMPLES
 
 
-def test_resolution_and_setter(monkeypatch):
-    monkeypatch.setattr(tpt, "_CAND_DTYPE", "bf16")
-    monkeypatch.setattr(tpt, "_CAND_PRUNE", "off")
-    assert tpt.resolve_cand_dtype() == "bf16" and tpt.resolve_prune() is None
-    tpt.set_cand_compression("int8", "16:8")
+def test_resolution_and_setter(set_modes):
+    def prune():
+        return tpt.parse_prune(engine_modes().prune)
+
+    set_modes(cand_dtype="bf16", prune="off")
+    assert tpt.resolve_cand_dtype() == "bf16" and prune() is None
+    prev = set_modes(cand_dtype="int8", prune="16:8")
+    assert (prev.cand_dtype, prev.prune) == ("bf16", "off")
     assert tpt.resolve_cand_dtype() == "int8"
-    assert tpt.resolve_prune() == (16, 8)
+    assert prune() == (16, 8)
     assert tpt.resolve_cand_dtype("bf16") == "bf16"
-    assert tpt.resolve_prune("off") is None
-    tpt.set_cand_compression(prune="8:4")
-    assert tpt._CAND_DTYPE == "int8" and tpt.resolve_prune() == (8, 4)
+    assert tpt.parse_prune("off") is None
+    set_modes(prune="8:4")
+    assert engine_modes().cand_dtype == "int8" and prune() == (8, 4)
     with pytest.raises(ValueError, match="cand_dtype"):
-        tpt.set_cand_compression("fp8")
+        set_modes(cand_dtype="fp8")
     with pytest.raises(ValueError):
-        tpt.set_cand_compression(prune="16-8")
-    assert tpt._CAND_DTYPE == "int8" and tpt._CAND_PRUNE == "8:4"
+        set_modes(prune="16-8")
+    with pytest.raises(TypeError):
+        set_modes(dtype="int8")
+    assert engine_modes() == EngineModes("int8", "8:4", prev.restart,
+                                         prev.polish)
+    set_modes(prev)
+    assert engine_modes() == prev
 
 
 @pytest.mark.parametrize("spec", ["16:8", "off", "", None, (4, 36), "1:1",
@@ -261,19 +271,13 @@ def test_draw_candidates_restart_positions():
         assert 0 <= int(row.min()) and int(row.max()) < hi
 
 
-def _modes(monkeypatch, cand_dtype, prune, polish):
-    monkeypatch.setattr(tpt, "_CAND_DTYPE", cand_dtype)
-    monkeypatch.setattr(tpt, "_CAND_PRUNE", prune)
-    monkeypatch.setattr(t_pm, "_POLISH_MODE", polish)
-
-
 def _example(size):
     from image_analogies_tpu_torch.utils.examples import super_resolution
 
     return super_resolution(size)
 
 
-def test_dist_ratio_gate_128(monkeypatch):
+def test_dist_ratio_gate_128(set_modes):
     """The reference's compressed-arm probe (int8 + 16:8) on the rgb
     super-resolution pair: three matcher passes from a zero field, the
     returned field scored under the exact metric against the exact NN.
@@ -287,7 +291,7 @@ def test_dist_ratio_gate_128(monkeypatch):
     )
     from image_analogies_tpu_torch.ops.features import assemble_features
 
-    _modes(monkeypatch, "int8", "16:8", "sequential")
+    set_modes(cand_dtype="int8", prune="16:8", polish="sequential")
     size = 128
     cfg = SynthConfig(levels=1, em_iters=1, pm_iters=6, pm_polish_iters=1,
                       pallas_mode="interpret", device="cpu")
@@ -310,7 +314,8 @@ def test_dist_ratio_gate_128(monkeypatch):
     assert 1.0 <= ratio <= 1.80, ratio
 
 
-def test_compressed_synthesis_gates_and_stream_bit_identity(monkeypatch):
+def test_compressed_synthesis_gates_and_stream_bit_identity(monkeypatch,
+                                                            set_modes):
     """(int8, 16:8, stream) end to end at 128^2: PSNR >= 35 dB against
     the port's brute oracle, B' equal to the sequential polish's, and
     the polish fetching through K3's path the derived number of times:
@@ -330,26 +335,26 @@ def test_compressed_synthesis_gates_and_stream_bit_identity(monkeypatch):
         return real(*args, **kwargs)
 
     monkeypatch.setattr(tps, "gather_rows", spy)
-    _modes(monkeypatch, "int8", "16:8", "stream")
+    set_modes(cand_dtype="int8", prune="16:8", polish="stream")
     stream = create_image_analogy(a, ap, b, cfg)
     # Level 0 (128^2) is the one tile level; one polished EM step.
     assert len(calls) == tps.polish_eval_rows(1, cfg.pm_polish_iters,
                                               cfg.pm_polish_random)
-    _modes(monkeypatch, "int8", "16:8", "sequential")
+    set_modes(cand_dtype="int8", prune="16:8", polish="sequential")
     seq = create_image_analogy(a, ap, b, cfg)
     assert len(calls) == 13
     assert torch.equal(stream, seq)
     assert psnr(stream, oracle) >= 35.0
 
 
-def test_jump_polish_synthesis_against_oracle(monkeypatch):
+def test_jump_polish_synthesis_against_oracle(set_modes):
     """The jump engine end to end at 128^2, against the oracle's 33 dB
     gate."""
     a, ap, b = _example(128)
     kw = dict(levels=2, em_iters=1, device="cpu")
     oracle = create_image_analogy(a, ap, b, SynthConfig(matcher="brute",
                                                         **kw))
-    _modes(monkeypatch, "bf16", "off", "jump")
+    set_modes(cand_dtype="bf16", prune="off", polish="jump")
     out = create_image_analogy(a, ap, b, SynthConfig(
         matcher="patchmatch", pm_iters=3, pm_polish_iters=1,
         pallas_mode="interpret", **kw))

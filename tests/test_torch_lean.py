@@ -25,13 +25,14 @@ from image_analogies_tpu.models import matcher as j_match
 from image_analogies_tpu.models import patchmatch as j_pm
 from image_analogies_tpu.utils.examples import super_resolution
 from image_analogies_tpu_torch import SynthConfig, create_image_analogy, psnr
-from image_analogies_tpu_torch.kernels import patchmatch_tile as tpt
+from image_analogies_tpu_torch.kernels import pixel_cascade as t_pc
 from image_analogies_tpu_torch.models import analogy as tan
 from image_analogies_tpu_torch.models import coherence as t_coh
 from image_analogies_tpu_torch.models import patchmatch as t_pm
 from image_analogies_tpu_torch.models.matcher import candidate_dist_lean
 from image_analogies_tpu_torch.ops.features import assemble_features
 from image_analogies_tpu_torch.parallel import spatial as t_sp
+from torch_modes import set_modes  # noqa: F401 (a fixture)
 
 T = torch.from_numpy
 
@@ -202,7 +203,7 @@ def test_patchmatch_sweeps_lean_given_jax_draws(rng, coh):
         ha=ha, wa=wa, iters=iters, n_random=n_random, coh_factor=coh)
     offsets = _jax_lean_offsets(key, iters, radii, h, w)
     tb16, ta16 = T(f_b).to(torch.bfloat16), T(f_a).to(torch.bfloat16)
-    ty, tx, td = t_pm.patchmatch_sweeps_lean(
+    ty, tx, td = t_pc.cascade_sweeps(
         tb16, ta16, T(py), T(px), offsets, ha=ha, wa=wa, coh_factor=coh)
     same = (ty.numpy() == np.asarray(jy)) & (tx.numpy() == np.asarray(jx))
     assert same.mean() > 0.99
@@ -312,15 +313,15 @@ def test_lean_kappa_changes_the_field(pm128):
 
 @pytest.mark.parametrize("cand_dtype,prune", [("bf16", "off"),
                                               ("int8", "16:8")])
-def test_lean_compressed_modes(pm128, monkeypatch, cand_dtype, prune):
+def test_lean_compressed_modes(pm128, monkeypatch, set_modes, cand_dtype,
+                               prune):
     """int8 A planes and the PCA prune at a lean level: the stream polish
     (K3's plain version, counted) bit-identical to the sequential one,
     the jump polish finite, all above the oracle bar."""
     from image_analogies_tpu_torch.kernels import polish_stream as tps
 
     ex, kw, oracle, normal = pm128
-    monkeypatch.setattr(tpt, "_CAND_DTYPE", cand_dtype)
-    monkeypatch.setattr(tpt, "_CAND_PRUNE", prune)
+    set_modes(cand_dtype=cand_dtype, prune=prune)
     calls = []
     real = tps.gather_rows
 
@@ -331,7 +332,7 @@ def test_lean_compressed_modes(pm128, monkeypatch, cand_dtype, prune):
     monkeypatch.setattr(tps, "gather_rows", spy)
     outs = {}
     for mode in ("stream", "sequential", "jump"):
-        monkeypatch.setattr(t_pm, "_POLISH_MODE", mode)
+        set_modes(polish=mode)
         outs[mode] = port(*ex, feature_bytes_budget=1, **kw)
         if mode == "stream":
             # One polished EM step at the one tile level (128^2).

@@ -1,19 +1,19 @@
 """Kernel K4 (`kernels/pixel_cascade.py`): one sweep of the per-pixel
-PatchMatch cascade a launch, and the dispatch that picks it.
+PatchMatch cascade a launch, and the entry point that picks it
+(`cascade_sweeps`).
 
 On the CPU (tier 1):
-- the dispatch rule (`sweep_engine`) and, with the rule's device test
-  faked to "CUDA" and the kernel replaced by an exact stand-in, the
-  route every caller takes: one launch a sweep for the per-pixel path
-  and the sequential bf16 polish; the eager cascade, booked by reason,
-  for "interpret", the temporal term, the stream and int8 polish
-  fetches and a caller's own `dist_fn`; fields bit for bit those of the
-  plain route;
-- `patchmatch_sweeps_lean` with `dist_fn=None` bit for bit the explicit
-  default distance, and `patchmatch_sweeps` with the default distance
-  the `candidate_dist` closure it used to build;
-- the spans' `engine` attribute on a small run, the source in `SOURCES`
-  and in `sources_digest`, and the wrapper refusing CPU tensors.
+- the entry point's rule and, with its device test faked to "CUDA" and
+  the kernel replaced by an exact stand-in, the route every caller
+  takes: one launch a sweep for the per-pixel path and the sequential
+  bf16 polish; the eager cascade for "interpret", the temporal term,
+  the stream and int8 polish fetches and a caller's own `dist_fn`;
+  fields bit for bit those of the plain route;
+- `cascade_sweeps` with `dist_fn=None` bit for bit the explicit default
+  distance, and `patchmatch_sweeps` with the default distance the
+  `candidate_dist` closure it used to build;
+- a small CPU run launching no K4, the source in `SOURCES` and in
+  `sources_digest`, and the wrapper refusing CPU tensors.
 
 On the card (`-m cuda`, skipped elsewhere): K4 against its plain
 version bit for bit on integer-valued tables (every sum exact in any
@@ -35,6 +35,7 @@ import torch
 
 from image_analogies_tpu_torch import SynthConfig, create_image_analogy
 from image_analogies_tpu_torch import kernels
+from image_analogies_tpu_torch.config import EngineModes
 from image_analogies_tpu_torch.kernels import pixel_cascade as pc
 from image_analogies_tpu_torch.models import patchmatch as pm
 from image_analogies_tpu_torch.models.matcher import (
@@ -43,6 +44,7 @@ from image_analogies_tpu_torch.models.matcher import (
 )
 from image_analogies_tpu_torch.telemetry import metrics as t_metrics
 from image_analogies_tpu_torch.telemetry.spans import Tracer
+from torch_modes import set_modes  # noqa: F401 (a fixture)
 
 cuda = pytest.mark.cuda
 
@@ -63,11 +65,6 @@ def registry():
     prev = t_metrics.set_registry(reg)
     yield reg
     t_metrics.set_registry(prev)
-
-
-def eager_counts(reg) -> dict:
-    vals = reg.to_dict().get("ia_eager_sweeps_total", {}).get("values", {})
-    return {k.split('"')[1]: v for k, v in vals.items()}
 
 
 def tables(rng, h, w, ha, wa, d, dtype=torch.float32, pad=0, integer=False,
@@ -124,7 +121,7 @@ def stand_in(calls):
 
 @pytest.fixture
 def fake_card(monkeypatch):
-    """The dispatch rule's device test says "CUDA" and the kernel is the
+    """The entry point's device test says "CUDA" and the kernel is the
     exact stand-in; yields the stand-in's calls."""
     calls = []
     monkeypatch.setattr(pc, "on_cuda", lambda t: True)
@@ -135,18 +132,29 @@ def fake_card(monkeypatch):
 # ------------------------------------------------------------ the rule
 
 
-@pytest.mark.parametrize("on_card,plain,default_dist,want", [
-    (True, False, True, "k4"),
-    (True, True, True, "eager"),
-    (True, False, False, "eager"),
-    (False, False, True, "eager"),
-    (False, True, False, "eager"),
+@pytest.mark.parametrize("on_card,plain,default_dist,launched", [
+    (True, False, True, True),
+    (True, True, True, False),
+    (True, False, False, False),
+    (False, False, True, False),
+    (False, True, False, False),
 ])
-def test_sweep_engine_rule(monkeypatch, on_card, plain, default_dist, want):
+def test_sweep_engine_rule(monkeypatch, on_card, plain, default_dist,
+                           launched):
+    """`cascade_sweeps` launches the kernel, once a sweep, only on CUDA
+    tables under the default distance and not `plain`."""
+    calls = []
     monkeypatch.setattr(pc, "on_cuda", lambda t: on_card)
-    tab = torch.zeros(4, 3)
-    assert pc.sweep_engine(tab, plain=plain, default_dist=default_dist) \
-        == want
+    monkeypatch.setattr(pc, "cascade_sweep_kernel", stand_in(calls))
+    rng = np.random.default_rng(14)
+    f_b, f_a = tables(rng, 6, 5, 4, 4, 3)
+    py, px = field(rng, 6, 5, 4, 4)
+    pc.cascade_sweeps(
+        f_b, f_a, py, px, offsets(rng, 2, 2, 6, 5, 4, 4), ha=4, wa=4,
+        coh_factor=1.0, plain=plain,
+        dist_fn=None if default_dist
+        else lambda idx: candidate_dist_lean(f_b, f_a, idx))
+    assert len(calls) == (2 if launched else 0)
 
 
 def test_cpu_tables_run_plain_and_book_nothing(registry, monkeypatch):
@@ -156,11 +164,9 @@ def test_cpu_tables_run_plain_and_book_nothing(registry, monkeypatch):
     f_b, f_a = tables(rng, 12, 10, 9, 11, 6)
     py, px = field(rng, 12, 10, 9, 11)
     before = pc.launches.count
-    pm.patchmatch_sweeps_lean(f_b, f_a, py, px,
-                              offsets(rng, 2, 3, 12, 10, 9, 11), ha=9,
-                              wa=11, coh_factor=1.5)
+    pc.cascade_sweeps(f_b, f_a, py, px, offsets(rng, 2, 3, 12, 10, 9, 11),
+                      ha=9, wa=11, coh_factor=1.5)
     assert calls == [] and pc.launches.count == before
-    assert "ia_eager_sweeps_total" not in registry.to_dict()
     assert "ia_kernel_launches_total" not in registry.to_dict()
 
 
@@ -200,16 +206,16 @@ def _pixel_case(rng, route):
     return kw, f_b, f_a, nnf, offs
 
 
-@pytest.mark.parametrize("route,launched,reason", [
-    ("default", SWEEPS, None),
-    ("plain", 0, "plain"),
-    ("temporal", 0, "temporal"),
-    ("gather", 0, "gather"),
+@pytest.mark.parametrize("route,launched", [
+    ("default", SWEEPS),
+    ("plain", 0),
+    ("temporal", 0),
+    ("gather", 0),
 ])
-def test_pixel_path_routes(registry, monkeypatch, route, launched, reason):
+def test_pixel_path_routes(monkeypatch, route, launched):
     """`patchmatch_sweeps` on a faked card: one launch a sweep under the
-    default distance, else eager sweeps booked by reason; the field and
-    distances bit for bit those of the unfaked (CPU) run."""
+    default distance, else the eager cascade; the field and distances
+    bit for bit those of the unfaked (CPU) run."""
     kw, f_b, f_a, nnf, offs = _pixel_case(np.random.default_rng(2), route)
     want = pm.patchmatch_sweeps(f_b, f_a, nnf, offs, coh_factor=1.5, **kw)
     calls = []
@@ -217,23 +223,20 @@ def test_pixel_path_routes(registry, monkeypatch, route, launched, reason):
     monkeypatch.setattr(pc, "cascade_sweep_kernel", stand_in(calls))
     got = pm.patchmatch_sweeps(f_b, f_a, nnf, offs, coh_factor=1.5, **kw)
     assert len(calls) == launched
-    assert eager_counts(registry) == ({} if reason is None
-                                      else {reason: float(SWEEPS)})
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def test_caller_dist_fn_stays_eager(registry, fake_card):
+def test_caller_dist_fn_stays_eager(fake_card):
     rng = np.random.default_rng(3)
     f_b, f_a = tables(rng, 10, 12, 11, 9, 5)
     py, px = field(rng, 10, 12, 11, 9)
     offs = offsets(rng, SWEEPS, 2, 10, 12, 11, 9)
-    got = pm.patchmatch_sweeps_lean(
+    got = pc.cascade_sweeps(
         f_b, f_a, py, px, offs, ha=11, wa=9, coh_factor=1.0,
         dist_fn=lambda idx: candidate_dist_lean(f_b, f_a, idx))
     assert fake_card == []
-    assert eager_counts(registry) == {"dist_fn": float(SWEEPS)}
-    want = pm.patchmatch_sweeps_lean(f_b, f_a, py, px, offs, ha=11, wa=9,
-                                     coh_factor=1.0, plain=True)
+    want = pc.cascade_sweeps(f_b, f_a, py, px, offs, ha=11, wa=9,
+                             coh_factor=1.0, plain=True)
     assert all(torch.equal(g, x) for g, x in zip(got, want))
 
 
@@ -257,31 +260,28 @@ def _polish(route, cand_dtype="bf16"):
         py, px, dist0, ky, kx, pm.SweepDraws(5, 0, 1), dist_fn, f_b, f_a,
         cfg=SynthConfig(device="cpu", kappa=0.0), plain=route == "plain",
         ha=ha, wa=wa, coh=1.25, pm_iters=2, polish_iters=2, polish_random=3,
-        cand_dtype=cand_dtype, polish_mode=mode,
+        modes=EngineModes(cand_dtype=cand_dtype, polish=mode),
         default_dist=route != "dist_fn")
 
 
-@pytest.mark.parametrize("route,cand_dtype,launched,reason", [
-    ("sequential", "bf16", 2, None),
-    ("stream", "bf16", 0, "gather"),
-    ("sequential", "int8", 0, "gather"),
-    ("dist_fn", "bf16", 0, "dist_fn"),
-    ("plain", "bf16", 0, "plain"),
+@pytest.mark.parametrize("route,cand_dtype,launched", [
+    ("sequential", "bf16", 2),
+    ("stream", "bf16", 0),
+    ("sequential", "int8", 0),
+    ("dist_fn", "bf16", 0),
+    ("plain", "bf16", 0),
 ])
-def test_polish_routes(registry, monkeypatch, route, cand_dtype, launched,
-                       reason):
+def test_polish_routes(monkeypatch, route, cand_dtype, launched):
     """The tile path's polish on a faked card: the sequential bf16
     polish launches once a sweep; the stream and int8 fetches, a
-    caller's `dist_fn` and "interpret" stay eager, booked by reason; the
-    result bit for bit the unfaked run's."""
+    caller's `dist_fn` and "interpret" stay eager; the result bit for
+    bit the unfaked run's."""
     want = _polish(route, cand_dtype)
     calls = []
     monkeypatch.setattr(pc, "on_cuda", lambda t: True)
     monkeypatch.setattr(pc, "cascade_sweep_kernel", stand_in(calls))
     got = _polish(route, cand_dtype)
     assert len(calls) == launched
-    assert eager_counts(registry) == ({} if reason is None
-                                      else {reason: 2.0})
     assert all(torch.equal(g, x) for g, x in zip(got, want))
 
 
@@ -289,8 +289,8 @@ def test_zero_sweeps_return_the_incoming_distance(fake_card):
     rng = np.random.default_rng(5)
     f_b, f_a = tables(rng, 8, 9, 7, 6, 4)
     py, px = field(rng, 8, 9, 7, 6)
-    got = pm.patchmatch_sweeps_lean(f_b, f_a, py, px, [], ha=7, wa=6,
-                                    coh_factor=1.0)
+    got = pc.cascade_sweeps(f_b, f_a, py, px, [], ha=7, wa=6,
+                            coh_factor=1.0)
     cy, cx = py.clamp(0, 6), px.clamp(0, 5)
     assert fake_card == []
     assert torch.equal(got[0], cy) and torch.equal(got[1], cx)
@@ -310,9 +310,9 @@ def test_default_distance_equals_the_explicit_one(dtype, coh, n_random, pad):
     f_b, f_a = tables(rng, h, w, ha, wa, 10, dtype, pad=pad)
     py, px = field(rng, h, w, ha, wa)
     offs = offsets(rng, 3, n_random, h, w, ha, wa)
-    got = pm.patchmatch_sweeps_lean(f_b, f_a, py, px, offs, ha=ha, wa=wa,
-                                    coh_factor=coh)
-    want = pm.patchmatch_sweeps_lean(
+    got = pc.cascade_sweeps(f_b, f_a, py, px, offs, ha=ha, wa=wa,
+                            coh_factor=coh)
+    want = pc.cascade_sweeps(
         f_b, f_a, py, px, offs, ha=ha, wa=wa, coh_factor=coh,
         dist_fn=lambda idx: candidate_dist_lean(f_b, f_a, idx))
     assert all(torch.equal(g, x) for g, x in zip(got, want))
@@ -331,7 +331,7 @@ def test_pixel_sweeps_default_equals_candidate_dist(coh):
     offs = offsets(rng, 3, 4, h, w, ha, wa)
     nnf_t, d_t = pm.patchmatch_sweeps(f_b, f_a, nnf, offs, coh_factor=coh)
     fb, fa = f_b.reshape(-1, d), f_a.reshape(-1, d)
-    py, px, dist = pm.patchmatch_sweeps_lean(
+    py, px, dist = pc.cascade_sweeps(
         fb, fa, nnf[..., 0], nnf[..., 1], offs, ha=ha, wa=wa,
         coh_factor=coh, dist_fn=lambda idx: candidate_dist(fb, fa, idx))
     assert torch.equal(nnf_t, torch.stack([py, px], -1))
@@ -351,32 +351,28 @@ def _images(side=128):
         (side, side)).astype(np.float32)
 
 
-def _engines(tracer):
-    return [sp.attrs["engine"] for sp in tracer.find("pixel")
-            + tracer.find("polish")]
-
-
-def test_cpu_run_spans_name_the_eager_engine():
+def test_cpu_run_spans_name_the_eager_engine(monkeypatch):
+    """A CPU run launches no K4: its two pixel spans and its polish span
+    are there, and neither the kernel nor its counter is touched."""
+    calls = []
+    monkeypatch.setattr(pc, "cascade_sweep_kernel", stand_in(calls))
     tracer = Tracer()
+    before = pc.launches.count
     create_image_analogy(*_images(), SynthConfig(**RUN), progress=tracer)
-    engines = _engines(tracer)
-    assert len(engines) == 3 and set(engines) == {"eager"}
+    assert len(tracer.find("pixel")) == 2 and len(tracer.find("polish")) == 1
+    assert calls == [] and pc.launches.count == before
 
 
-def test_faked_card_run_launches_once_a_sweep(registry, fake_card):
+def test_faked_card_run_launches_once_a_sweep(fake_card):
     """A 128^2 run (tile path at 128^2, per-pixel sweeps at 64^2) on a
-    faked card: every pixel and polish span names "k4"; the launches
-    are the sweeps (em_iters x pm_iters at 64^2, the final EM step's
-    polish sweeps at 128^2); no eager sweep is booked; B' is the CPU
+    faked card: the launches are the sweeps (em_iters x pm_iters at
+    64^2, the final EM step's polish sweeps at 128^2); B' is the CPU
     run's."""
     cfg = SynthConfig(**RUN)
-    tracer = Tracer()
-    got = create_image_analogy(*_images(), cfg, progress=tracer)
-    assert set(_engines(tracer)) == {"k4"}
+    got = create_image_analogy(*_images(), cfg)
     assert sorted(fake_card) == sorted(
         [((64, 64), torch.float32)] * cfg.em_iters * cfg.pm_iters
         + [((128, 128), torch.bfloat16)] * cfg.pm_polish_iters)
-    assert eager_counts(registry) == {}
     want = create_image_analogy(*_images(), cfg)
     assert torch.equal(got, want)
 
@@ -414,11 +410,11 @@ def dev():
 def _both(f_b, f_a, py, px, offs, ha, wa, coh):
     """(kernel, plain) results of the cascade on the same CUDA inputs."""
     before = pc.launches.count
-    got = pm.patchmatch_sweeps_lean(f_b, f_a, py, px, offs, ha=ha, wa=wa,
-                                    coh_factor=coh)
+    got = pc.cascade_sweeps(f_b, f_a, py, px, offs, ha=ha, wa=wa,
+                            coh_factor=coh)
     assert pc.launches.count == before + len(offs)
-    want = pm.patchmatch_sweeps_lean(f_b, f_a, py, px, offs, ha=ha, wa=wa,
-                                     coh_factor=coh, plain=True)
+    want = pc.cascade_sweeps(f_b, f_a, py, px, offs, ha=ha, wa=wa,
+                             coh_factor=coh, plain=True)
     torch.cuda.synchronize()
     return got, want
 
@@ -530,22 +526,21 @@ def test_kernel_repeats_its_bits(captured):
             captured.items():
         offs = offsets(np.random.default_rng(10), 2, n_random, h, w, ha, wa,
                        f_b.device)
-        runs = [pm.patchmatch_sweeps_lean(f_b, f_a, py, px, offs, ha=ha,
-                                          wa=wa, coh_factor=coh)
+        runs = [pc.cascade_sweeps(f_b, f_a, py, px, offs, ha=ha, wa=wa,
+                                  coh_factor=coh)
                 for _ in range(2)]
         for g, x in zip(*runs):
             assert torch.equal(g, x), (h, w)
 
 
 @cuda
-@pytest.mark.parametrize("route,launched,reason", [
-    ("default", SWEEPS, None),
-    ("plain", 0, "plain"),
-    ("temporal", 0, "temporal"),
-    ("gather", 0, "gather"),
+@pytest.mark.parametrize("route,launched", [
+    ("default", SWEEPS),
+    ("plain", 0),
+    ("temporal", 0),
+    ("gather", 0),
 ])
-def test_pixel_path_launches_on_the_card(dev, registry, route, launched,
-                                         reason):
+def test_pixel_path_launches_on_the_card(dev, registry, route, launched):
     kw, f_b, f_a, nnf, offs = _pixel_case(np.random.default_rng(11), route)
     if "temporal" in kw:
         kw["temporal"] = kw["temporal"].to(dev)
@@ -554,44 +549,42 @@ def test_pixel_path_launches_on_the_card(dev, registry, route, launched,
                          [o.to(dev) for o in offs], coh_factor=1.5, **kw)
     torch.cuda.synchronize()
     assert pc.launches.count == before + launched
-    assert eager_counts(registry) == ({} if reason is None
-                                      else {reason: float(SWEEPS)})
     got = registry.counter("ia_kernel_launches_total").value(
         labels={"kernel": "pixel_cascade"})
     assert got == launched
 
 
 @cuda
-@pytest.mark.parametrize("polish,cand_dtype,reason", [
-    ("sequential", "bf16", None),
-    ("stream", "bf16", "gather"),
-    ("sequential", "int8", "gather"),
+@pytest.mark.parametrize("polish,cand_dtype,polish_launches", [
+    ("sequential", "bf16", True),
+    ("stream", "bf16", False),
+    ("sequential", "int8", False),
 ])
-def test_run_launches_once_a_sweep_on_the_card(dev, registry, monkeypatch,
-                                               polish, cand_dtype, reason):
+def test_run_launches_once_a_sweep_on_the_card(dev, monkeypatch, set_modes,
+                                               polish, cand_dtype,
+                                               polish_launches):
     """A 128^2 run on the card: the 64^2 level's sweeps launch K4 in
     every mode; the 128^2 polish launches it only as the sequential bf16
-    engine, else its sweeps are booked eager by "gather"; under
-    "interpret" nothing launches."""
-    from image_analogies_tpu_torch.kernels import patchmatch_tile as pt
+    engine, else its sweeps run eagerly; under "interpret" nothing
+    launches."""
+    set_modes(cand_dtype=cand_dtype, polish=polish)
+    shapes = []
+    real = pc.cascade_sweep_kernel
 
-    monkeypatch.setattr(pt, "_CAND_DTYPE", cand_dtype)
-    monkeypatch.setattr(pm, "_POLISH_MODE", polish)
+    def spy(f_b, f_a, py, *args, **kw):
+        shapes.append(tuple(py.shape))
+        return real(f_b, f_a, py, *args, **kw)
+
+    monkeypatch.setattr(pc, "cascade_sweep_kernel", spy)
     a, ap, b = (torch.as_tensor(x, device=dev) for x in _images())
     cfg = SynthConfig(**{**RUN, "device": "cuda"})
     pixel = cfg.em_iters * cfg.pm_iters
-    tracer = Tracer()
     before = pc.launches.count
-    create_image_analogy(a, ap, b, cfg, progress=tracer)
+    create_image_analogy(a, ap, b, cfg)
     torch.cuda.synchronize()
-    polished = cfg.pm_polish_iters
-    assert pc.launches.count == before + pixel + (
-        polished if reason is None else 0)
-    assert eager_counts(registry) == ({} if reason is None
-                                      else {reason: float(polished)})
-    want = "k4" if reason is None else "eager"
-    assert [sp.attrs["engine"] for sp in tracer.find("polish")] == [want]
-    assert {sp.attrs["engine"] for sp in tracer.find("pixel")} == {"k4"}
+    polished = cfg.pm_polish_iters if polish_launches else 0
+    assert pc.launches.count == before + pixel + polished
+    assert sorted(shapes) == [(64, 64)] * pixel + [(128, 128)] * polished
     before = pc.launches.count
     create_image_analogy(a, ap, b, SynthConfig(
         **{**RUN, "device": "cuda", "pallas_mode": "interpret"}))
@@ -604,12 +597,12 @@ def test_caller_dist_fn_never_launches_on_the_card(dev, registry):
     f_b, f_a = tables(rng, 32, 32, 32, 32, 8, device=dev)
     py, px = field(rng, 32, 32, 32, 32, dev)
     before = pc.launches.count
-    pm.patchmatch_sweeps_lean(
+    pc.cascade_sweeps(
         f_b, f_a, py, px, offsets(rng, 2, 3, 32, 32, 32, 32, dev), ha=32,
         wa=32, coh_factor=1.0,
         dist_fn=lambda idx: candidate_dist_lean(f_b, f_a, idx))
     assert pc.launches.count == before
-    assert eager_counts(registry) == {"dist_fn": 2.0}
+    assert "ia_kernel_launches_total" not in registry.to_dict()
 
 
 @cuda

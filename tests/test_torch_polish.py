@@ -19,7 +19,9 @@ from image_analogies_tpu.models import matcher as j_m
 from image_analogies_tpu.models import patchmatch as j_pm
 from image_analogies_tpu_torch.kernels import polish_stream as tps
 from image_analogies_tpu_torch.models import matcher as t_m
+from image_analogies_tpu_torch.config import _POLISH_MODES, engine_modes
 from image_analogies_tpu_torch.models import patchmatch as t_pm
+from torch_modes import set_modes  # noqa: F401 (a fixture)
 
 T = torch.from_numpy
 
@@ -251,14 +253,14 @@ def test_lex_min_ties_to_lowest_index():
     assert d_min.tolist() == [1.0, 0.5] and i_min.tolist() == [3, 4]
 
 
-def test_polish_mode_setter_and_env_default(monkeypatch):
-    assert t_pm._POLISH_MODE == j_pm._POLISH_MODE
-    assert t_pm._POLISH_MODES == j_pm._POLISH_MODES
+def test_polish_mode_setter_and_env_default(set_modes):
+    assert engine_modes().polish == j_pm._POLISH_MODE
+    assert _POLISH_MODES == j_pm._POLISH_MODES
     assert t_pm._TIE_FLOOD_STEPS == j_pm._TIE_FLOOD_STEPS
     assert t_pm._JUMP_STEPS == j_pm._JUMP_STEPS
-    monkeypatch.setattr(t_pm, "_POLISH_MODE", "sequential")
-    t_pm.set_polish_mode("stream")
-    assert t_pm._POLISH_MODE == "stream"
+    set_modes(polish="sequential")
+    set_modes(polish="stream")
+    assert engine_modes().polish == "stream"
     with pytest.raises(ValueError, match="polish mode"):
-        t_pm.set_polish_mode("turbo")
-    assert t_pm._POLISH_MODE == "stream"
+        set_modes(polish="turbo")
+    assert engine_modes().polish == "stream"

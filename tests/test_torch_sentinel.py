@@ -28,6 +28,7 @@ from image_analogies_tpu_torch.kernels import polish_stream as ps
 from image_analogies_tpu_torch.telemetry import metrics as t_metrics
 from image_analogies_tpu_torch.telemetry import sentinel as t_sent
 from image_analogies_tpu_torch.telemetry import slo as t_slo
+from torch_modes import set_modes  # noqa: F401 (a fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -567,12 +568,11 @@ def test_plain_paths_book_no_ledger(session_registry):
 
 
 def test_compressed_tile_path_ledgers_exact(session_registry, fake_launch,
-                                            monkeypatch):
+                                            monkeypatch, set_modes):
     """The compressed tile path (int8 planes, prune 16:8, stream polish)
     at 128^2 with the kernels' bookings on: all three ledgers exact, the
     K1 fetches at the prune's budget."""
     from image_analogies_tpu_torch import create_image_analogy
-    from image_analogies_tpu_torch.models import patchmatch as t_pm
     from image_analogies_tpu_torch.utils.examples import super_resolution
 
     real_k1, real_k3 = pt.tile_sweep_kernel, ps.gather_rows_kernel
@@ -593,9 +593,7 @@ def test_compressed_tile_path_ledgers_exact(session_registry, fake_launch,
 
     monkeypatch.setattr(pt, "tile_sweep_kernel", k1)
     monkeypatch.setattr(ps, "gather_rows_kernel", k3)
-    monkeypatch.setattr(pt, "_CAND_DTYPE", "int8")
-    monkeypatch.setattr(pt, "_CAND_PRUNE", "16:8")
-    monkeypatch.setattr(t_pm, "_POLISH_MODE", "stream")
+    set_modes(cand_dtype="int8", prune="16:8", polish="stream")
     a, ap, b = (torch.as_tensor(x) for x in super_resolution(128))
     cfg = SynthConfig(levels=2, em_iters=1, pm_iters=2, device="cpu")
     create_image_analogy(a, ap, b, cfg)
@@ -648,10 +646,10 @@ def test_kernelbench_setup_evaluates_every_slot():
     assert kernelbench.sweep_setup(cfg, 64, device="cpu") is None
 
 
-def test_kernelbench_setup_under_the_prune(monkeypatch):
+def test_kernelbench_setup_under_the_prune(set_modes):
     from image_analogies_tpu_torch.utils import kernelbench
 
-    monkeypatch.setattr(pt, "_CAND_PRUNE", "16:8")
+    set_modes(prune="16:8")
     _, _, meta = kernelbench.sweep_setup(SynthConfig(device="cpu"), 256,
                                          device="cpu")
     assert meta["prune"] == (16, 8)

@@ -25,7 +25,9 @@ tests/torch_serve_workers.py):
     drains with every rank ending 0; one that dies (at the test's
     signal) before it follows fails the serving mesh's start; one lost
     while rank 0's side of the world still forms fails the start and
-    leaves no default group, so the next world forms.
+    leaves no default group, so the next world forms;
+  - a dispatch's header carries the whole engine-mode record, and
+    installing it sets all four modes.
 
 24^2-48^2, 2 levels, 1 EM step, torch on one intra-op thread; the data
 group's timeout is `T` seconds (a rank whose peer failed waits that long)."""
@@ -34,12 +36,14 @@ import base64
 import hashlib
 import json
 import os
+import pickle
 import re
 import signal
 import subprocess
 import sys
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 
@@ -52,7 +56,11 @@ from image_analogies_tpu.parallel.mesh import make_mesh as j_make_mesh
 from image_analogies_tpu.serving import daemon as j_daemon
 from image_analogies_tpu.telemetry import metrics as j_metrics
 from image_analogies_tpu_torch import psnr
-from image_analogies_tpu_torch.config import SynthConfig
+from image_analogies_tpu_torch.config import (
+    EngineModes,
+    SynthConfig,
+    engine_modes,
+)
 from image_analogies_tpu_torch.parallel.mesh import start_world
 from image_analogies_tpu_torch.runtime.faults import set_fault_plan
 from image_analogies_tpu_torch.serving.accesslog import read_entries
@@ -67,6 +75,7 @@ from image_analogies_tpu_torch.utils.io import save_image
 from image_analogies_tpu_torch.video.sequence import VideoStream
 
 import torch_serve_workers as wk
+from torch_modes import set_modes  # noqa: F401 (a fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = 4.0
@@ -402,6 +411,37 @@ def test_three_ranks_at_grain_four_pad_the_stack(single):
     assert codes == [0, 0]
     for g, w in zip(got, single["pm", 4]):
         np.testing.assert_array_equal(g, w)
+
+
+class _Sent(Exception):
+    """Stops a dispatch once its header is in the store."""
+
+
+def test_the_dispatch_header_carries_every_engine_mode(set_modes):
+    """Rank 0 ships the engine-mode record whole in a dispatch's header,
+    and the one call a follower makes with it installs all four modes."""
+    headers = []
+
+    class Store:
+        def set(self, key, value):
+            headers.append(pickle.loads(value))
+            raise _Sent
+
+    mesh = object.__new__(ServingMesh)
+    mesh.lost, mesh._device, mesh._seq, mesh._epoch = None, None, 0, 0
+    mesh._lock = threading.Lock()
+    mesh._g = types.SimpleNamespace(store=Store())
+    want = EngineModes(cand_dtype="int8", prune="16:8", restart="coarse",
+                       polish="stream")
+    assert want != EngineModes()
+    set_modes(want)
+    with pytest.raises(_Sent):
+        mesh.run(np.zeros((2, 8, 8, 3), np.float32), SynthConfig(**PM))
+    (header,) = headers
+    assert header["modes"] == want
+    set_modes(EngineModes())
+    set_modes(header["modes"])
+    assert engine_modes() == want
 
 
 def test_a_follower_dead_before_it_follows_fails_the_start(tmp_path):

@@ -73,6 +73,7 @@ from image_analogies_tpu_torch.serving.queueing import (  # noqa: E402
     demux,
     head_deadline,
 )
+from torch_modes import set_modes  # noqa: E402,F401 (a fixture)
 from image_analogies_tpu_torch.telemetry.metrics import (  # noqa: E402
     MetricsRegistry,
     set_registry,
@@ -332,6 +333,22 @@ class TestExecKey:
         assert exec_key((32, 32, 3), cfg, batch_size=4) != k1
         assert exec_key((64, 64, 3), cfg, batch_size=2) != k1
         assert "32" in key_str(k1) and cfg.matcher in key_str(k1)
+
+    @pytest.mark.parametrize("cand_dtype,prune", [
+        ("bf16", "off"), ("int8", "off"), ("bf16", "16:8"), ("int8", "8:4"),
+    ])
+    def test_compression_label_is_the_reference_s(self, monkeypatch,
+                                                  set_modes, cand_dtype,
+                                                  prune):
+        """In every (cand_dtype, prune) the label is, byte for byte, the
+        reference's first two fields under the same modes."""
+        from image_analogies_tpu.kernels import patchmatch_tile as jpt
+
+        monkeypatch.setattr(jpt, "_CAND_DTYPE", cand_dtype)
+        monkeypatch.setattr(jpt, "_CAND_PRUNE", prune)
+        set_modes(cand_dtype=cand_dtype, prune=prune)
+        want = j_ex.compression_mode().rsplit("|", 1)[0]
+        assert compression_mode() == want
 
 
 class TestExecutableCache:

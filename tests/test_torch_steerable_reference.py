@@ -154,14 +154,12 @@ def test_the_judge_holds_the_programs_patchmatch_answer(patchmatch_run):
 
 
 def test_the_sweep_spans_carry_the_steerable_plan(patchmatch_run):
-    """Every tile sweep at 12 channels takes 8-row strips (its candidate
-    tables eager on the CPU); the prologue opens one `steer` span a
-    side."""
+    """Every tile sweep at 12 channels takes 8-row strips; the prologue
+    opens one `steer` span a side."""
     sweeps = patchmatch_run.tracer.find("sweep")
     assert len(sweeps) == CONFIG["synth"]["em_iters"]
     for s in sweeps:
-        assert s.attrs == {"channels": 12, "strip_rows": 8,
-                           "tables": "eager"}
+        assert s.attrs == {"channels": 12, "strip_rows": 8}
     steers = patchmatch_run.tracer.find("steer")
     assert [s.attrs for s in steers] == [{"side": "a"}, {"side": "b"}]
 

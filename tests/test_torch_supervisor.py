@@ -23,7 +23,10 @@ from check_report import validate_flight  # noqa: E402
 
 from image_analogies_tpu_torch import SynthConfig, create_image_analogy  # noqa: E402
 from image_analogies_tpu_torch import synthesize_batch, synthesize_video  # noqa: E402
-from image_analogies_tpu_torch.models import patchmatch as t_pm  # noqa: E402
+from image_analogies_tpu_torch.config import (  # noqa: E402
+    engine_modes,
+    set_engine_modes,
+)
 from image_analogies_tpu_torch.runtime import faults, supervisor  # noqa: E402
 from image_analogies_tpu_torch.runtime.faults import (  # noqa: E402
     FaultPlan,
@@ -51,10 +54,11 @@ def _one_thread():
 
 
 @pytest.fixture(autouse=True)
-def _clean_modes(monkeypatch):
-    """No armed plan and the polish mode restored after every test."""
-    monkeypatch.setattr(t_pm, "_POLISH_MODE", t_pm._POLISH_MODE)
+def _clean_modes():
+    """No armed plan and the engine modes restored after every test."""
+    prev = set_engine_modes()
     yield
+    set_engine_modes(prev)
     faults.set_fault_plan(None)
 
 
@@ -302,12 +306,12 @@ class TestSupervisedHeal:
         """Under the streamed polish the first rung is stream ->
         sequential (bit-safe); persistent failures step it, the run heals
         bit-identically, and the step is recorded."""
-        t_pm.set_polish_mode("stream")
+        set_engine_modes(polish="stream")
         out, err, reg, tracer, _, _ = _supervised(
             oracle, "level:0:raise:3", max_retries=1)
         assert err is None
         np.testing.assert_array_equal(out.numpy(), oracle[3])
-        assert t_pm._POLISH_MODE == "sequential"
+        assert engine_modes().polish == "sequential"
         assert _counter(reg, "ia_degradations_total") == {
             (("from", "stream"), ("to", "sequential")): 1.0}
         (mark,) = tracer.find("degradation")
